@@ -1,0 +1,3 @@
+from .synthetic import (NodeClassificationDataset, planted_partition,
+                        random_power_law_graph, synthetic_citation,
+                        synthetic_cora, synthetic_reddit)

@@ -1,0 +1,1 @@
+from .gnn_models import GAT, GCN

@@ -1,0 +1,147 @@
+"""Build, load and count the port's CUDA kernels.
+
+The kernels are CUDA C++ for Hopper (``sm_90a``) under ``csrc/``, with a
+plain C interface.  At first use, ``nvcc`` compiles all of them into one
+shared library under ``build/`` at the repository root, keyed by a hash of
+the sources (a stale library is never loaded), and ``ctypes`` loads it.
+Every C entry point takes raw device pointers and a stream and returns
+``cudaGetLastError()``; ``check()`` raises if that is not 0.
+
+Nothing here runs at import: the CPU tests import every module of the
+port, and this machine may have no ``nvcc``.
+
+``LAUNCHES`` counts kernel launches by name.  A wrapper adds one where it
+launches its kernel and nowhere else; a plain version that runs on a CUDA
+tensor adds one under ``plain.<name>``, so a run can show that its main
+path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "dgl_hack_tpu_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points in csrc/*.cu
+SIGNATURES = {
+    # indptr, gidx, eid, x, w, w_kind, out, num_rows, F, stream
+    "segment_sum_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    # indptr, src, wh, el, er, w, shift, rst, den,
+    # num_dst, H, D, slope, exact, stream
+    "gat_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _F, _I, _P],
+    # csr_indptr, csr_eids, dst_csr, wh, el, er, shift, den, sds, dout, w,
+    # dwh, del, draw, dw, num_src, H, D, slope, warps_per_block, stream
+    "gat_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+}
+
+
+class Launches:
+    """Kernel launch counts by name; plain ints, reset by the caller."""
+
+    def __init__(self):
+        self.counts: Dict[str, int] = {}
+
+    def add(self, name: str) -> None:
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def reset(self) -> None:
+        self.counts.clear()
+
+
+LAUNCHES = Launches()
+
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_INFO: Dict[str, object] = {}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from csrc/ at first use and need the CUDA toolkit")
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    srcs = _sources()
+    digest = hashlib.sha256()
+    for p in srcs:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS).encode())
+    so = BUILD_DIR / f"libdgl_kernels_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+               *[str(p) for p in srcs if p.suffix == ".cu"]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        BUILD_INFO["ptxas"] = res.stderr
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0)
+    _LIB = lib
+    return lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            device: torch.device, numel: Optional[int] = None) -> None:
+    """Wrapper-side argument check: the kernels take contiguous tensors of
+    one dtype on the launch device, and raise on anything else."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes "
+                        f"{dtype} (other dtypes: ROADMAP: "
+                        "'bf16')")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name} has {t.numel()} elements, expected {numel}")

@@ -1,0 +1,184 @@
+"""K1, the sorted-segment sum, and the gspmm sum it carries.
+
+``segment_sum`` is the wrapper of the CUDA kernel in
+``csrc/segment_sum.cu`` (which replaces the TPU kernel
+``dgl_hack_tpu/ops/pallas/spmm_kernel.py:_reduce_kernel``);
+``segment_sum_plain`` is its plain PyTorch version.  A CPU tensor takes
+the plain version; a CUDA tensor launches the kernel or raises.
+
+``GspmmSum`` is the counterpart of the JAX package's ``_gspmm_fused``
+custom VJP: the forward reduces over the CSC direction, dx runs the same
+kernel over the CSR direction, and dw = <x[src], g[dst]> stays a plain
+gather-and-dot.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .build import LAUNCHES, check, library, ptr, require, stream_ptr
+
+Tensor = torch.Tensor
+
+_I32_MAX = 2 ** 31 - 1
+
+
+def _unsupported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to CUDA yet (ROADMAP: '{item}')")
+
+
+def segment_sum_plain(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
+                      eid: Optional[Tensor] = None,
+                      w: Optional[Tensor] = None) -> Tensor:
+    """out[r] = sum_{j in [indptr[r], indptr[r+1])} x[gidx[j]] * w[eid[j]].
+
+    gidx None reads x row j (edge-row mode); eid None means eid[j] = j; w
+    is None, (E,) or (E, F).  Empty rows give 0."""
+    if x.is_cuda:
+        LAUNCHES.add("plain.segment_sum")
+    num_rows = indptr.numel() - 1
+    deg = (indptr[1:] - indptr[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(num_rows, device=x.device), deg)
+    nnz = rows.numel()
+    m = x[gidx] if gidx is not None else x[:nnz]
+    if w is not None:
+        we = w[eid] if eid is not None else w[:nnz]
+        m = m * (we[:, None] if we.dim() == 1 else we)
+    out = x.new_zeros((num_rows, x.shape[1]))
+    return out.index_add(0, rows, m)
+
+
+def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
+                eid: Optional[Tensor] = None, w: Optional[Tensor] = None, *,
+                site: str = "fwd") -> Tensor:
+    """K1 wrapper.  x (rows, F) float32; indptr, gidx, eid int32; w None,
+    (E,) or (E, F).  ``site`` names the call site in the launch count
+    (fwd, rev, edge)."""
+    if x.device.type == "cpu":
+        return segment_sum_plain(indptr, x, gidx, eid, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment_sum: unsupported device {x.device}")
+    dev = x.device
+    if x.dim() != 2:
+        raise ValueError(f"segment_sum takes x of shape (rows, F), got "
+                         f"{tuple(x.shape)}")
+    num_rows, F = indptr.numel() - 1, x.shape[1]
+    require(x, "x", torch.float32, dev)
+    require(indptr, "indptr", torch.int32, dev)
+    E = x.shape[0] if gidx is None else gidx.numel()
+    if gidx is not None:
+        require(gidx, "gidx", torch.int32, dev)
+    if eid is not None:
+        require(eid, "eid", torch.int32, dev, E)
+    w_kind = 0
+    if w is not None:
+        require(w, "w", torch.float32, dev)
+        if w.dim() == 1:
+            w_kind = 1
+        elif w.dim() == 2 and w.shape[1] == F:
+            w_kind = 2
+        else:
+            raise ValueError(f"segment_sum weight of shape {tuple(w.shape)} "
+                             f"for F={F}; expected (E,) or (E, {F})")
+        if w.shape[0] != E:
+            raise ValueError(f"w has {w.shape[0]} rows, expected {E}")
+    if max(num_rows, E, x.shape[0]) > _I32_MAX:
+        raise ValueError("segment_sum: sizes exceed the int32 index range")
+    out = torch.empty((num_rows, F), dtype=torch.float32, device=dev)
+    lib = library()
+    LAUNCHES.add(f"segment_sum.{site}")
+    check("segment_sum", lib.segment_sum_f32(
+        ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind, ptr(out),
+        num_rows, F, stream_ptr(dev)))
+    return out
+
+
+def rev_gidx(g) -> Tensor:
+    """dst of each edge in CSR order (the dx direction's gather index),
+    cached on the graph."""
+    t = g.derived.get("dst_csr")
+    if t is None:
+        if g.csr_eids is None:
+            raise ValueError("gspmm backward needs the graph's CSR format")
+        t = g.dst[g.csr_eids].contiguous()
+        g.derived["dst_csr"] = t
+    return t
+
+
+class GspmmSum(torch.autograd.Function):
+    """out[v] = sum_{e=(u,v)} x[u] * w[e] over the graph's CSC direction.
+
+    x (N_src, F); w None, (E,) or (E, F) in internal edge order."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, w: Optional[Tensor], g) -> Tensor:
+        ctx.g = g
+        ctx.save_for_backward(x, w)
+        return segment_sum(g.csc_indptr, x, gidx=g.src, w=w, site="fwd")
+
+    @staticmethod
+    def backward(ctx, dout: Tensor):
+        x, w = ctx.saved_tensors
+        g = ctx.g
+        dout = dout.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx[u] = sum_{e=(u,v)} dout[v] * w[e]: the src-major direction
+            dx = segment_sum(g.csr_indptr, dout, gidx=rev_gidx(g),
+                             eid=g.csr_eids, w=w, site="rev")
+        if w is not None and ctx.needs_input_grad[1]:
+            # dw[e] = <x[src_e], dout[dst_e]>, elementwise for (E, F) w
+            prod = x[g.src] * dout[g.dst]
+            dw = prod.sum(-1) if w.dim() == 1 else prod
+        return dx, dw, None
+
+
+def gspmm_sum(g, x: Tensor, w: Optional[Tensor] = None) -> Tensor:
+    """copy_u / u_mul_e sum through K1.  x (N, ...) and w (E,), (E, 1...)
+    or (E, ...) broadcastable to x's feature shape.  Returns (N_dst, ...)."""
+    if x.is_cuda:
+        if g.edge_mask is not None:
+            raise _unsupported("gspmm on a masked (padded) graph",
+                               "masked graphs")
+        if x.dtype != torch.float32:
+            raise _unsupported(f"gspmm in {x.dtype}", "bf16")
+    shape = x.shape
+    x2 = x.reshape(shape[0], -1).contiguous()
+    if w is not None:
+        if w.dim() > 1 and all(s == 1 for s in w.shape[1:]):
+            w = w.reshape(w.shape[0])           # one scalar per edge
+        elif w.dim() > 1:
+            w = w.expand((w.shape[0],) + tuple(shape[1:]))
+            w = w.reshape(w.shape[0], -1)
+        w = w.contiguous()
+    out = GspmmSum.apply(x2, w, g)
+    return out.reshape((out.shape[0],) + tuple(shape[1:]))
+
+
+def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
+                 wc: Optional[int] = None, *, weighted: bool = True,
+                 dense_hub: bool = True, dense_threshold: Optional[int] = None,
+                 dense_budget: int = 3 << 30, flat="auto",
+                 flat_width: int = 128, sddmm: bool = True,
+                 bucket_rows="auto", bucket_rows_rev="same", device=None):
+    """Ready a graph for the kernels: its CSC and CSR arrays are the plan.
+
+    Places ``csc_indptr``, ``src``, ``csr_indptr``, ``csr_eids`` and
+    ``dst[csr_eids]`` on ``device`` (the graph's own device when None) and
+    returns the graph.  The TPU plan knobs (tr, te, bc, wc, weighted,
+    dense_hub, dense_threshold, dense_budget, flat, flat_width, sddmm,
+    bucket_rows, bucket_rows_rev) are accepted for signature parity with
+    the JAX package and ignored: the port's kernels read the graph's own
+    index arrays.  A graph does not need this call to run the kernels."""
+    if g.edge_mask is not None:
+        raise _unsupported("prepare_spmm on a masked (padded) graph",
+                           "masked graphs")
+    if g.csr_indptr is None or g.csr_eids is None:
+        raise ValueError("prepare_spmm requires the graph's CSR format")
+    if device is not None:
+        g = g.to(device)
+    rev_gidx(g)
+    return g

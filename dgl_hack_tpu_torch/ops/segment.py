@@ -1,0 +1,109 @@
+"""Segment reductions in plain torch: the composed path of gspmm and
+edge_softmax.
+
+Conventions match the JAX package (and DGL):
+
+* ``mean`` = sum / clamp(count, 1);
+* ``max``/``min`` over an empty segment give 0, not +-inf;
+* ``prod`` over an empty segment gives 1.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+Tensor = torch.Tensor
+
+_REDUCERS = ("sum", "mean", "max", "min", "prod")
+
+
+def _expand(x: Tensor, ref: Tensor) -> Tensor:
+    """Broadcast a (E,) vector against trailing feature dims of ``ref``."""
+    return x.reshape(x.shape + (1,) * (ref.dim() - 1))
+
+
+def _scatter(data: Tensor, segment_ids: Tensor, num_segments: int,
+             how: str, init: float) -> Tensor:
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), init,
+                     dtype=data.dtype, device=data.device)
+    idx = _expand(segment_ids.long(), data).expand_as(data)
+    return out.scatter_reduce(0, idx, data, how, include_self=True)
+
+
+def segment_sum(data: Tensor, segment_ids: Tensor,
+                num_segments: int) -> Tensor:
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_add(0, segment_ids, data)
+
+
+def segment_mean(data: Tensor, segment_ids: Tensor,
+                 num_segments: int) -> Tensor:
+    s = segment_sum(data, segment_ids, num_segments)
+    cnt = segment_sum(torch.ones_like(segment_ids, dtype=data.dtype),
+                      segment_ids, num_segments)
+    return s / _expand(cnt.clamp(min=1), s)
+
+
+def segment_max(data: Tensor, segment_ids: Tensor,
+                num_segments: int) -> Tensor:
+    m = _scatter(data, segment_ids, num_segments, "amax", -float("inf"))
+    return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+
+
+def segment_min(data: Tensor, segment_ids: Tensor,
+                num_segments: int) -> Tensor:
+    m = _scatter(data, segment_ids, num_segments, "amin", float("inf"))
+    return torch.where(torch.isposinf(m), torch.zeros_like(m), m)
+
+
+def segment_prod(data: Tensor, segment_ids: Tensor,
+                 num_segments: int) -> Tensor:
+    return _scatter(data, segment_ids, num_segments, "prod", 1.0)
+
+
+def segment_softmax(data: Tensor, segment_ids: Tensor,
+                    num_segments: int) -> Tensor:
+    """Numerically stable per-segment softmax over ``data``'s leading axis:
+    segment max -> subtract -> exp -> segment sum -> divide."""
+    m = segment_max(data.detach(), segment_ids, num_segments)
+    e = torch.exp(data - m[segment_ids])
+    s = segment_sum(e, segment_ids, num_segments)
+    return e / s.clamp(min=torch.finfo(data.dtype).tiny)[segment_ids]
+
+
+_SEGMENT_FNS = {
+    "sum": segment_sum,
+    "mean": segment_mean,
+    "max": segment_max,
+    "min": segment_min,
+    "prod": segment_prod,
+}
+
+
+def apply_identity_mask(reducer: str, data: Tensor, mask: Tensor) -> Tensor:
+    """Replace masked-out rows with the reducer's identity element."""
+    ident = {"sum": 0.0, "mean": 0.0, "max": -float("inf"),
+             "min": float("inf"), "prod": 1.0}
+    if reducer not in ident:
+        raise ValueError(f"unknown reducer {reducer!r}")
+    fill = torch.full((), ident[reducer], dtype=data.dtype,
+                      device=data.device)
+    return torch.where(_expand(mask, data), data, fill)
+
+
+def segment_reduce(reducer: str, data: Tensor, segment_ids: Tensor,
+                   num_segments: int, mask: Optional[Tensor] = None) -> Tensor:
+    """Dispatch a named reducer; ``mask`` (E,) bool drops padded entries,
+    which contribute the reducer's identity (and are not counted by
+    ``mean``)."""
+    if reducer not in _SEGMENT_FNS:
+        raise ValueError(
+            f"unknown reducer {reducer!r}; expected one of {_REDUCERS}")
+    if mask is not None:
+        data = apply_identity_mask(reducer, data, mask)
+        if reducer == "mean":
+            s = segment_sum(data, segment_ids, num_segments)
+            cnt = segment_sum(mask.to(data.dtype), segment_ids, num_segments)
+            return s / _expand(cnt.clamp(min=1), s)
+    return _SEGMENT_FNS[reducer](data, segment_ids, num_segments)

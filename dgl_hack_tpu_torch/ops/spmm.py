@@ -1,0 +1,147 @@
+"""gSpMM: generalised sparse-dense matmul (fused message + reduce).
+
+Semantics as in ``dgl_hack_tpu.ops.spmm``:
+
+* reduce to **dst** nodes over incoming edges;
+* ``mean`` divides by clamp(in_degree, 1);
+* zero in-degree rows give 0 for sum/mean/max/min;
+* padded edges (``g.edge_mask``) contribute the reducer identity.
+
+Dispatch by device:
+
+* a dst-side ('v') operand with sum/mean decomposes into a copy-reduce of
+  the other operand plus a per-node combine (``_v_side_decompose``), on
+  either device, as in the JAX package;
+* CUDA tensors: copy_u and u_mul_e with sum/mean go through K1, the
+  segment-sum kernel (``ops/cuda/spmm_kernel.py``); max/min raise, since
+  their kernel is not ported yet.  The combinations the JAX package also
+  composes without a kernel (an edge-side lhs, u_op_e other than mul,
+  prod, copy of a dst-side operand, a masked graph's dst-side operand)
+  take the composed path;
+* CPU tensors: the composed path (gather, combine, segment reduce).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import segment
+from .common import apply_binary, gather_edge_operand
+from .cuda.build import LAUNCHES
+from .cuda.spmm_kernel import _unsupported, gspmm_sum
+
+Tensor = torch.Tensor
+
+REDUCERS = ("sum", "mean", "max", "min", "prod")
+
+
+def _kernel_shaped(op, lhs_data, rhs_data, lhs_target, rhs_target) -> bool:
+    """copy_u, or u_mul_e whose weight broadcasts up to x's feature shape
+    (the kernel broadcasts w to x, not the other way)."""
+    if lhs_target != "u" or op not in ("copy_lhs", "mul"):
+        return False
+    if op == "mul":
+        if rhs_target != "e":
+            return False
+        xs, ws = tuple(lhs_data.shape[1:]), tuple(rhs_data.shape[1:])
+        if len(ws) > len(xs):
+            return False
+        return all(b in (1, a) for a, b in zip(xs[len(xs) - len(ws):], ws))
+    return True
+
+
+def _expand_like(x: Tensor, ref: Tensor) -> Tensor:
+    return x.reshape(x.shape + (1,) * (ref.dim() - 1))
+
+
+def _v_side_decompose(g, op: str, reduce_op: str, lhs_data, rhs_data,
+                      lhs_target: str, rhs_target: str) -> Optional[Tensor]:
+    """Sum/mean with a dst-side ('v') operand: y[v] is constant over v's
+    in-edges, so the reduction is a copy-reduce of the other operand plus a
+    per-node combine, e.g. ``gspmm(u_add_v, sum)[v] = copy_u_sum(x)[v] +
+    deg(v)*y[v]``.  The copy-reduce of a 'u' operand runs K1 on CUDA.
+    Returns None when the combo does not decompose (caller composes)."""
+    if g.edge_mask is not None or reduce_op not in ("sum", "mean"):
+        return None
+    deg = g.in_degrees()
+    if lhs_target == "v" and rhs_target == "v":      # fully node-local
+        m = apply_binary(op, lhs_data, rhs_data)
+        out = _expand_like(deg.to(m.dtype), m) * m if reduce_op == "sum" \
+            else m
+        return torch.where(_expand_like(deg > 0, out), out,
+                           torch.zeros_like(out))
+    if op in ("copy_lhs", "copy_rhs"):
+        return None
+    if rhs_target == "v":
+        y, z, z_t, v_is_lhs = rhs_data, lhs_data, lhs_target, False
+    else:
+        y, z, z_t, v_is_lhs = lhs_data, rhs_data, rhs_target, True
+    if not (y.is_floating_point() and z.is_floating_point()):
+        return None
+
+    def red(data):
+        return gspmm(g, "copy_lhs", reduce_op, data, None, z_t, "e")
+
+    scale = _expand_like(deg.to(y.dtype), y) if reduce_op == "sum" else 1.0
+    if op == "div" and v_is_lhs:                     # y/z: reduce 1/z
+        out = y * red(1.0 / z)
+    elif op == "add":
+        out = red(z) + scale * y
+    elif op == "sub":
+        out = scale * y - red(z) if v_is_lhs else red(z) - scale * y
+    elif op == "mul":
+        out = red(z) * y
+    elif op == "div":                                # z/y
+        out = red(z) / y
+    elif op == "dot":
+        out = (red(z) * y).sum(-1, keepdim=True)
+    else:
+        return None
+    return torch.where(_expand_like(deg > 0, out), out, torch.zeros_like(out))
+
+
+def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
+          rhs_data: Optional[Tensor] = None, lhs_target: str = "u",
+          rhs_target: str = "e") -> Tensor:
+    """out[v] = reduce_{e=(u,v)} op(lhs[lhs_target], rhs[rhs_target]).
+
+    ``lhs_data``/``rhs_data`` live on the target's index space: (num_src,
+    ...) for 'u', (num_dst, ...) for 'v', (num_edges, ...) in internal
+    order for 'e'.  Returns (num_dst, ...broadcast feature shape...)."""
+    if reduce_op not in REDUCERS:
+        raise ValueError(f"unknown reducer {reduce_op!r}")
+    data = lhs_data if lhs_data is not None else rhs_data
+    if data.is_cuda and reduce_op in ("max", "min"):
+        raise _unsupported(f"gspmm {op}.{reduce_op}", "segment max/min kernel")
+    if "v" in (lhs_target, rhs_target):
+        out = _v_side_decompose(g, op, reduce_op, lhs_data, rhs_data,
+                                lhs_target, rhs_target)
+        if out is not None:
+            return out
+    if data.is_cuda and reduce_op in ("sum", "mean") and _kernel_shaped(
+            op, lhs_data, rhs_data, lhs_target, rhs_target):
+        out = gspmm_sum(g, lhs_data, rhs_data if op == "mul" else None)
+        if reduce_op == "mean":
+            deg = g.in_degrees().to(out.dtype).clamp(min=1)
+            out = out / deg.reshape((-1,) + (1,) * (out.dim() - 1))
+        return out
+    if data.is_cuda:
+        LAUNCHES.add("plain.gspmm_composed")
+    lhs = None if op == "copy_rhs" else gather_edge_operand(g, lhs_data,
+                                                            lhs_target)
+    rhs = None if op == "copy_lhs" else gather_edge_operand(g, rhs_data,
+                                                            rhs_target)
+    msg = apply_binary(op, lhs, rhs)
+    return segment.segment_reduce(reduce_op, msg, g.dst, g.num_dst_nodes,
+                                  mask=g.edge_mask)
+
+
+def copy_u_sum(g, x: Tensor) -> Tensor:
+    """out[v] = sum_{u->v} x[u], the GCN/SAGE aggregation."""
+    return gspmm(g, "copy_lhs", "sum", x)
+
+
+def u_mul_e_sum(g, x: Tensor, w: Tensor) -> Tensor:
+    """out[v] = sum_{e=(u,v)} x[u] * w[e], the GAT aggregation."""
+    return gspmm(g, "mul", "sum", x, w, "u", "e")

@@ -1,0 +1,31 @@
+"""Environment configuration of the port.
+
+  DGL_TPU_GAT_SOFTMAX  fused-GAT shift strategy: shift | exact.  'shift'
+      (default) subtracts the upper bound leaky(max_u el[u] + er[v]);
+      softmax is shift-invariant, so the result is exact unless the
+      per-dst logit spread exceeds ~80 (exp underflow).  'exact' subtracts
+      the exact per-dst max, taken in a first pass over the in-edges.
+
+The variable is the JAX package's own, so one setting drives both
+packages in the parity tests.  The port has no switch that turns a kernel
+off: a CUDA tensor reaches the kernel or an error.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+GAT_SOFTMAX_MODES = ("shift", "exact")
+
+
+@dataclass
+class Config:
+    gat_softmax: str = "shift"
+
+
+def get_config() -> Config:
+    mode = os.environ.get("DGL_TPU_GAT_SOFTMAX", "shift")
+    if mode not in GAT_SOFTMAX_MODES:
+        raise ValueError(f"DGL_TPU_GAT_SOFTMAX={mode!r}; expected one of "
+                         f"{GAT_SOFTMAX_MODES}")
+    return Config(gat_softmax=mode)
