@@ -3,10 +3,10 @@ NVIDIA H100.
 
 The public API mirrors the JAX package's: ``graph()``, ``gspmm()``,
 ``gsddmm()``, ``edge_softmax()``, ``gat_attention()``, ``prepare_spmm()``,
-the ``GraphConv``/``GATConv`` layers and the ``GCN``/``GAT`` models, with
-the same tensor layouts.  CUDA tensors run the hand-written kernels under
-``csrc/`` (built at first use); CPU tensors run their plain PyTorch
-versions.  This package never imports JAX.
+the ``GraphConv``/``GATConv``/``SAGEConv``/``GINConv`` layers and the
+``GCN``/``GAT``/``GraphSAGE`` models, with the same tensor layouts.  CUDA
+tensors run the hand-written kernels under ``csrc/`` (built at first
+use); CPU tensors run their plain PyTorch versions.  This package never imports JAX.
 """
 from .core.graph import Graph, graph
 from .ops.edge_softmax import edge_softmax

@@ -1,1 +1,1 @@
-from .gnn_models import GAT, GCN
+from .gnn_models import GAT, GCN, GraphSAGE

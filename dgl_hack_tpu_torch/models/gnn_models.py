@@ -1,6 +1,8 @@
-"""End-to-end models: GCN and GAT, as in ``dgl_hack_tpu.models``.
+"""End-to-end models: GCN, GAT and full-graph GraphSAGE, as in
+``dgl_hack_tpu.models``.
 
-Sub-modules carry the JAX package's names (``layer0``, ``gat0``, ...), so
+Sub-modules carry the JAX package's names (``layer0``, ``gat0``, ``sage0``,
+...), so
 a flax params tree converts to a ``state_dict`` key for key
 (``interop.py``).
 """
@@ -12,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.conv import GATConv, GraphConv, dropout
+from ..nn.conv import GATConv, GraphConv, SAGEConv, dropout
 
 Tensor = torch.Tensor
 
@@ -69,3 +71,33 @@ class GAT(nn.Module):
             h = h.reshape(h.shape[0], -1)         # concat heads
         out = getattr(self, f"gat{L - 1}")(g, h, deterministic, generator)
         return out.mean(1)                        # mean over heads
+
+
+class GraphSAGE(nn.Module):
+    """Full-graph GraphSAGE: ``num_layers`` SAGEConv layers, with the
+    activation and dropout between layers and nothing after the last."""
+
+    def __init__(self, hidden_feats: int, out_feats: int, num_layers: int = 2,
+                 aggregator_type: str = "mean", dropout: float = 0.5,
+                 activation: Callable = F.relu):
+        super().__init__()
+        self.num_layers = num_layers
+        self.dropout = dropout
+        self.activation = activation
+        for i in range(num_layers):
+            dims = hidden_feats if i < num_layers - 1 else out_feats
+            self.add_module(f"sage{i}", SAGEConv(dims, aggregator_type))
+
+    def forward(self, g, x: Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        if isinstance(g, (list, tuple)):
+            raise NotImplementedError(
+                "GraphSAGE over a list of sampled blocks is not ported yet "
+                "(ROADMAP: 'sampling')")
+        det = (not self.training) if deterministic is None else deterministic
+        h = x
+        for i in range(self.num_layers):
+            h = getattr(self, f"sage{i}")(g, h, det, generator)
+            if i < self.num_layers - 1:
+                h = dropout(self.activation(h), self.dropout, det, generator)
+        return h

@@ -45,16 +45,21 @@ def train_node_classifier(model: torch.nn.Module, g, feats, labels,
                           model_args: tuple = (),
                           model_kwargs: Optional[dict] = None,
                           log_every: int = 0, early_stop_patience: int = 0,
-                          device=None) -> Dict[str, Any]:
+                          device="cuda") -> Dict[str, Any]:
     """Train ``model`` on graph ``g``; returns accuracies, epoch timing and
     the per-step losses (warm-up step first).
 
-    Runs on ``device`` (the graph's device when None); numpy inputs are
-    moved there.  Dropout draws come from a ``torch.Generator`` seeded with
-    ``seed``.  Parameters still uninitialised (lazy layers) are made by one
-    forward pass before the optimizer is built."""
+    Runs on ``device``, the card unless the caller asks for the CPU
+    (``device="cpu"``); with no card, "cuda" raises rather than falling
+    back.  The graph and numpy inputs are moved there.  Dropout draws
+    come from a ``torch.Generator`` seeded with ``seed``.  Parameters
+    still uninitialised (lazy layers) are made by one forward pass before
+    the optimizer is built."""
     model_kwargs = model_kwargs or {}
-    device = torch.device(device) if device is not None else g.device
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train_node_classifier: no CUDA device; pass "
+                           "device='cpu' to train on the CPU")
     if g.device != device:
         g = g.to(device)
 

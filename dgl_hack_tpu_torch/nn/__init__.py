@@ -1,1 +1,1 @@
-from .conv import GATConv, GraphConv
+from .conv import GATConv, GINConv, GraphConv, SAGEConv

@@ -5,7 +5,10 @@ parameters convert one to one (``interop.py``) and outputs compare:
 
 * ``GraphConv.weight`` is (in, out) and used as ``feat @ weight``;
 * ``GATConv.fc`` is an ``nn.Linear`` (weight (out, in), no bias);
-  ``attn_l``/``attn_r`` are (1, H, D).
+  ``attn_l``/``attn_r`` are (1, H, D);
+* ``SAGEConv``'s flax ``Dense`` layers are ``nn.Linear`` modules of the
+  same names (``fc_pool``, ``fc_self``, ``fc_neigh``); ``GINConv.eps`` is
+  a () parameter when learned.
 
 The input width is taken from the first call, as flax does: the layers
 are lazy modules, so a model is built from its output widths alone.
@@ -22,7 +25,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 from torch.nn.modules.lazy import LazyModuleMixin
-from torch.nn.parameter import UninitializedParameter
+from torch.nn.parameter import UninitializedParameter, is_lazy
 
 from ..ops.gat import gat_attention
 from ..ops.spmm import gspmm
@@ -47,6 +50,19 @@ def _glorot_normal_(t: Tensor, fan_in: int, fan_out: int) -> Tensor:
 
 def _is_deterministic(module: nn.Module, deterministic: Optional[bool]):
     return (not module.training) if deterministic is None else deterministic
+
+
+def _has_lazy(module: nn.Module) -> bool:
+    """Whether any parameter of ``module`` or of its sub-modules is still
+    uninitialised (``has_uninitialized_params`` sees only its own)."""
+    return any(is_lazy(p) for p in module.parameters())
+
+
+def _reject_bipartite(feat) -> None:
+    if isinstance(feat, (tuple, list)):
+        raise NotImplementedError(
+            "bipartite (src, dst) features are not ported yet "
+            "(ROADMAP: 'sampling')")
 
 
 class GraphConv(LazyModuleMixin, nn.Module):
@@ -133,7 +149,8 @@ class GATConv(LazyModuleMixin, nn.Module):
         self.res_fc = nn.LazyLinear(H * D, bias=False) if residual else None
 
     def initialize_parameters(self, g, feat, *args, **kwargs) -> None:
-        if not self.has_uninitialized_params():
+        _reject_bipartite(feat)
+        if not _has_lazy(self):
             return
         HD = self.num_heads * self.out_feats
         in_feats = feat.shape[-1]
@@ -151,10 +168,7 @@ class GATConv(LazyModuleMixin, nn.Module):
 
     def forward(self, g, feat: Tensor, deterministic: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> Tensor:
-        if isinstance(feat, (tuple, list)):
-            raise NotImplementedError(
-                "bipartite (src, dst) features are not ported yet "
-                "(ROADMAP: 'sampling')")
+        _reject_bipartite(feat)
         det = _is_deterministic(self, deterministic)
         H, D = self.num_heads, self.out_feats
         h_src = dropout(feat, self.feat_drop, det, generator)
@@ -179,3 +193,112 @@ class GATConv(LazyModuleMixin, nn.Module):
             rst = self.activation(rst)
         return rst
 
+
+def _init_linear(lin: nn.Module, in_feats: int, ref: Tensor) -> None:
+    """Materialise a lazy ``nn.Linear`` at ``in_feats`` inputs with flax
+    Dense's initialisation: xavier-uniform weight, zero bias."""
+    lin.weight.materialize((lin.out_features, in_feats), device=ref.device,
+                           dtype=ref.dtype)
+    lin.in_features = in_feats
+    nn.init.xavier_uniform_(lin.weight)
+    if lin.bias is not None:
+        lin.bias.materialize((lin.out_features,), device=ref.device,
+                             dtype=ref.dtype)
+        nn.init.zeros_(lin.bias)
+
+
+_SAGE_AGGREGATORS = ("mean", "gcn", "pool")
+
+
+class SAGEConv(LazyModuleMixin, nn.Module):
+    """GraphSAGE layer with the 'mean', 'gcn' and 'pool' aggregators.
+
+    mean: h_neigh = mean of the in-neighbours (K1 on CUDA); gcn: (sum of
+    the in-neighbours + h_dst) / (in_degree + 1), then ``fc_neigh`` alone;
+    pool: ``relu(fc_pool(h_src))`` (in -> in) and its max over the
+    in-neighbours (K4, with K5 in the backward, on CUDA).  For mean and
+    pool the output is ``fc_self(h_dst) + fc_neigh(h_neigh)``.  Like the
+    JAX layer, feature dropout takes two separate draws for the src and
+    the dst side of the same features."""
+
+    def __init__(self, out_feats: int, aggregator_type: str = "mean",
+                 feat_drop: float = 0.0, use_bias: bool = True,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        if aggregator_type == "lstm":
+            raise NotImplementedError(
+                "SAGEConv's 'lstm' aggregator needs the neighbour mailbox, "
+                "which is not ported yet (ROADMAP: 'core/message.py')")
+        if aggregator_type not in _SAGE_AGGREGATORS:
+            raise KeyError(f"Aggregator type {aggregator_type} not "
+                           "recognized.")
+        self.out_feats = out_feats
+        self.aggregator_type = aggregator_type
+        self.feat_drop = feat_drop
+        self.activation = activation
+        self.fc_pool = nn.LazyLinear(0) if aggregator_type == "pool" \
+            else None
+        self.fc_self = nn.LazyLinear(out_feats, bias=use_bias) \
+            if aggregator_type != "gcn" else None
+        self.fc_neigh = nn.LazyLinear(out_feats, bias=use_bias)
+
+    def initialize_parameters(self, g, feat, *args, **kwargs) -> None:
+        _reject_bipartite(feat)
+        if not _has_lazy(self):
+            return
+        in_feats = feat.shape[-1]
+        if self.fc_pool is not None:
+            self.fc_pool.out_features = in_feats
+            _init_linear(self.fc_pool, in_feats, feat)
+        for lin in (self.fc_self, self.fc_neigh):
+            if lin is not None:
+                _init_linear(lin, in_feats, feat)
+
+    def forward(self, g, feat: Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        _reject_bipartite(feat)
+        det = _is_deterministic(self, deterministic)
+        h_src = dropout(feat, self.feat_drop, det, generator)
+        h_dst = dropout(feat, self.feat_drop, det, generator)
+        if self.aggregator_type == "mean":
+            h_neigh = gspmm(g, "copy_lhs", "mean", h_src)
+        elif self.aggregator_type == "gcn":
+            s = gspmm(g, "copy_lhs", "sum", h_src)
+            degs = g.in_degrees().to(h_dst.dtype)
+            h_neigh = (s + h_dst) / (degs[:, None] + 1)
+        else:
+            p = torch.relu(self.fc_pool(h_src))
+            h_neigh = gspmm(g, "copy_lhs", "max", p)
+        if self.aggregator_type == "gcn":
+            rst = self.fc_neigh(h_neigh)
+        else:
+            rst = self.fc_self(h_dst) + self.fc_neigh(h_neigh)
+        if self.activation is not None:
+            rst = self.activation(rst)
+        return rst
+
+
+class GINConv(nn.Module):
+    """Graph isomorphism layer: apply_func((1 + eps) * h + aggregate(h))
+    with aggregator_type in sum, mean, max, min (the gspmm reducers); a
+    ``nn.Module`` apply_func is a sub-module named ``apply_func``, as in
+    flax."""
+
+    def __init__(self, apply_func: Optional[Callable] = None,
+                 aggregator_type: str = "sum", init_eps: float = 0.0,
+                 learn_eps: bool = False):
+        super().__init__()
+        self.apply_func = apply_func
+        self.aggregator_type = aggregator_type
+        if learn_eps:
+            self.eps = nn.Parameter(torch.tensor(float(init_eps)))
+        else:
+            self.eps = float(init_eps)
+
+    def forward(self, g, feat: Tensor) -> Tensor:
+        _reject_bipartite(feat)
+        agg = gspmm(g, "copy_lhs", self.aggregator_type, feat)
+        rst = (1 + self.eps) * feat + agg
+        if self.apply_func is not None:
+            rst = self.apply_func(rst)
+        return rst

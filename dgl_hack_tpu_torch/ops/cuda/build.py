@@ -1,9 +1,10 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels are CUDA C++ for Hopper (``sm_90a``) under ``csrc/``, with a
-plain C interface.  At first use, ``nvcc`` compiles all of them into one
-shared library under ``build/`` at the repository root, keyed by a hash of
-the sources (a stale library is never loaded), and ``ctypes`` loads it.
+plain C interface.  At first use, one ``nvcc`` per source compiles them
+all at once into objects, which are linked into one shared library under
+``build/`` at the repository root, keyed by a hash of the sources (a stale
+library is never loaded); ``ctypes`` loads it.
 Every C entry point takes raw device pointers and a stream and returns
 ``cudaGetLastError()``; ``check()`` raises if that is not 0.
 
@@ -39,6 +40,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # indptr, gidx, eid, x, w, w_kind, out, num_rows, F, stream
     "segment_sum_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    # indptr, gidx, x, w, w_kind, raw, num_rows, F, stream
+    "segment_max_f32": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
+    # csr_indptr, dst_csr, csr_eids, x, w, w_kind, raw, g, dx, dw,
+    # num_src, F, stream
+    "segment_max_bwd_f32": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                            _I, _I, _P],
     # indptr, src, wh, el, er, w, shift, rst, den,
     # num_dst, H, D, slope, exact, stream
     "gat_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -97,15 +104,37 @@ def library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        BUILD_INFO["ptxas"] = res.stderr
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in (p for p in srcs if p.suffix == ".cu"):
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+                 "-fPIC", "-Xptxas", "-v", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        try:
+            for name, proc in procs:
+                out, err = proc.communicate()
+                logs.append(f"{name}:\n{err}")
+                if proc.returncode != 0:
+                    failed.append(
+                        f"{name} ({proc.returncode}):\n{out}\n{err}")
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o",
+                                  str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                                   f"{res.stdout}\n{res.stderr}")
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        BUILD_INFO["ptxas"] = "\n".join(logs)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():

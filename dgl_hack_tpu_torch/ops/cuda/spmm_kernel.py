@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .build import LAUNCHES, check, library, ptr, require, stream_ptr
@@ -29,26 +30,53 @@ def _unsupported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to CUDA yet (ROADMAP: '{item}')")
 
 
+# The plain versions gather one row block at a time, at most this many
+# (edge, feature) elements (1 GiB of float32), so that they can be held
+# against the kernels at full width (Reddit, F = 602: 14 G elements).
+PLAIN_CHUNK_ELEMS = 1 << 28
+
+
+def row_chunks(indptr: Tensor, F: int):
+    """(r0, r1, j0, j1) blocks of consecutive rows whose edges [j0, j1)
+    hold at most ``PLAIN_CHUNK_ELEMS`` (edge, feature) elements; a row
+    larger than that is a block of its own."""
+    ip = indptr.cpu().numpy().astype(np.int64)
+    num_rows = ip.shape[0] - 1
+    per = max(1, PLAIN_CHUNK_ELEMS // max(F, 1))
+    r0 = 0
+    while r0 < num_rows:
+        r1 = int(np.searchsorted(ip, ip[r0] + per, side="right")) - 1
+        r1 = min(max(r1, r0 + 1), num_rows)
+        yield r0, r1, int(ip[r0]), int(ip[r1])
+        r0 = r1
+
+
+def local_rows(indptr: Tensor, r0: int, r1: int) -> Tensor:
+    """Row of each edge of rows [r0, r1), counted from r0."""
+    deg = (indptr[r0 + 1:r1 + 1] - indptr[r0:r1]).long()
+    return torch.repeat_interleave(
+        torch.arange(r1 - r0, device=indptr.device), deg)
+
+
 def segment_sum_plain(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
                       eid: Optional[Tensor] = None,
                       w: Optional[Tensor] = None) -> Tensor:
     """out[r] = sum_{j in [indptr[r], indptr[r+1])} x[gidx[j]] * w[eid[j]].
 
     gidx None reads x row j (edge-row mode); eid None means eid[j] = j; w
-    is None, (E,) or (E, F).  Empty rows give 0."""
+    is None, (E,) or (E, F).  Empty rows give 0.  Rows go in blocks of
+    ``row_chunks``."""
     if x.is_cuda:
         LAUNCHES.add("plain.segment_sum")
     num_rows = indptr.numel() - 1
-    deg = (indptr[1:] - indptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(num_rows, device=x.device), deg)
-    nnz = rows.numel()
-    m = x[gidx] if gidx is not None else x[:nnz]
-    if w is not None:
-        we = w[eid] if eid is not None else w[:nnz]
-        m = m * (we[:, None] if we.dim() == 1 else we)
     out = x.new_zeros((num_rows, x.shape[1]))
-    return out.index_add(0, rows, m)
+    for r0, r1, j0, j1 in row_chunks(indptr, x.shape[1]):
+        m = x[gidx[j0:j1]] if gidx is not None else x[j0:j1]
+        if w is not None:
+            we = w[eid[j0:j1]] if eid is not None else w[j0:j1]
+            m = m * (we[:, None] if we.dim() == 1 else we)
+        out[r0:r1].index_add_(0, local_rows(indptr, r0, r1), m)
+    return out
 
 
 def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
@@ -136,25 +164,38 @@ class GspmmSum(torch.autograd.Function):
         return dx, dw, None
 
 
+def check_cuda_call(g, x: Tensor, what: str) -> None:
+    """What the gspmm kernels do not take on CUDA raises, naming the
+    ROADMAP item that will port it."""
+    if x.is_cuda:
+        if g.edge_mask is not None:
+            raise _unsupported(f"{what} on a masked (padded) graph",
+                               "masked graphs")
+        if x.dtype != torch.float32:
+            raise _unsupported(f"{what} in {x.dtype}", "bf16")
+
+
+def flat_weight(w: Optional[Tensor], shape) -> Optional[Tensor]:
+    """An edge weight (E,), (E, 1...) or (E, ...) broadcastable to x's
+    feature shape ``shape[1:]``, as the kernels take it: (E,) for one
+    scalar per edge, else (E, F) at x's flattened width."""
+    if w is None:
+        return None
+    if w.dim() > 1 and all(s == 1 for s in w.shape[1:]):
+        w = w.reshape(w.shape[0])           # one scalar per edge
+    elif w.dim() > 1:
+        w = w.expand((w.shape[0],) + tuple(shape[1:]))
+        w = w.reshape(w.shape[0], -1)
+    return w.contiguous()
+
+
 def gspmm_sum(g, x: Tensor, w: Optional[Tensor] = None) -> Tensor:
     """copy_u / u_mul_e sum through K1.  x (N, ...) and w (E,), (E, 1...)
     or (E, ...) broadcastable to x's feature shape.  Returns (N_dst, ...)."""
-    if x.is_cuda:
-        if g.edge_mask is not None:
-            raise _unsupported("gspmm on a masked (padded) graph",
-                               "masked graphs")
-        if x.dtype != torch.float32:
-            raise _unsupported(f"gspmm in {x.dtype}", "bf16")
+    check_cuda_call(g, x, "gspmm")
     shape = x.shape
     x2 = x.reshape(shape[0], -1).contiguous()
-    if w is not None:
-        if w.dim() > 1 and all(s == 1 for s in w.shape[1:]):
-            w = w.reshape(w.shape[0])           # one scalar per edge
-        elif w.dim() > 1:
-            w = w.expand((w.shape[0],) + tuple(shape[1:]))
-            w = w.reshape(w.shape[0], -1)
-        w = w.contiguous()
-    out = GspmmSum.apply(x2, w, g)
+    out = GspmmSum.apply(x2, flat_weight(w, shape), g)
     return out.reshape((out.shape[0],) + tuple(shape[1:]))
 
 

@@ -9,16 +9,21 @@ Semantics as in ``dgl_hack_tpu.ops.spmm``:
 
 Dispatch by device:
 
-* a dst-side ('v') operand with sum/mean decomposes into a copy-reduce of
-  the other operand plus a per-node combine (``_v_side_decompose``), on
-  either device, as in the JAX package;
+* a dst-side ('v') operand with sum/mean/max/min decomposes into a
+  copy-reduce of the other operand plus a per-node combine
+  (``_v_side_decompose``), on either device, as in the JAX package;
+* copy_u and u_mul_e with max/min go through ``GspmmMax`` on either
+  device: K4 and K5 (``ops/cuda/segment_max_kernel.py``) on CUDA, their
+  plain versions on the CPU, so ties get the kernel's rule (the full
+  cotangent to every tied edge) everywhere;
 * CUDA tensors: copy_u and u_mul_e with sum/mean go through K1, the
-  segment-sum kernel (``ops/cuda/spmm_kernel.py``); max/min raise, since
-  their kernel is not ported yet.  The combinations the JAX package also
-  composes without a kernel (an edge-side lhs, u_op_e other than mul,
-  prod, copy of a dst-side operand, a masked graph's dst-side operand)
-  take the composed path;
-* CPU tensors: the composed path (gather, combine, segment reduce).
+  segment-sum kernel (``ops/cuda/spmm_kernel.py``).  The combinations the
+  JAX package also composes without a kernel (an edge-side lhs, u_op_e
+  other than mul, prod, div/dot with a dst-side operand and max/min, copy
+  of a dst-side operand, a masked graph's dst-side operand) take the
+  composed path;
+* CPU tensors: otherwise the composed path (gather, combine, segment
+  reduce).
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch
 from . import segment
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
-from .cuda.spmm_kernel import _unsupported, gspmm_sum
+from .cuda.segment_max_kernel import gspmm_max
+from .cuda.spmm_kernel import gspmm_sum
 
 Tensor = torch.Tensor
 
@@ -57,12 +63,14 @@ def _expand_like(x: Tensor, ref: Tensor) -> Tensor:
 
 def _v_side_decompose(g, op: str, reduce_op: str, lhs_data, rhs_data,
                       lhs_target: str, rhs_target: str) -> Optional[Tensor]:
-    """Sum/mean with a dst-side ('v') operand: y[v] is constant over v's
-    in-edges, so the reduction is a copy-reduce of the other operand plus a
-    per-node combine, e.g. ``gspmm(u_add_v, sum)[v] = copy_u_sum(x)[v] +
-    deg(v)*y[v]``.  The copy-reduce of a 'u' operand runs K1 on CUDA.
-    Returns None when the combo does not decompose (caller composes)."""
-    if g.edge_mask is not None or reduce_op not in ("sum", "mean"):
+    """A dst-side ('v') operand: y[v] is constant over v's in-edges, so the
+    reduction is a copy-reduce of the other operand plus a per-node
+    combine, e.g. ``gspmm(u_add_v, sum)[v] = copy_u_sum(x)[v] +
+    deg(v)*y[v]`` and ``gspmm(u_mul_v, max)[v] = y[v] >= 0 ? max(x)*y :
+    min(x)*y``.  The copy-reduce of a 'u' operand runs K1 (sum/mean) or K4
+    (max/min) on CUDA.  Returns None when the combo does not decompose
+    (caller composes)."""
+    if g.edge_mask is not None or reduce_op == "prod":
         return None
     deg = g.in_degrees()
     if lhs_target == "v" and rhs_target == "v":      # fully node-local
@@ -80,22 +88,38 @@ def _v_side_decompose(g, op: str, reduce_op: str, lhs_data, rhs_data,
     if not (y.is_floating_point() and z.is_floating_point()):
         return None
 
-    def red(data):
-        return gspmm(g, "copy_lhs", reduce_op, data, None, z_t, "e")
+    def red(kind, data):
+        return gspmm(g, "copy_lhs", kind, data, None, z_t, "e")
+
+    if reduce_op in ("max", "min"):
+        other = "min" if reduce_op == "max" else "max"
+        if op == "add":
+            out = red(reduce_op, z) + y
+        elif op == "sub":                # y - z flips max and min
+            out = y - red(other, z) if v_is_lhs else red(reduce_op, z) - y
+        elif op == "mul":                # the sign of y picks the extremum
+            hi, lo = torch.broadcast_tensors(red(reduce_op, z) * y,
+                                             red(other, z) * y)
+            out = torch.where(y >= 0, hi, lo)
+        else:                            # div, dot: no clean decomposition
+            return None
+        return torch.where(_expand_like(deg > 0, out), out,
+                           torch.zeros_like(out))
 
     scale = _expand_like(deg.to(y.dtype), y) if reduce_op == "sum" else 1.0
     if op == "div" and v_is_lhs:                     # y/z: reduce 1/z
-        out = y * red(1.0 / z)
+        out = y * red(reduce_op, 1.0 / z)
     elif op == "add":
-        out = red(z) + scale * y
+        out = red(reduce_op, z) + scale * y
     elif op == "sub":
-        out = scale * y - red(z) if v_is_lhs else red(z) - scale * y
+        out = scale * y - red(reduce_op, z) if v_is_lhs \
+            else red(reduce_op, z) - scale * y
     elif op == "mul":
-        out = red(z) * y
+        out = red(reduce_op, z) * y
     elif op == "div":                                # z/y
-        out = red(z) / y
+        out = red(reduce_op, z) / y
     elif op == "dot":
-        out = (red(z) * y).sum(-1, keepdim=True)
+        out = (red(reduce_op, z) * y).sum(-1, keepdim=True)
     else:
         return None
     return torch.where(_expand_like(deg > 0, out), out, torch.zeros_like(out))
@@ -112,16 +136,19 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
     if reduce_op not in REDUCERS:
         raise ValueError(f"unknown reducer {reduce_op!r}")
     data = lhs_data if lhs_data is not None else rhs_data
-    if data.is_cuda and reduce_op in ("max", "min"):
-        raise _unsupported(f"gspmm {op}.{reduce_op}", "segment max/min kernel")
     if "v" in (lhs_target, rhs_target):
         out = _v_side_decompose(g, op, reduce_op, lhs_data, rhs_data,
                                 lhs_target, rhs_target)
         if out is not None:
             return out
-    if data.is_cuda and reduce_op in ("sum", "mean") and _kernel_shaped(
-            op, lhs_data, rhs_data, lhs_target, rhs_target):
-        out = gspmm_sum(g, lhs_data, rhs_data if op == "mul" else None)
+    kernel = data.is_floating_point() and _kernel_shaped(
+        op, lhs_data, rhs_data, lhs_target, rhs_target)
+    w = rhs_data if op == "mul" else None
+    if kernel and reduce_op in ("max", "min") and (
+            data.is_cuda or g.edge_mask is None):
+        return gspmm_max(g, lhs_data, w, reduce_op)
+    if kernel and data.is_cuda and reduce_op in ("sum", "mean"):
+        out = gspmm_sum(g, lhs_data, w)
         if reduce_op == "mean":
             deg = g.in_degrees().to(out.dtype).clamp(min=1)
             out = out / deg.reshape((-1,) + (1,) * (out.dim() - 1))

@@ -1,7 +1,8 @@
 """Full-graph GAT training on the PyTorch port (twin of train_gat.py).
 
-Runs on the GPU when there is one (the fused GAT kernels), else on the
-CPU (the composed plain path).  Datasets are the deterministic synthetic
+Runs on the GPU (the fused GAT kernels); ``--device cpu`` runs the
+composed plain path on the CPU instead.  With no card and no ``--device
+cpu`` it exits with an error.  Datasets are the deterministic synthetic
 stand-ins the JAX package uses offline.
 """
 import argparse
@@ -23,9 +24,12 @@ def main():
     p.add_argument("--in-drop", type=float, default=0.6)
     p.add_argument("--attn-drop", type=float, default=0.6)
     p.add_argument("--weight-decay", type=float, default=5e-4)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args()
 
     import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        p.error("no CUDA device; pass --device cpu to run on the CPU")
     import dgl_hack_tpu_torch as dt
     from dgl_hack_tpu_torch import data
     from dgl_hack_tpu_torch.models import GAT
@@ -33,7 +37,7 @@ def main():
 
     ds = (data.synthetic_cora() if args.dataset == "synth"
           else data.synthetic_citation(args.dataset))
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
     g = dt.prepare_spmm(ds.graph, device=device)
     model = GAT(hidden_feats=args.num_hidden, out_feats=ds.num_classes,
                 heads=(args.num_heads, args.num_out_heads),
@@ -41,7 +45,7 @@ def main():
     res = train_node_classifier(
         model, g, ds.features, ds.labels, ds.train_mask, ds.val_mask,
         ds.test_mask, num_epochs=args.epochs, lr=args.lr,
-        weight_decay=args.weight_decay, log_every=20)
+        weight_decay=args.weight_decay, log_every=20, device=device)
     print(json.dumps({"dataset": ds.name, "test_acc": res["test_acc"],
                       "train_time_s": res["train_time_s"]}))
 

@@ -1,8 +1,9 @@
 """Full-graph GCN training on the PyTorch port (twin of train_gcn.py).
 
 Usage: python examples/train_gcn_torch.py --dataset cora --epochs 200
-Runs on the GPU when there is one (the CUDA kernels), else on the CPU
-(their plain versions).  Datasets are the deterministic synthetic
+Runs on the GPU (the CUDA kernels); ``--device cpu`` runs the kernels'
+plain versions on the CPU instead.  With no card and no ``--device cpu``
+it exits with an error.  Datasets are the deterministic synthetic
 stand-ins the JAX package uses offline.
 """
 import argparse
@@ -25,9 +26,12 @@ def main():
     p.add_argument("--pallas", action="store_true",
                    help="call prepare_spmm first (kept for parity with "
                         "train_gcn.py; the kernels need no plan)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args()
 
     import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        p.error("no CUDA device; pass --device cpu to run on the CPU")
     import dgl_hack_tpu_torch as dt
     from dgl_hack_tpu_torch import data
     from dgl_hack_tpu_torch.models import GCN
@@ -35,7 +39,7 @@ def main():
 
     ds = (data.synthetic_cora() if args.dataset == "synth"
           else data.synthetic_citation(args.dataset))
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
     g = ds.graph.to(device)
     if args.pallas:
         g = dt.prepare_spmm(g)
@@ -44,7 +48,7 @@ def main():
     res = train_node_classifier(
         model, g, ds.features, ds.labels, ds.train_mask, ds.val_mask,
         ds.test_mask, num_epochs=args.epochs, lr=args.lr,
-        weight_decay=args.weight_decay, log_every=20)
+        weight_decay=args.weight_decay, log_every=20, device=device)
     print(json.dumps({"dataset": ds.name, "test_acc": res["test_acc"],
                       "train_time_s": res["train_time_s"],
                       "epochs_per_s": res["epochs_per_s"]}))

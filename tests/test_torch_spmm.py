@@ -118,7 +118,8 @@ def test_u_mul_e_vector_plain_vs_bare():
 
 @pytest.mark.parametrize("reducer", ["max", "min", "prod"])
 def test_other_reducers_plain_vs_bare(reducer):
-    """Reducers without a CUDA kernel yet: the CPU composed path only."""
+    """max/min (through GspmmMax's plain versions on the CPU) and prod (the
+    composed path) against the JAX bare graph."""
     rng = np.random.default_rng(3)
     gj, gt = _graphs(rng, empty_from=280)
     x = rng.uniform(0.5, 1.5, size=(300, 5)).astype(np.float32)
@@ -306,15 +307,50 @@ def test_v_side_reaches_kernel_on_cuda(monkeypatch, op, lt, rt, reducer):
     assert_close(_untag(out).numpy(), ref.numpy(), BARE_TOL, "forward")
 
 
+MAX_DISPATCH = [("copy_lhs", "u", "e", 1), ("mul", "u", "e", 1),
+                ("add", "u", "v", 1), ("sub", "u", "v", 1),
+                ("sub", "v", "u", 1), ("mul", "u", "v", 2)]
+
+
 @pytest.mark.parametrize("reducer", ["max", "min"])
-@pytest.mark.parametrize("targets", [("u", "e"), ("u", "v"), ("e", "v")])
-def test_max_min_raise_on_cuda(reducer, targets):
-    """max/min on CUDA data raise (their kernel is not ported), whatever
-    the targets; nothing computes them in plain torch on the card."""
+@pytest.mark.parametrize("op,lt,rt,launches", MAX_DISPATCH)
+def test_max_min_reach_kernel_on_cuda(monkeypatch, op, lt, rt, launches,
+                                      reducer):
+    """On CUDA data copy_u, u_mul_e and the dst-side add/sub/mul max/min
+    reduce through K4's wrapper (twice for mul, which needs both extrema
+    of the other operand) and K5's in the backward, and launch nothing
+    plain; the result is the CPU one."""
+    import importlib
+    smk = importlib.import_module(
+        "dgl_hack_tpu_torch.ops.cuda.segment_max_kernel")
+    calls = {"fwd": 0, "bwd": 0}
+    real_fwd, real_bwd = smk.segment_max, smk.segment_max_bwd
+
+    def fwd(indptr, x, gidx, w=None):
+        calls["fwd"] += 1
+        return real_fwd(indptr, _untag(x), gidx, _untag(w))
+
+    def bwd(*args, **kw):
+        calls["bwd"] += 1
+        return real_bwd(*(_untag(a) if isinstance(a, torch.Tensor) else a
+                          for a in args), **kw)
+    monkeypatch.setattr(smk, "segment_max", fwd)
+    monkeypatch.setattr(smk, "segment_max_bwd", bwd)
     rng = np.random.default_rng(12)
-    _, gt = _graphs(rng)
-    lhs, rhs = _v_side_inputs(rng, gt, *targets)
-    with pytest.raises(NotImplementedError, match="segment max/min kernel"):
-        dt.gspmm(gt, "add", reducer,
-                 torch.from_numpy(lhs).as_subclass(_CudaTagged),
-                 torch.from_numpy(rhs).as_subclass(_CudaTagged), *targets)
+    _, gt = _graphs(rng, empty_from=260)
+    lhs, rhs = _v_side_inputs(rng, gt, lt, rt)
+    if op == "copy_lhs":
+        rhs = None
+    ref = dt.gspmm(gt, op, reducer, torch.from_numpy(lhs),
+                   None if rhs is None else torch.from_numpy(rhs), lt, rt)
+    calls.update(fwd=0, bwd=0)
+    ins = [torch.from_numpy(a).as_subclass(_CudaTagged).requires_grad_()
+           for a in (lhs, rhs) if a is not None]
+    smk.LAUNCHES.reset()
+    out = dt.gspmm(gt, op, reducer, *ins, lt, rt) if rhs is not None \
+        else dt.gspmm(gt, op, reducer, ins[0])
+    out.sum().backward()
+    assert calls == {"fwd": launches, "bwd": launches}, calls
+    assert not [k for k in smk.LAUNCHES.counts if k.startswith("plain.")]
+    assert_close(_untag(out).detach().numpy(), ref.numpy(), BARE_TOL,
+                 "forward")

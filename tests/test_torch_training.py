@@ -79,7 +79,8 @@ def test_training_losses_match_jax(kind):
     pm.load_state_dict(flax_to_state_dict(_np_tree(params)))
     res = train_node_classifier(pm, ds.graph, ds.features, ds.labels,
                                 ds.train_mask, ds.val_mask, ds.test_mask,
-                                num_epochs=5, lr=lr, weight_decay=5e-4)
+                                num_epochs=5, lr=lr, weight_decay=5e-4,
+                                device="cpu")
     np.testing.assert_allclose(res["losses"], ref, rtol=1e-4)
     assert res["losses"][-1] < res["losses"][0]
 
@@ -90,7 +91,7 @@ def test_training_with_dropout_runs_and_learns():
     res = train_node_classifier(GAT(8, 4, heads=(4, 1)), ds.graph,
                                 ds.features, ds.labels, ds.train_mask,
                                 ds.val_mask, ds.test_mask, num_epochs=20,
-                                lr=5e-3, seed=3)
+                                lr=5e-3, seed=3, device="cpu")
     assert len(res["losses"]) == 20 and np.isfinite(res["losses"]).all()
     assert res["losses"][-1] < res["losses"][0]
     assert 0.0 <= res["test_acc"] <= 1.0
