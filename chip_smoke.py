@@ -21,7 +21,17 @@ Phases, one JSON line each:
      K1 at F = 602 (the mean aggregator's layer 0);
   7. GraphSAGE-pool training (hidden 16, 2 layers) on synthetic Reddit,
      then 3 steps each of the mean and gcn aggregators;
-  8. a twin of __graft_entry__.entry(): a GAT forward on a 512-node graph,
+  8. K6 (gSDDMM) against its plain version on phase 2's small graph (F in
+     {7, 16, 41, 128}, every op with an 'u' and an 'e' lhs; dot at (H, D)
+     in {(1, 16), (4, 16), (2, 7), (1, 41), (1, 128)}), and GsddmmFn's
+     gradients (K6 + K1) against autograd through the plain version;
+  9. K6 at bench.py's shape (u_dot_v and u_sub_v, F = 128), timed with its
+     plain version and cuSPARSE's SDDMM (torch.sparse.sampled_addmm);
+ 10. graph-transformer training (examples/train_transformer.py at its
+     full width: Dm 64, 4 heads, vocab 16, 2 + 2 layers) at batch 256 and
+     sequence length 64, 5 steps after a warm-up step, with K6 at its
+     shapes and a small forward held against the CPU;
+ 11. a twin of __graft_entry__.entry(): a GAT forward on a 512-node graph,
      held against the same model on the CPU.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
@@ -29,14 +39,18 @@ the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 Tolerances (max abs error / max |reference|): K1 and K5 <= 2e-5 against
 their plain versions run in float64 (the kernels' f32 sums); K2, K3 <=
 1e-4 against their f32 plain versions (the exp adds rounding); K4 equal
-to its plain version (the max is exact).  Every kernel result must repeat
-bitwise across two runs.
+to its plain version (the max is exact); K6 equal to its plain version
+for add/sub/mul/div/copy_rhs (one IEEE op per element), dot <= 1e-5
+against its plain version run in float64, and its backward (K1 sums)
+<= 2e-5 against autograd through the plain version in float64.  Every
+kernel result must repeat bitwise across two runs.
 
 Each kernel's bound is the larger of its compulsory bytes (each input
 read once, each output written once) at 3.35 TB/s and its operations at
 the fp32 rate of 67 TFLOP/s (H100 SXM data sheet); its library time is
 one PyTorch call computing the same function where there is one
-(``torch.sparse.mm`` on a CSR matrix for K1), timed only.
+(``torch.sparse.mm`` on a CSR matrix for K1, ``torch.sparse.sampled_addmm``
+on a CSR matrix, batched over heads, for K6's dot), timed only.
 """
 import json
 import os
@@ -49,6 +63,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K1_TOL, GAT_TOL, K5_TOL = 2e-5, 1e-4, 2e-5
+K6_DOT_TOL, K6_BWD_TOL = 1e-5, 2e-5
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 
 
@@ -219,13 +234,21 @@ def _v_side_cases(dt, sk, g, src, dst, checks, rng, F=16):
     return errs
 
 
-def csr_matrix(g):
-    """The graph's CSC direction as a sparse CSR matrix (dst x src) of ones,
-    for the library call ``torch.sparse.mm`` that K1's forward matches."""
+def csr_matrix(g, batch=None):
+    """The graph's CSC direction as a sparse CSR matrix (dst x src) of
+    ones, optionally ``batch`` copies: for the library calls
+    ``torch.sparse.mm``, which K1's forward matches, and
+    ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM), whose values come out
+    in internal edge order."""
+    crow, col = g.csc_indptr.long(), g.src.long()
+    size = (g.num_dst_nodes, g.num_src_nodes)
+    if batch is not None:
+        crow = crow.expand(batch, -1).contiguous()
+        col = col.expand(batch, -1).contiguous()
+        size = (batch,) + size
     return torch.sparse_csr_tensor(
-        g.csc_indptr.long(), g.src.long(),
-        torch.ones(g.num_edges(), dtype=torch.float32, device=g.device),
-        size=(g.num_dst_nodes, g.num_src_nodes))
+        crow, col, torch.ones(col.shape, dtype=torch.float32,
+                              device=g.device), size=size)
 
 
 def phase_k1(dt, sk, checks, dev):
@@ -281,7 +304,7 @@ def phase_k1(dt, sk, checks, dev):
           "fwd_edges_per_s": E / (times["fwd_ms"] * 1e-3),
           "max_in_degree": int(gb.in_degrees().max())})
     checks.raise_if_failed("k1_bench_shape")
-    return g
+    return g, gb
 
 
 def composed_gat(g, fsrc, el, er, w, slope):
@@ -638,6 +661,329 @@ def phase_sage_train(build, ds, g, dev):
     return counts
 
 
+K6_ELEM_OPS = ("copy_rhs", "add", "sub", "mul", "div")
+
+
+def _signed(rng, shape, dev):
+    """Magnitudes in [0.5, 2) with random signs, so div stays finite."""
+    a = rng.uniform(0.5, 2.0, size=shape) * rng.choice((-1.0, 1.0),
+                                                        size=shape)
+    return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+
+def _k6_lhs(g, kind, lhs_u, lhs_e):
+    return (lhs_u, g.src) if kind == "u" else (lhs_e, None)
+
+
+def _k6_elem_cases(k6, g, F, checks, tag, rng):
+    """K6's elementwise ops with an 'u' and an 'e' lhs, equal to the plain
+    version bitwise and repeated bitwise."""
+    dev = g.device
+    lhs_u = _signed(rng, (g.num_src_nodes, F), dev)
+    lhs_e = _signed(rng, (g.num_edges(), F), dev)
+    rhs = _signed(rng, (g.num_dst_nodes, F), dev)
+    for op in K6_ELEM_OPS:
+        for kind in (("u",) if op == "copy_rhs" else ("u", "e")):
+            lhs, src = _k6_lhs(g, kind, lhs_u, lhs_e)
+            args = (op, g.dst, rhs, lhs, src)
+            checks.exact("sddmm", f"{tag} F={F} {op} {kind}",
+                         k6.sddmm(*args), k6.sddmm_plain(*args),
+                         k6.sddmm(*args))
+
+
+def _k6_dot_case(k6, g, H, D, kind, checks, tag, rng):
+    """K6's dot against its plain version run in float64."""
+    dev = g.device
+    lhs_u = _signed(rng, (g.num_src_nodes, H * D), dev)
+    lhs_e = _signed(rng, (g.num_edges(), H * D), dev) if kind == "e" \
+        else None
+    rhs = _signed(rng, (g.num_dst_nodes, H * D), dev)
+    lhs, src = _k6_lhs(g, kind, lhs_u, lhs_e)
+    ref = k6.sddmm_plain("dot", g.dst, rhs.double(), lhs.double(), src,
+                         D).float()
+    return checks.compare(
+        "sddmm", f"{tag} dot H={H} D={D} {kind}",
+        k6.sddmm("dot", g.dst, rhs, lhs, src, D), ref, K6_DOT_TOL,
+        k6.sddmm("dot", g.dst, rhs, lhs, src, D))
+
+
+def _k6_bwd_case(k6, g, op, kind, F, D, checks, rng):
+    """GsddmmFn's gradients (K6 and K1) against autograd through the plain
+    version in float64."""
+    dev = g.device
+    lhs_u = _signed(rng, (g.num_src_nodes, F), dev)
+    lhs_e = _signed(rng, (g.num_edges(), F), dev)
+    rhs = _signed(rng, (g.num_dst_nodes, F), dev)
+    lhs, src = _k6_lhs(g, kind, lhs_u, lhs_e)
+    if op == "copy_rhs":
+        lhs = None
+    gout = torch.from_numpy(rng.normal(
+        size=(g.num_edges(), F // D if op == "dot" else F))
+        .astype(np.float32)).to(dev)
+    ins = [t for t in (lhs, rhs) if t is not None]
+    ins64 = [t.double().requires_grad_() for t in ins]
+    l64 = ins64[0] if lhs is not None else None
+    ref = k6.sddmm_plain(op, g.dst, ins64[-1], l64, src, D)
+    grefs = torch.autograd.grad(ref, ins64, gout.double())
+    runs = []
+    for _ in range(2):
+        a = [t.clone().requires_grad_() for t in ins]
+        out = k6.GsddmmFn.apply(a[0] if lhs is not None else None, a[-1], g,
+                                op, kind, D)
+        runs.append(torch.autograd.grad(out, a, gout))
+    names = ("dlhs", "drhs") if lhs is not None else ("drhs",)
+    return {n: checks.compare("sddmm_bwd", f"{op} {kind} F={F} {n}", r1,
+                              r.float(), K6_BWD_TOL, r2)
+            for n, r1, r2, r in zip(names, *runs, grefs)}
+
+
+def phase_k6_small(k6, g, checks):
+    """K6 on phase 2's small graph (zero-in-degree rows 4000.., a hub of
+    12,010 in-edges), forward and backward."""
+    rng = np.random.default_rng(6)
+    for F in (7, 16, 41, 128):
+        _k6_elem_cases(k6, g, F, checks, "small", rng)
+    dot = {f"H{H}D{D}.{kind}": _k6_dot_case(k6, g, H, D, kind, checks,
+                                            "small", rng)
+           for H, D in ((1, 16), (4, 16), (2, 7), (1, 41), (1, 128))
+           for kind in ("u", "e")}
+    bwd = {}
+    for F in (7, 41):
+        for op in K6_ELEM_OPS:
+            for kind in (("u",) if op == "copy_rhs" else ("u", "e")):
+                bwd[f"{op}.{kind}.F{F}"] = _k6_bwd_case(
+                    k6, g, op, kind, F, 0, checks, rng)
+    for H, D in ((1, 16), (4, 16), (2, 7)):
+        for kind in ("u", "e"):
+            bwd[f"dot.H{H}D{D}.{kind}"] = _k6_bwd_case(
+                k6, g, "dot", kind, H * D, D, checks, rng)
+    emit({"phase": "k6_small", "nodes": g.num_src_nodes,
+          "edges": g.num_edges(), "elementwise": "bitwise equal to plain",
+          "dot_rel_err": dot, "bwd_rel_err": bwd})
+    checks.raise_if_failed("k6_small")
+
+
+def library_sddmm_ms(g, lhs, rhs, H, reps=10):
+    """ms of one ``sampled_addmm`` computing every head's u_dot_v (beta 0,
+    so the pattern's values do not enter)."""
+    D = lhs.shape[1] // H
+    A = csr_matrix(g, None if H == 1 else H)
+    if H == 1:
+        m1, m2 = rhs, lhs.t()
+    else:
+        m1 = rhs.view(-1, H, D).permute(1, 0, 2).contiguous()
+        m2 = lhs.view(-1, H, D).permute(1, 2, 0).contiguous()
+    return cuda_ms(lambda: torch.sparse.sampled_addmm(A, m1, m2, beta=0.0),
+                   reps=reps)
+
+
+def phase_k6_bench(k6, gb, checks):
+    """K6 at bench.py's shape (power-law, N = 1M, in-degree 16, F = 128,
+    a hub row of ~173k in-edges): u_dot_v against the float64 plain
+    version and u_sub_v bitwise against the plain version, timed."""
+    rng = np.random.default_rng(8)
+    F, E = 128, gb.num_edges()
+    lhs = _signed(rng, (gb.num_src_nodes, F), gb.device)
+    rhs = _signed(rng, (gb.num_dst_nodes, F), gb.device)
+    args = (gb.dst, rhs, lhs, gb.src)
+    out = k6.sddmm("dot", *args, F)
+    ref = k6.sddmm_plain("dot", gb.dst, rhs.double(), lhs.double(),
+                         gb.src, F).float()
+    dot_err = checks.compare("sddmm", "bench dot F=128", out, ref,
+                             K6_DOT_TOL, k6.sddmm("dot", *args, F))
+    del ref
+    lib_ms = library_sddmm_ms(gb, lhs, rhs, 1)
+    res = {"dot": timing(
+        cuda_ms(lambda: k6.sddmm("dot", *args, F)),
+        cuda_ms(lambda: k6.sddmm_plain("dot", *args, F), reps=3),
+        nbytes(gb.src, gb.dst, lhs, rhs, out), 2 * E * F,
+        "bench.py graph, u_dot_v, F=128", library_ms=lib_ms)}
+    del out
+    out = k6.sddmm("sub", *args)
+    checks.exact("sddmm", "bench sub F=128", out,
+                 k6.sddmm_plain("sub", *args), k6.sddmm("sub", *args))
+    res["sub"] = timing(
+        cuda_ms(lambda: k6.sddmm("sub", *args)),
+        cuda_ms(lambda: k6.sddmm_plain("sub", *args), reps=3),
+        nbytes(gb.src, gb.dst, lhs, rhs, out), E * F,
+        "bench.py graph, u_sub_v, F=128")
+    del out
+    torch.cuda.empty_cache()
+    emit({"phase": "k6_bench_shape", "nodes": gb.num_src_nodes, "edges": E,
+          "F": F, "dot_rel_err": dot_err,
+          **res, "dot_edges_per_s": E / (res["dot"]["ms"] * 1e-3)})
+    checks.raise_if_failed("k6_bench_shape")
+
+
+TF_B, TF_L, TF_VOCAB, TF_DIM, TF_HEADS = 256, 64, 16, 64, 4
+
+
+def _transformer_kernels(k6, graphs, checks, timings):
+    """K6 at the transformer's shapes on the complete encoder graph: the
+    forward's multi-head u_dot_v (H = 4, D = 16) against the float64 plain
+    version, and the backward's per-edge g * q[dst] (an 'e' lhs, F = 64)
+    bitwise against the plain version; both timed."""
+    rng = np.random.default_rng(9)
+    g = graphs[0]
+    H, D, E = TF_HEADS, TF_DIM // TF_HEADS, g.num_edges()
+    k = _signed(rng, (g.num_src_nodes, TF_DIM), g.device)
+    q = _signed(rng, (g.num_dst_nodes, TF_DIM), g.device)
+    args = (g.dst, q, k, g.src, D)
+    out = k6.sddmm("dot", *args)
+    ref = k6.sddmm_plain("dot", g.dst, q.double(), k.double(), g.src,
+                         D).float()
+    err = checks.compare("sddmm", "transformer dot H=4 D=16", out, ref,
+                         K6_DOT_TOL, k6.sddmm("dot", *args))
+    lib_ms = library_sddmm_ms(g, k, q, H)
+    timings["sddmm"] = timing(
+        cuda_ms(lambda: k6.sddmm("dot", *args)),
+        cuda_ms(lambda: k6.sddmm_plain("dot", *args), reps=3),
+        nbytes(g.src, g.dst, k, q, out), 2 * E * TF_DIM,
+        f"transformer complete graph (B={TF_B}, L={TF_L}), u_dot_v, "
+        f"H={H}, D={D}", library_ms=lib_ms)
+    gl = _signed(rng, (E, TF_DIM), g.device)
+    bargs = ("mul", g.dst, q, gl, None)
+    bout = k6.sddmm(*bargs)
+    checks.exact("sddmm", "transformer bwd g*q[dst] F=64", bout,
+                 k6.sddmm_plain(*bargs), k6.sddmm(*bargs))
+    timings["sddmm"].update(
+        bwd_ms=cuda_ms(lambda: k6.sddmm(*bargs)),
+        bwd_plain_ms=cuda_ms(lambda: k6.sddmm_plain(*bargs), reps=3),
+        bwd_bound_ms=bound(nbytes(g.dst, q, gl, bout), E * TF_DIM)[0],
+        dot_rel_err=err)
+    _transformer_k1(timings, g, rng, checks)
+
+
+def _transformer_k1(k6_timings, g, rng, checks):
+    """K1 at the transformer's shapes on the complete encoder graph: the
+    u_mul_e aggregation (the attention weight expanded to (E, 64)) and its
+    dx over the CSR direction, against the float64 plain version."""
+    from dgl_hack_tpu_torch.ops.cuda import spmm_kernel as sk
+    E = g.num_edges()
+    v = _signed(rng, (g.num_src_nodes, TF_DIM), g.device)
+    w = _signed(rng, (E, TF_DIM), g.device)
+    dout = _signed(rng, (g.num_dst_nodes, TF_DIM), g.device)
+    dst_csr = sk.rev_gidx(g)
+    fwd = (g.csc_indptr, v, g.src, None, w)
+    rev = (g.csr_indptr, dout, dst_csr, g.csr_eids, w)
+    out = sk.segment_sum(*fwd)
+    checks.compare("segment_sum", "transformer u_mul_e F=64", out,
+                   k1_ref(sk, *fwd), K1_TOL, sk.segment_sum(*fwd))
+    checks.compare("segment_sum", "transformer dx F=64",
+                   sk.segment_sum(*rev, site="rev"), k1_ref(sk, *rev),
+                   K1_TOL, sk.segment_sum(*rev, site="rev"))
+    k6_timings["segment_sum_tf"] = {
+        "fwd_ms": cuda_ms(lambda: sk.segment_sum(*fwd)),
+        "rev_ms": cuda_ms(lambda: sk.segment_sum(*rev, site="rev")),
+        "fwd_bound_ms": bound(nbytes(g.csc_indptr, g.src, v, w, out),
+                              2 * E * TF_DIM)[0],
+        "shape": "transformer complete graph, u_mul_e, F=64, (E, F) weight"}
+
+
+def _profile_step(step):
+    """Device time by kernel over one training step, from torch.profiler
+    (CUPTI): the kernels' total and the largest entries."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    if not rows:
+        raise SystemExit("transformer_train failed: torch.profiler recorded "
+                         "no device time for a training step")
+    rows.sort(key=lambda r: -r[1])
+    return {"device_ms": sum(r[1] for r in rows), "kernels": len(rows),
+            "top": [{"name": n[:90], "ms": ms, "calls": c}
+                    for n, ms, c in rows[:12]]}
+
+
+def _transformer_vs_cpu(dev):
+    """A small transformer (B = 2, L = 6, Dm = 16, 2 heads) on the card
+    against the same model on the CPU: loss and logits."""
+    from dgl_hack_tpu_torch.models import (GraphTransformer, build_graphs,
+                                           copy_task_loss)
+    rng = np.random.default_rng(10)
+    model = GraphTransformer(8, 6, 16, 2, rng=rng)
+    seq = torch.from_numpy(rng.integers(0, 8, (2, 6))).long()
+    with torch.no_grad():
+        loss, logits = copy_task_loss(model, build_graphs(2, 6), seq, seq)
+        loss_d, logits_d = copy_task_loss(
+            model.to(dev), build_graphs(2, 6, device=dev), seq.to(dev),
+            seq.to(dev))
+    return (rel_err(logits_d.cpu(), logits),
+            abs(float(loss_d) - float(loss)) / abs(float(loss)))
+
+
+def phase_transformer(build, k6, checks, dev, timings):
+    """Graph-transformer training at the JAX example's full width on one
+    fixed copy-task batch (B = 256, L = 64): a warm-up step, then 5 timed
+    steps through the entry points a user calls (GraphTransformer,
+    copy_task_loss, torch.optim.Adam at the example's lr 3e-3)."""
+    from dgl_hack_tpu_torch.models import (GraphTransformer, build_graphs,
+                                           copy_task_loss)
+    t0 = time.perf_counter()
+    graphs = build_graphs(TF_B, TF_L, device=dev)
+    build_s = time.perf_counter() - t0
+    _transformer_kernels(k6, graphs, checks, timings)
+    small_rel, small_loss_rel = _transformer_vs_cpu(dev)
+    if not (small_rel <= GAT_TOL and small_loss_rel <= GAT_TOL):
+        checks.failures.append(f"transformer small forward vs CPU: logits "
+                               f"rel err {small_rel}, loss {small_loss_rel}")
+    checks.raise_if_failed("transformer kernel check")
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    model = GraphTransformer(TF_VOCAB, TF_L, TF_DIM, TF_HEADS,
+                             rng=rng).to(dev)
+    seq = torch.from_numpy(rng.integers(0, TF_VOCAB, (TF_B, TF_L))
+                           ).long().to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3, eps=1e-8)
+
+    def step():
+        loss, _ = copy_task_loss(model, graphs, seq, seq)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [step()]                        # warm-up, outside the clock
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 5
+    build.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step())
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES.counts)
+    losses = [float(v) for v in losses]
+    profile = _profile_step(step)
+    emit({"phase": "transformer_train", "batch": TF_B, "seq_len": TF_L,
+          "dim": TF_DIM, "heads": TF_HEADS, "vocab": TF_VOCAB,
+          "edges": {"encoder": graphs[0].num_edges(),
+                    "decoder": graphs[1].num_edges(),
+                    "cross": graphs[2].num_edges()},
+          "graph_build_s": build_s, "steps": steps, "losses": losses,
+          "train_time_s": train_s, "epoch_ms": 1e3 * train_s / steps,
+          "launches": counts,
+          "launches_per_step": {k: v / steps for k, v in counts.items()},
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "small_vs_cpu_rel_err": small_rel, "k6": timings["sddmm"],
+          "k1": timings["segment_sum_tf"], "profile": profile,
+          "device_busy_share": profile["device_ms"] / (1e3 * train_s / steps)})
+    _check_training("transformer_train", {"losses": losses}, counts,
+                    ("sddmm.fwd", "sddmm.bwd", "segment_sum.fwd",
+                     "segment_sum.rev"))
+    del model, opt, graphs
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -669,6 +1015,7 @@ def main() -> int:
     import dgl_hack_tpu_torch as dt
     from dgl_hack_tpu_torch.ops.cuda import build
     from dgl_hack_tpu_torch.ops.cuda import gat_kernel as gk
+    from dgl_hack_tpu_torch.ops.cuda import sddmm_kernel as k6
     from dgl_hack_tpu_torch.ops.cuda import segment_max_kernel as sm
     from dgl_hack_tpu_torch.ops.cuda import spmm_kernel as sk
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -679,8 +1026,12 @@ def main() -> int:
 
     card = phase_build(build)
     checks = Checks()
-    g_small = phase_k1(dt, sk, checks, dev)
+    g_small, g_bench = phase_k1(dt, sk, checks, dev)
+    phase_k6_bench(k6, g_bench, checks)
+    del g_bench
+    torch.cuda.empty_cache()
     phase_k4k5_small(sm, sk, g_small, checks)
+    phase_k6_small(k6, g_small, checks)
     del g_small
     phase_gat(dt, gk, checks, dev)
     ds, g, data_s = _reddit(dt, dev)
@@ -694,16 +1045,18 @@ def main() -> int:
     c_sage = phase_sage_train(build, ds, g, dev)
     del ds, g
     torch.cuda.empty_cache()
+    c_tf = phase_transformer(build, k6, checks, dev, timings)
     phase_entry(dt, dev)
 
-    runs = (c_gcn, c_gat, c_sage)
+    runs = (c_gcn, c_gat, c_sage, c_tf)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
                            if k.startswith("segment_sum.")),
         "gat_fwd": c_gat.get("gat_fwd", 0),
         "gat_bwd": c_gat.get("gat_bwd", 0),
         "segment_max": c_sage.get("segment_max.fwd", 0),
-        "segment_max_bwd": c_sage.get("segment_max.bwd", 0)}
+        "segment_max_bwd": c_sage.get("segment_max.bwd", 0),
+        "sddmm": sum(v for k, v in c_tf.items() if k.startswith("sddmm."))}
     tpu = "dgl_hack_tpu/ops/pallas/"
     meta = {
         "segment_sum": ("dgl_hack_tpu_torch/csrc/segment_sum.cu",
@@ -715,7 +1068,9 @@ def main() -> int:
         "segment_max": ("dgl_hack_tpu_torch/csrc/segment_max.cu",
                         tpu + "spmm_kernel.py:675"),
         "segment_max_bwd": ("dgl_hack_tpu_torch/csrc/segment_max.cu",
-                            tpu + "spmm_kernel.py:1109")}
+                            tpu + "spmm_kernel.py:1109"),
+        "sddmm": ("dgl_hack_tpu_torch/csrc/sddmm.cu",
+                  tpu + "sddmm_kernel.py:160")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": n, "route": "cuda", "source": s, "replaces": r,
                 "launches": launches[n], "max_abs_err": checks.max_abs[n],

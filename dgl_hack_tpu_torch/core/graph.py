@@ -138,9 +138,17 @@ class Graph:
 
     # -- frames -------------------------------------------------------------
     @property
+    def srcdata(self) -> _FrameView:
+        return _FrameView(self._node_frames[0])
+
+    @property
+    def dstdata(self) -> _FrameView:
+        return _FrameView(self._node_frames[-1])
+
+    @property
     def ndata(self) -> _FrameView:
         if self.is_block:
-            raise ValueError("block graphs have no single node frame")
+            raise ValueError("block graphs use srcdata/dstdata")
         return _FrameView(self._node_frames[0])
 
     @property
@@ -270,5 +278,20 @@ def graph(edges, num_nodes: Optional[int] = None, build_csr: bool = True,
     if edge_mask is not None:
         edge_mask = np.asarray(edge_mask, dtype=bool)
     g = _build(src, dst, num_nodes, num_nodes, is_block=False,
+               build_csr=build_csr, edge_mask=edge_mask)
+    return g if device is None else g.to(device)
+
+
+def block(edges, num_src: int, num_dst: int, build_csr: bool = True,
+          edge_mask=None, device=None) -> Graph:
+    """Build a bipartite block from an edge list ``(src, dst)`` over
+    ``num_src`` source and ``num_dst`` destination nodes, with separate
+    src and dst frames (``srcdata``/``dstdata``).  Tensors land on
+    ``device`` (CPU when None)."""
+    src = np.asarray(edges[0])
+    dst = np.asarray(edges[1])
+    if edge_mask is not None:
+        edge_mask = np.asarray(edge_mask, dtype=bool)
+    g = _build(src, dst, int(num_src), int(num_dst), is_block=True,
                build_csr=build_csr, edge_mask=edge_mask)
     return g if device is None else g.to(device)

@@ -1,0 +1,219 @@
+// K6: gSDDMM, a per-edge binary op of an src-side or edge operand with a
+// dst-side operand (float32).
+//
+//   out[e, f] = op(lhs[row(e), f], rhs[dst[e], f])        op in copy_rhs,
+//                                                         add, sub, mul, div
+//   out[e, h] = sum_{d < D} lhs[row(e), h*D + d] * rhs[dst[e], h*D + d]
+//                                                         op = dot, F = H*D
+//
+// for every edge e in internal (CSC, dst-sorted) order, with row(e) =
+// src[e] for a node operand ('u') or e itself when src == NULL (an edge
+// operand, 'e').  copy_rhs reads no lhs.  lhs is (rows, F), rhs (num_dst,
+// F), out (E, F) or (E, H) for dot; rows are contiguous.  A dst row with no
+// in-edges has no edge, so nothing is read or written for it.
+//
+// Replaces the TPU kernel dgl_hack_tpu/ops/pallas/sddmm_kernel.py
+// _sddmm_kernel (line 160), launched by _sddmm_call.  The TPU gathered the
+// dst rows through dense windows and an exact one-hot MXU row expansion,
+// with a host-side window plan and an overflow patch, because per-edge
+// gathers are slow there; on the H100 a warp reads rhs[dst[e]] directly,
+// and the graph's own dst array is the plan.
+//
+// Bound on the H100: bytes.  Compulsory traffic is the indices, lhs and
+// rhs once each and the output; the kernel also gathers one lhs row per
+// edge for a node operand (4F bytes per edge: L2 hits only on graphs whose
+// rows fit in its 50 MB).  A dot does 2F operations per edge, far below
+// the fp32 rate.
+//
+// Design (simple and right first):
+// * Elementwise ops, F >= 32: each warp walks a tile of kTileE consecutive
+//   edges; lanes cover features, 4 per lane per 128-wide pass.  Edges are
+//   dst-sorted, so the rhs row stays in registers while dst[e] is
+//   unchanged and is read from memory once per run of equal dst.  A hub
+//   row with 10^5 in-edges spreads over many tiles and warps; no warp owns
+//   a whole dst segment.
+// * Elementwise ops, F < 32: the warp splits into 32/Fp lane groups (Fp =
+//   F rounded up to a power of two), one edge per group, as K1 does.
+// * dot: one kernel body, instantiated twice.  D <= 32: each (edge, head)
+//   item takes a group of Dp lanes (Dp = D rounded up to a power of two;
+//   lanes past D add 0).  D > 32: each item takes the warp, whose lanes
+//   stride over d.  A fixed shuffle-xor tree then sums the group.  The
+//   d loop exists only in the D > 32 instance: on the H100 a runtime loop
+//   in the narrow instance, even one that ran once, made it slower.
+// Every sum has a fixed order, so every result repeats bitwise; the
+// elementwise ops are one IEEE op per element (no fast math), so they
+// equal the plain PyTorch version bitwise.  Left for later: vector (16 B)
+// loads, several items per lane for narrow heads, bf16 storage.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;     // warps per block
+constexpr int kTileE = 32;    // edges per warp, elementwise ops
+constexpr int kTileI = 64;    // (edge, head) items per warp, dot, D <= 32
+constexpr int kTileW = 8;     // items per warp, dot, D > 32
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Op { kCopyRhs = 0, kAdd = 1, kSub = 2, kMul = 3, kDiv = 4, kDot = 5 };
+
+template <int OP>
+__device__ __forceinline__ float combine(float l, float r) {
+  if (OP == kCopyRhs) return r;
+  if (OP == kAdd) return l + r;
+  if (OP == kSub) return l - r;
+  if (OP == kMul) return l * r;
+  return l / r;   // kDiv
+}
+
+__device__ __forceinline__ int next_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+template <int OP>
+__global__ void sddmm_elem_kernel(const int* __restrict__ src,
+                                  const int* __restrict__ dst,
+                                  const float* __restrict__ lhs,
+                                  const float* __restrict__ rhs,
+                                  float* __restrict__ out, int E, int F) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int64_t e0 = warp * kTileE;
+  if (e0 >= E) return;
+  const int64_t e1 = e0 + kTileE < E ? e0 + kTileE : E;
+  const int64_t Fl = F;
+
+  if (F < 32) {
+    const int fp = next_pow2(F);
+    const int groups = 32 / fp;
+    const int sub = lane % fp;
+    if (sub >= F) return;
+    for (int64_t e = e0 + lane / fp; e < e1; e += groups) {
+      const float r = rhs[(int64_t)dst[e] * Fl + sub];
+      float l = 0.0f;
+      if (OP != kCopyRhs) {
+        const int64_t row = src ? (int64_t)src[e] : e;
+        l = lhs[row * Fl + sub];
+      }
+      out[e * Fl + sub] = combine<OP>(l, r);
+    }
+    return;
+  }
+
+  for (int f0 = 0; f0 < F; f0 += 128) {
+    float r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int v = -1;
+    for (int64_t e = e0; e < e1; ++e) {
+      const int ve = dst[e];
+      if (ve != v) {       // warp-uniform: a new dst row starts
+        v = ve;
+        const float* rr = rhs + (int64_t)v * Fl;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int f = f0 + lane + 32 * k;
+          if (f < F) r[k] = rr[f];
+        }
+      }
+      const float* lr = nullptr;
+      if (OP != kCopyRhs) lr = lhs + (src ? (int64_t)src[e] : e) * Fl;
+      float* o = out + e * Fl;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int f = f0 + lane + 32 * k;
+        if (f < F) o[f] = combine<OP>(OP != kCopyRhs ? lr[f] : 0.0f, r[k]);
+      }
+    }
+  }
+}
+
+// out[i] for items i = e * H + h.  WIDE = false (D <= 32): each item takes
+// a group of Dp lanes (Dp = D rounded up to a power of two; lanes past D
+// add 0).  WIDE = true (D > 32): each item takes the warp, whose lanes
+// stride over d.  A fixed shuffle-xor tree then sums the group.
+template <bool WIDE>
+__global__ void sddmm_dot_kernel(const int* __restrict__ src,
+                                 const int* __restrict__ dst,
+                                 const float* __restrict__ lhs,
+                                 const float* __restrict__ rhs,
+                                 float* __restrict__ out, int64_t items,
+                                 int H, int D) {
+  constexpr int kTile = WIDE ? kTileW : kTileI;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int64_t i0 = warp * kTile;
+  if (i0 >= items) return;       // warp-uniform
+  const int64_t i1 = i0 + kTile < items ? i0 + kTile : items;
+  const int dp = WIDE ? 32 : next_pow2(D);
+  const int groups = 32 / dp;
+  const int sub = lane % dp;
+  const int grp = lane / dp;
+  const int64_t F = (int64_t)H * D;
+  for (int64_t base = i0; base < i1; base += groups) {   // warp-uniform
+    const int64_t i = base + grp;
+    const bool valid = i < i1;
+    float p = 0.0f;
+    if (valid && sub < D) {
+      const int64_t e = i / H;
+      const int h = (int)(i - e * H);
+      const int64_t row = src ? (int64_t)src[e] : e;
+      const float* lr = lhs + row * F + (int64_t)h * D;
+      const float* rr = rhs + (int64_t)dst[e] * F + (int64_t)h * D;
+      if (WIDE)
+        for (int d = sub; d < D; d += 32) p = fmaf(lr[d], rr[d], p);
+      else
+        p = lr[sub] * rr[sub];
+    }
+    for (int off = dp >> 1; off > 0; off >>= 1)
+      p += __shfl_xor_sync(kFull, p, off);
+    if (valid && sub == 0) out[i] = p;
+  }
+}
+
+template <int OP>
+void launch_elem(const int* src, const int* dst, const float* lhs,
+                 const float* rhs, float* out, int E, int F,
+                 cudaStream_t stream) {
+  const int64_t warps = ((int64_t)E + kTileE - 1) / kTileE;
+  const int64_t blocks = (warps + kWarps - 1) / kWarps;
+  sddmm_elem_kernel<OP><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
+      src, dst, lhs, rhs, out, E, F);
+}
+
+}  // namespace
+
+// op: 0 copy_rhs, 1 add, 2 sub, 3 mul, 4 div, 5 dot.  src == NULL reads
+// lhs row e (an edge operand).  D is the head width of dot (H = F / D).
+extern "C" int sddmm_f32(const int* src, const int* dst, const float* lhs,
+                         const float* rhs, float* out, int op, int E, int F,
+                         int D, cudaStream_t stream) {
+  if (E <= 0 || F <= 0) return (int)cudaGetLastError();
+  switch (op) {
+    case kCopyRhs:
+      launch_elem<kCopyRhs>(src, dst, lhs, rhs, out, E, F, stream);
+      break;
+    case kAdd: launch_elem<kAdd>(src, dst, lhs, rhs, out, E, F, stream); break;
+    case kSub: launch_elem<kSub>(src, dst, lhs, rhs, out, E, F, stream); break;
+    case kMul: launch_elem<kMul>(src, dst, lhs, rhs, out, E, F, stream); break;
+    case kDiv: launch_elem<kDiv>(src, dst, lhs, rhs, out, E, F, stream); break;
+    case kDot: {
+      if (D <= 0 || F % D != 0) return (int)cudaErrorInvalidValue;
+      const int H = F / D;
+      const int64_t items = (int64_t)E * H;
+      const int64_t tile = D <= 32 ? kTileI : kTileW;   // kTile of the instance
+      const int64_t warps = (items + tile - 1) / tile;
+      const int64_t blocks = (warps + kWarps - 1) / kWarps;
+      if (D <= 32)
+        sddmm_dot_kernel<false><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
+            src, dst, lhs, rhs, out, items, H, D);
+      else
+        sddmm_dot_kernel<true><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
+            src, dst, lhs, rhs, out, items, H, D);
+      break;
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

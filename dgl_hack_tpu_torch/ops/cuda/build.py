@@ -54,6 +54,8 @@ SIGNATURES = {
     # dwh, del, draw, dw, num_src, H, D, slope, warps_per_block, stream
     "gat_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # src, dst, lhs, rhs, out, op, E, F, D, stream
+    "sddmm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -21,35 +21,69 @@ torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _run_example(script, args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2",
-               CUDA_VISIBLE_DEVICES="")
-    return subprocess.run([sys.executable, str(ROOT / "examples" / script),
-                           *args], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=120)
-
-
-@pytest.mark.parametrize("script,args", [
+CLI_CASES = [
     ("train_gcn_torch.py", ["--epochs", "3"]),
     ("train_gat_torch.py", ["--epochs", "3", "--dataset", "synth"]),
-])
-def test_example_cli(script, args):
-    res = _run_example(script, [*args, "--device", "cpu"])
-    assert res.returncode == 0, res.stderr
-    out = json.loads(res.stdout.strip().splitlines()[-1])
+    ("train_transformer_torch.py", ["--epochs", "3", "--batch", "4",
+                                    "--seq-len", "6"]),
+]
+SCRIPTS = [script for script, _ in CLI_CASES]
+
+
+def _start_example(script, args):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2",
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, str(ROOT / "examples" / script),
+                             *args], cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Every CLI run of this file, started together so that their start-up
+    overlaps; ``runs(key)`` waits for one and gives (returncode, stdout,
+    stderr)."""
+    procs = {("cpu", script): _start_example(script, [*args, "--device",
+                                                      "cpu"])
+             for script, args in CLI_CASES}
+    procs.update({("refuse", script): _start_example(script, ["--epochs",
+                                                              "1"])
+                  for script in SCRIPTS})
+    done = {}
+
+    def result(key):
+        if key not in done:
+            out, err = procs[key].communicate(timeout=120)
+            done[key] = (procs[key].returncode, out, err)
+        return done[key]
+    yield result
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.mark.parametrize("script,args", CLI_CASES)
+def test_example_cli(runs, script, args):
+    rc, stdout, stderr = runs(("cpu", script))
+    assert rc == 0, stderr
+    out = json.loads(stdout.strip().splitlines()[-1])
+    if script == "train_transformer_torch.py":
+        assert (out["dataset"], out["model"]) == ("copy", "graph-transformer")
+        assert 0.0 <= out["token_acc"] <= 1.0 and out["train_time_s"] >= 0
+        return
     assert out["dataset"] == "cora-synth"
     assert 0.0 <= out["test_acc"] <= 1.0 and out["train_time_s"] > 0
 
 
-@pytest.mark.parametrize("script", ["train_gcn_torch.py",
-                                    "train_gat_torch.py"])
-def test_example_cli_refuses_without_card(script):
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_example_cli_refuses_without_card(runs, script):
     """--device defaults to cuda; with no card the CLI exits with an error
     naming --device cpu instead of running on the CPU."""
-    res = _run_example(script, ["--epochs", "1"])
-    assert res.returncode != 0
-    assert "--device cpu" in res.stderr
-    assert not res.stdout.strip()
+    rc, stdout, stderr = runs(("refuse", script))
+    assert rc != 0
+    assert "--device cpu" in stderr
+    assert not stdout.strip()
 
 
 def test_citation_standin_matches_jax(monkeypatch, tmp_path):

@@ -28,6 +28,35 @@ torch.set_num_threads(2)
 
 TOL = 1e-5
 
+# Variables either package reads at call time to pick a path or a
+# precision; a test elsewhere in the same worker process must not decide
+# what is compared here.
+_PATH_ENV = ("DGL_TPU_GAT_SOFTMAX", "DGL_TPU_SPMM_MODE",
+             "DGL_TPU_DISABLE_PALLAS", "DGL_TPU_SDDMM_KERNEL",
+             "DGL_TPU_GAT_PACKED", "DGL_TPU_GAT_BWD_FUSED",
+             "DGL_TPU_GAT_BWD_WIDE", "DGL_TPU_GAT_BWD_PACK",
+             "DGL_TPU_NO_REWRITE")
+
+
+@pytest.fixture(autouse=True)
+def _isolated(monkeypatch):
+    """Each case runs on the packages' defaults, with torch at 2 threads
+    and the JAX reference finished before the port starts (see
+    ``_jax_ref``)."""
+    for var in _PATH_ENV:
+        monkeypatch.delenv(var, raising=False)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _jax_ref(module, params, g, x):
+    """The JAX layer's output, computed to the end on the host: JAX
+    dispatches asynchronously, and the port must not run beside it."""
+    return np.asarray(jax.block_until_ready(
+        module.apply(params, g, jnp.asarray(x))))
+
 
 def assert_close(out, ref, tol, what=""):
     out, ref = np.asarray(out), np.asarray(ref)
@@ -63,24 +92,76 @@ def test_graphconv_from_jax_params(in_feats, out_feats, norm):
     x = rng.normal(size=(120, in_feats)).astype(np.float32)
     layer = JGraphConv(out_feats, norm=norm)
     params = layer.init(jax.random.PRNGKey(0), gj, jnp.asarray(x))
-    ref = layer.apply(params, gj, jnp.asarray(x))
+    ref = _jax_ref(layer, params, gj, x)
     out = _port_apply(GraphConv(out_feats, norm=norm), params, gt, x)
     assert_close(out, ref, TOL)
+
+
+def _gat_f64(params, src, dst, x, heads, out_feats):
+    """The GATConv layer in float64 numpy, from the JAX parameters."""
+    p = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
+                               params["params"])
+    n = x.shape[0]
+    f = (x.astype(np.float64) @ p["fc"]["kernel"]).reshape(n, heads,
+                                                             out_feats)
+    el, er = (f * p["attn_l"]).sum(-1), (f * p["attn_r"]).sum(-1)
+    e = el[src] + er[dst]
+    e = np.where(e > 0, e, 0.2 * e)
+    emax = np.full((n, heads), -np.inf)
+    np.maximum.at(emax, dst, e)
+    a = np.exp(e - emax[dst])
+    den = np.zeros((n, heads))
+    np.add.at(den, dst, a)
+    a = a / den[dst]
+    out = np.zeros((n, heads, out_feats))
+    np.add.at(out, dst, a[:, :, None] * f[src])
+    if "res_fc" in p:
+        out += (x.astype(np.float64) @ p["res_fc"]["kernel"]).reshape(
+            out.shape)
+    return out
+
+
+def _gat_diagnosis(out, ref, rerun_port, rerun_jax, exact):
+    """What a failing GATConv comparison needs for a diagnosis: each
+    side's error against float64, where the worst gap is and the values
+    there, and whether each side repeats itself."""
+    gap = np.abs(out - ref)
+    over = gap > TOL * np.abs(ref).max()
+    at = np.unravel_index(int(gap.argmax()), gap.shape)
+    return "; ".join([
+        f"port vs f64 {np.abs(out - exact).max():.3e}",
+        f"jax vs f64 {np.abs(ref - exact).max():.3e}",
+        f"worst gap at (node, head, feature) {tuple(map(int, at))}: "
+        f"port {out[at]!r}, jax {ref[at]!r}, f64 {exact[at]!r}",
+        f"{int(over.sum())} entries over the limit, in nodes "
+        f"{sorted(set(np.nonzero(over)[0].tolist()))[:20]}",
+        f"port repeats bitwise: {np.array_equal(out, rerun_port)}",
+        f"jax repeats bitwise: {np.array_equal(ref, rerun_jax)}",
+        f"torch threads {torch.get_num_threads()}"])
 
 
 @pytest.mark.parametrize("heads,out_feats,residual",
                          [(4, 8, False), (1, 7, False), (2, 5, True)])
 def test_gatconv_from_jax_params(heads, out_feats, residual):
+    """On a mismatch the failure text carries each side's error against a
+    float64 numpy layer and whether each side repeats itself: the [4-8-False]
+    case once failed in a full parallel run (8.19e-5 against a 1.80e-5
+    limit) and never again in isolation, for a cause not yet known."""
     rng = np.random.default_rng(heads + out_feats)
     gj, gt = _graph(rng)
     x = rng.normal(size=(120, 12)).astype(np.float32)
     layer = JGATConv(out_feats, heads, residual=residual)
     params = layer.init(jax.random.PRNGKey(1), gj, jnp.asarray(x))
-    ref = layer.apply(params, gj, jnp.asarray(x))
-    out = _port_apply(GATConv(out_feats, heads, residual=residual), params,
-                      gt, x)
+    ref = _jax_ref(layer, params, gj, x)
+    port = GATConv(out_feats, heads, residual=residual)
+    out = _port_apply(port, params, gt, x)
     assert out.shape == (120, heads, out_feats)
-    assert_close(out, ref, TOL)
+    scale = float(np.abs(ref).max())
+    assert float(np.abs(out - ref).max()) <= TOL * scale, _gat_diagnosis(
+        out, ref, _port_apply(port, params, gt, x),
+        _jax_ref(layer, params, gj, x),
+        _gat_f64(params, gt.src.numpy(), gt.dst.numpy(), x, heads,
+                 out_feats))
 
 
 def test_models_from_jax_params():
@@ -90,7 +171,7 @@ def test_models_from_jax_params():
     for jm, pm in ((JGCN(16, 3, dropout=0.5), GCN(16, 3, dropout=0.5)),
                    (JGAT(8, 3, heads=(4, 2)), GAT(8, 3, heads=(4, 2)))):
         params = jm.init(jax.random.PRNGKey(2), gj, jnp.asarray(x))
-        ref = jm.apply(params, gj, jnp.asarray(x))
+        ref = _jax_ref(jm, params, gj, x)
         assert_close(_port_apply(pm, params, gt, x), ref, TOL,
                      type(pm).__name__)
 
