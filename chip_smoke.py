@@ -6,8 +6,13 @@ Phases, one JSON line each:
   1. build the kernels from dgl_hack_tpu_torch/csrc (nvcc, sm_90a);
   2. K1 (segment sum) against its plain version: forward and dx on a
      small graph (zero-in-degree rows, a hub of >= 10k in-edges, F in
-     {7, 16, 41, 128}) and at bench.py's shape (power-law, N=1M, deg 16,
-     F=128); gspmm with a dst-side operand, which reduces through K1;
+     {7, 16, 41, 128}); gspmm with a dst-side operand, which reduces
+     through K1; K1's long-row split (a hub over 101 pieces, rows of T
+     and T + 1 edges, empty rows around long rows, every mode and weight
+     kind at F in {1, 7, 16, 41, 128, 602}, misaligned x and weight); and
+     at bench.py's shape (power-law, N=1M, deg 16, F=128), forward and dx
+     timed beside torch.sparse.mm, with the row plans' build time and the
+     feature-slice widths 16, 32, 64 and none;
   3. K2/K3 (fused GAT forward/backward) against the plain composed
      version and its autograd, in both softmax modes, plus a large-spread
      case in 'exact' mode;
@@ -18,7 +23,7 @@ Phases, one JSON line each:
      versions on phase 2's small graph (F in {7, 16, 41, 128}; weights
      none, (E,) and (E, F); one case of integer features, which tie), and
      on synthetic Reddit at both GraphSAGE layer widths (F = 602, 16), with
-     K1 at F = 602 (the mean aggregator's layer 0);
+     K1 at F = 602 (the mean aggregator's layer 0) at every slice width;
   7. GraphSAGE-pool training (hidden 16, 2 layers) on synthetic Reddit,
      then 3 steps each of the mean and gcn aggregators;
   8. K6 (gSDDMM) against its plain version on phase 2's small graph (F in
@@ -29,8 +34,10 @@ Phases, one JSON line each:
      plain version and cuSPARSE's SDDMM (torch.sparse.sampled_addmm);
  10. graph-transformer training (examples/train_transformer.py at its
      full width: Dm 64, 4 heads, vocab 16, 2 + 2 layers) at batch 256 and
-     sequence length 64, 5 steps after a warm-up step, with K6 at its
-     shapes and a small forward held against the CPU;
+     sequence length 64, 5 steps after a warm-up step, with K6 and K1 at
+     its shapes and a small forward held against the CPU; the profile of
+     one step groups device time by kernel and by the torch op, autograd
+     node and source line that launched it;
  11. a twin of __graft_entry__.entry(): a GAT forward on a 512-node graph,
      held against the same model on the CPU.
 Then the card's name and power limit, the per-kernel JSON line, and as
@@ -180,15 +187,19 @@ def phase_build(build):
     return card
 
 
-def _k1_cases(sk, g, F, checks, tag, rng, weights=True):
-    """K1 forward (CSC) and dx (CSR) against the plain version."""
+def _k1_cases(sk, g, F, checks, tag, rng, weights=True, modes=("fwd", "rev"),
+              plans=False):
+    """K1 forward (CSC), dx (CSR) and, when asked, edge-row mode against
+    the plain version in float64, each repeated bitwise.  With ``plans``
+    the graph's cached row plans are passed, else K1 builds them."""
     dev = g.device
-    x = torch.from_numpy(rng.normal(size=(g.num_src_nodes, F))
-                         .astype(np.float32)).to(dev)
-    dout = torch.from_numpy(rng.normal(size=(g.num_dst_nodes, F))
-                            .astype(np.float32)).to(dev)
     E = g.num_edges()
-    dst_csr = sk.rev_gidx(g)
+    ins = {"fwd": (g.num_src_nodes, dict(indptr=g.csc_indptr, gidx=g.src),
+                   "csc"),
+           "rev": (g.num_dst_nodes, dict(indptr=g.csr_indptr,
+                                         gidx=sk.rev_gidx(g),
+                                         eid=g.csr_eids), "csr"),
+           "edge": (E, dict(indptr=g.csc_indptr), "csc")}
     ws = [None]
     if weights:
         ws += [torch.from_numpy(rng.normal(size=(E,)).astype(np.float32))
@@ -196,14 +207,17 @@ def _k1_cases(sk, g, F, checks, tag, rng, weights=True):
                torch.from_numpy(rng.normal(size=(E, F)).astype(np.float32))
                .to(dev)]
     errs = {}
-    for w in ws:
-        kind = "none" if w is None else ("scalar" if w.dim() == 1 else "full")
-        fwd = dict(indptr=g.csc_indptr, gidx=g.src, w=w)
-        rev = dict(indptr=g.csr_indptr, gidx=dst_csr, eid=g.csr_eids, w=w)
-        for d, args, inp in (("fwd", fwd, x), ("rev", rev, dout)):
-            out = sk.segment_sum(x=inp, site=d, **args)
-            again = sk.segment_sum(x=inp, site=d, **args)
-            ref = k1_ref(sk, x=inp, **args)
+    for d in modes:
+        rows, args, direction = ins[d]
+        inp = torch.from_numpy(rng.normal(size=(rows, F))
+                               .astype(np.float32)).to(dev)
+        plan = sk.graph_row_plan(g, direction) if plans else None
+        for w in ws:
+            kind = "none" if w is None else ("scalar" if w.dim() == 1
+                                             else "full")
+            out = sk.segment_sum(x=inp, w=w, site=d, plan=plan, **args)
+            again = sk.segment_sum(x=inp, w=w, site=d, plan=plan, **args)
+            ref = k1_ref(sk, x=inp, w=w, **args)
             errs[f"{d}.{kind}"] = checks.compare(
                 "segment_sum", f"{tag} F={F} {d} w={kind}", out, ref, K1_TOL,
                 again)
@@ -234,14 +248,19 @@ def _v_side_cases(dt, sk, g, src, dst, checks, rng, F=16):
     return errs
 
 
-def csr_matrix(g, batch=None):
+def csr_matrix(g, batch=None, reverse=False):
     """The graph's CSC direction as a sparse CSR matrix (dst x src) of
     ones, optionally ``batch`` copies: for the library calls
     ``torch.sparse.mm``, which K1's forward matches, and
     ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM), whose values come out
-    in internal edge order."""
-    crow, col = g.csc_indptr.long(), g.src.long()
-    size = (g.num_dst_nodes, g.num_src_nodes)
+    in internal edge order.  ``reverse``: the CSR direction (src x dst),
+    which K1's dx matches."""
+    if reverse:
+        crow, col = g.csr_indptr.long(), g.dst[g.csr_eids.long()].long()
+        size = (g.num_src_nodes, g.num_dst_nodes)
+    else:
+        crow, col = g.csc_indptr.long(), g.src.long()
+        size = (g.num_dst_nodes, g.num_src_nodes)
     if batch is not None:
         crow = crow.expand(batch, -1).contiguous()
         col = col.expand(batch, -1).contiguous()
@@ -268,43 +287,138 @@ def phase_k1(dt, sk, checks, dev):
     emit({"phase": "k1_small", "nodes": N, "edges": g.num_edges(),
           "hub_in_degree": int(g.in_degrees()[0]), "rel_err": small,
           "v_side_rel_err": v_side,
-          "fwd_ms_F128": cuda_ms(
-              lambda: sk.segment_sum(g.csc_indptr, x, g.src)),
+          "fwd_ms_F128": cuda_ms(lambda: sk.segment_sum(
+              g.csc_indptr, x, g.src, plan=sk.graph_row_plan(g, "csc"))),
           "fwd_plain_ms_F128": cuda_ms(
               lambda: sk.segment_sum_plain(g.csc_indptr, x, g.src))})
     checks.raise_if_failed("k1_small")
+
+    phase_k1_plan(dt, sk, checks, dev)
 
     t0 = time.perf_counter()
     gb = random_power_law_graph(1_000_000, 16.0, alpha=2.1, seed=0)
     build_s = time.perf_counter() - t0
     gb = dt.prepare_spmm(gb, device=dev)
     F = 128
-    errs = _k1_cases(sk, gb, F, checks, "bench", rng, weights=False)
+    errs = _k1_cases(sk, gb, F, checks, "bench", rng, weights=False,
+                     plans=True)
     x = torch.from_numpy(rng.normal(size=(gb.num_src_nodes, F))
                          .astype(np.float32)).to(dev)
     dst_csr = sk.rev_gidx(gb)
+    fwd = (gb.csc_indptr, x, gb.src)
+    rev = (gb.csr_indptr, x, dst_csr, gb.csr_eids)
+    p_fwd, p_rev = sk.graph_row_plan(gb, "csc"), sk.graph_row_plan(gb, "csr")
     times = {
-        "fwd_ms": cuda_ms(lambda: sk.segment_sum(gb.csc_indptr, x, gb.src)),
-        "fwd_plain_ms": cuda_ms(
-            lambda: sk.segment_sum_plain(gb.csc_indptr, x, gb.src)),
-        "rev_ms": cuda_ms(lambda: sk.segment_sum(
-            gb.csr_indptr, x, dst_csr, gb.csr_eids, site="rev")),
-        "rev_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(
-            gb.csr_indptr, x, dst_csr, gb.csr_eids)),
+        "fwd_ms": cuda_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
+        "fwd_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(*fwd)),
+        "rev_ms": cuda_ms(lambda: sk.segment_sum(*rev, site="rev",
+                                                 plan=p_rev)),
+        "rev_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(*rev)),
     }
     A = csr_matrix(gb)
     times["fwd_library_ms"] = cuda_ms(lambda: torch.sparse.mm(A, x))
+    A = csr_matrix(gb, reverse=True)
+    times["rev_library_ms"] = cuda_ms(lambda: torch.sparse.mm(A, x))
     del A
-    out = sk.segment_sum(gb.csc_indptr, x, gb.src)
+    out = sk.segment_sum(*fwd, plan=p_fwd)
     times["fwd_bound_ms"], _ = bound(
         nbytes(gb.csc_indptr, gb.src, x, out), gb.num_edges() * F)
+    times["rev_bound_ms"], _ = bound(
+        nbytes(gb.csr_indptr, dst_csr, x, out), gb.num_edges() * F)
+    ref = k1_ref(sk, *fwd)
+    sweep = slice_sweep(sk, checks, "bench fwd F=128", fwd, p_fwd, ref)
+    del ref, out
     E = gb.num_edges()
     emit({"phase": "k1_bench_shape", "nodes": gb.num_src_nodes, "edges": E,
-          "F": F, "graph_build_s": build_s, "rel_err": errs, **times,
+          "F": F, "graph_build_s": build_s,
+          "plan_build_ms": plan_build_ms(sk, gb), "rel_err": errs, **times,
           "fwd_edges_per_s": E / (times["fwd_ms"] * 1e-3),
-          "max_in_degree": int(gb.in_degrees().max())})
+          "max_in_degree": int(gb.in_degrees().max()),
+          "max_out_degree": int(gb.out_degrees().max()),
+          "slice_width_rule": sk.slice_width(gb.num_src_nodes, F, False),
+          "slice_sweep_fwd": sweep})
     checks.raise_if_failed("k1_bench_shape")
     return g, gb
+
+
+def plan_build_ms(sk, g):
+    """Milliseconds to build K1's row plan of each direction on the card,
+    with the plan's size: set-up, once per graph, apart from the kernel
+    times."""
+    res = {}
+    for direction, indptr in (("csc", g.csc_indptr), ("csr", g.csr_indptr)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = sk.row_plan(indptr)
+        torch.cuda.synchronize()
+        res[direction] = {"ms": 1e3 * (time.perf_counter() - t0),
+                          "long_rows": plan.long_rows.numel(),
+                          "pieces": plan.pieces.shape[0]}
+    return res
+
+
+def slice_sweep(sk, checks, what, args, plan, ref, reps=5):
+    """K1 at feature-slice widths 16, 32, 64 and F (no slicing): ms of
+    each, each result held to the float64 reference."""
+    F = args[1].shape[1]
+    launch = sk.segment_sum_launcher(*args, plan=plan)
+    res = {}
+    for s in (16, 32, 64, F):
+        out = launch(s)
+        checks.compare("segment_sum", f"{what} slice {s}", out, ref, K1_TOL,
+                       launch(s))
+        del out
+        res[str(s)] = cuda_ms(lambda: launch(s), reps=reps)
+    return res
+
+
+def phase_k1_plan(dt, sk, checks, dev):
+    """K1's long-row split on the card.  Row 1 is a hub of 101 pieces of
+    K1_PIECE edges, rows 3 and 4 have exactly T and T + 1 edges, row 6 has
+    3T + 5; rows 0, 2, 5 and the last are empty.  Every mode and weight
+    kind at F in {1, 7, 16, 41, 128, 602} (F = 602 takes float2 loads),
+    then an x and a weight 4 bytes off 16-byte alignment (narrow loads),
+    each against the float64 plain version and repeated bitwise."""
+    rng = np.random.default_rng(11)
+    T, n = sk.K1_PIECE, 2048
+    deg = rng.integers(0, T // 2 + 1, n)
+    deg[[0, 2, 5, n - 1]] = 0
+    deg[1], deg[3], deg[4], deg[6] = 100 * T + 3, T, T + 1, 3 * T + 5
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n, dst.shape[0])
+    g = dt.prepare_spmm(dt.graph((src, dst), num_nodes=n), device=dev)
+    plan = sk.graph_row_plan(g, "csc")
+    hub_pieces = int(plan.piece_ptr[1] - plan.piece_ptr[0])
+    if plan.long_rows.tolist() != [1, 4, 6] or hub_pieces != 101:
+        checks.failures.append(f"k1 plan: long rows {plan.long_rows.tolist()}"
+                               f", hub pieces {hub_pieces}")
+    errs = {F: _k1_cases(sk, g, F, checks, "plan", rng,
+                         modes=("fwd", "rev", "edge"), plans=True)
+            for F in (1, 7, 16, 41, 128, 602)}
+    vec = {}
+    for F in (128, 602):
+        buf = torch.from_numpy(rng.normal(size=n * F + 1).astype(np.float32)
+                               ).to(dev)
+        wbuf = torch.from_numpy(rng.normal(size=g.num_edges() * F + 1)
+                                .astype(np.float32)).to(dev)
+        x_off, w_off = buf[1:].view(n, F), wbuf[1:].view(-1, F)
+        x_al = buf[:-1].view(n, F)
+        for name, x, w in (("x_off", x_off, None), ("w_off", x_al, w_off)):
+            args = dict(indptr=g.csc_indptr, x=x, gidx=g.src, w=w)
+            vec[f"F{F}.{name}"] = sk.vector_width(F, x, w)
+            checks.compare("segment_sum", f"plan F={F} {name}",
+                           sk.segment_sum(plan=plan, **args),
+                           k1_ref(sk, **args), K1_TOL,
+                           sk.segment_sum(plan=plan, **args))
+        vec[f"F{F}.aligned"] = sk.vector_width(F, x_al)
+    if vec != {"F128.x_off": 1, "F128.w_off": 1, "F128.aligned": 4,
+               "F602.x_off": 1, "F602.w_off": 1, "F602.aligned": 2}:
+        checks.failures.append(f"k1 load widths {vec}")
+    emit({"phase": "k1_plan", "nodes": n, "edges": g.num_edges(),
+          "long_rows": plan.long_rows.tolist(), "hub_pieces": hub_pieces,
+          "pieces": plan.pieces.shape[0], "load_width": vec,
+          "plan_build_ms": plan_build_ms(sk, g), "rel_err": errs})
+    checks.raise_if_failed("k1_plan")
 
 
 def composed_gat(g, fsrc, el, er, w, slope):
@@ -414,29 +528,26 @@ def phase_gcn(dt, build, sk, ds, g, checks, dev, timings):
     x = torch.from_numpy(rng.normal(size=(g.num_src_nodes, 16))
                          .astype(np.float32)).to(dev)
     dst_csr = sk.rev_gidx(g)
-    out = sk.segment_sum(g.csc_indptr, x, g.src)
-    ref = k1_ref(sk, g.csc_indptr, x, g.src)
-    checks.compare("segment_sum", "reddit F=16 fwd", out, ref, K1_TOL,
-                   sk.segment_sum(g.csc_indptr, x, g.src))
-    rev = sk.segment_sum(g.csr_indptr, x, dst_csr, g.csr_eids, site="rev")
-    checks.compare("segment_sum", "reddit F=16 rev", rev,
-                   k1_ref(sk, g.csr_indptr, x, dst_csr,
-                                        g.csr_eids), K1_TOL,
-                   sk.segment_sum(g.csr_indptr, x, dst_csr, g.csr_eids,
-                                  site="rev"))
+    fwd = (g.csc_indptr, x, g.src)
+    rev = (g.csr_indptr, x, dst_csr, g.csr_eids)
+    p_fwd, p_rev = sk.graph_row_plan(g, "csc"), sk.graph_row_plan(g, "csr")
+    out = sk.segment_sum(*fwd, plan=p_fwd)
+    checks.compare("segment_sum", "reddit F=16 fwd", out, k1_ref(sk, *fwd),
+                   K1_TOL, sk.segment_sum(*fwd, plan=p_fwd))
+    checks.compare("segment_sum", "reddit F=16 rev",
+                   sk.segment_sum(*rev, site="rev", plan=p_rev),
+                   k1_ref(sk, *rev), K1_TOL,
+                   sk.segment_sum(*rev, site="rev", plan=p_rev))
     A = csr_matrix(g)
-    out = sk.segment_sum(g.csc_indptr, x, g.src)
     timings["segment_sum"] = timing(
-        cuda_ms(lambda: sk.segment_sum(g.csc_indptr, x, g.src)),
-        cuda_ms(lambda: sk.segment_sum_plain(g.csc_indptr, x, g.src)),
+        cuda_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
+        cuda_ms(lambda: sk.segment_sum_plain(*fwd)),
         nbytes(g.csc_indptr, g.src, x, out), g.num_edges() * 16,
         "synthetic Reddit, F=16, forward",
         library_ms=cuda_ms(lambda: torch.sparse.mm(A, x)))
     timings["segment_sum"].update(
-        rev_ms=cuda_ms(lambda: sk.segment_sum(
-            g.csr_indptr, x, dst_csr, g.csr_eids, site="rev")),
-        rev_plain_ms=cuda_ms(lambda: sk.segment_sum_plain(
-            g.csr_indptr, x, dst_csr, g.csr_eids)))
+        rev_ms=cuda_ms(lambda: sk.segment_sum(*rev, site="rev", plan=p_rev)),
+        rev_plain_ms=cuda_ms(lambda: sk.segment_sum_plain(*rev)))
     del A
     checks.raise_if_failed("gcn kernel check")
 
@@ -609,19 +720,25 @@ def phase_sage_kernels(sm, sk, g, checks, dev, timings):
                 cuda_ms(lambda: sm.segment_max_bwd_plain(*args), reps=3),
                 nbytes(g.csr_indptr, dst_csr, g.csr_eids, x, raw, gout, dx),
                 2 * E * F, shape)
-            out = sk.segment_sum(g.csc_indptr, x, g.src)
+            fwd = (g.csc_indptr, x, g.src)
+            plan = sk.graph_row_plan(g, "csc")
+            out = sk.segment_sum(*fwd, plan=plan)
+            ref = k1_ref(sk, *fwd)
             res["k1.F602"] = checks.compare(
-                "segment_sum", "reddit F=602 fwd", out,
-                k1_ref(sk, g.csc_indptr, x, g.src), K1_TOL,
-                sk.segment_sum(g.csc_indptr, x, g.src))
+                "segment_sum", "reddit F=602 fwd", out, ref, K1_TOL,
+                sk.segment_sum(*fwd, plan=plan))
             A = csr_matrix(g)
             k1_602 = timing(
-                cuda_ms(lambda: sk.segment_sum(g.csc_indptr, x, g.src)),
-                cuda_ms(lambda: sk.segment_sum_plain(g.csc_indptr, x, g.src),
-                        reps=3),
+                cuda_ms(lambda: sk.segment_sum(*fwd, plan=plan)),
+                cuda_ms(lambda: sk.segment_sum_plain(*fwd), reps=3),
                 nbytes(g.csc_indptr, g.src, x, out), E * F,
                 "synthetic Reddit, F=602, forward",
                 library_ms=cuda_ms(lambda: torch.sparse.mm(A, x), reps=3))
+            k1_602.update(
+                slice_width_rule=sk.slice_width(N, F, False),
+                slice_sweep=slice_sweep(sk, checks, "reddit F=602", fwd,
+                                        plan, ref))
+            del ref
             del dx, out, args, A
         del x, gout, raw
         torch.cuda.empty_cache()
@@ -866,26 +983,34 @@ def _transformer_k1(k6_timings, g, rng, checks):
     dst_csr = sk.rev_gidx(g)
     fwd = (g.csc_indptr, v, g.src, None, w)
     rev = (g.csr_indptr, dout, dst_csr, g.csr_eids, w)
-    out = sk.segment_sum(*fwd)
+    p_fwd, p_rev = sk.graph_row_plan(g, "csc"), sk.graph_row_plan(g, "csr")
+    out = sk.segment_sum(*fwd, plan=p_fwd)
     checks.compare("segment_sum", "transformer u_mul_e F=64", out,
-                   k1_ref(sk, *fwd), K1_TOL, sk.segment_sum(*fwd))
-    checks.compare("segment_sum", "transformer dx F=64",
-                   sk.segment_sum(*rev, site="rev"), k1_ref(sk, *rev),
-                   K1_TOL, sk.segment_sum(*rev, site="rev"))
+                   k1_ref(sk, *fwd), K1_TOL, sk.segment_sum(*fwd, plan=p_fwd))
+    dx = sk.segment_sum(*rev, site="rev", plan=p_rev)
+    checks.compare("segment_sum", "transformer dx F=64", dx,
+                   k1_ref(sk, *rev), K1_TOL,
+                   sk.segment_sum(*rev, site="rev", plan=p_rev))
     k6_timings["segment_sum_tf"] = {
-        "fwd_ms": cuda_ms(lambda: sk.segment_sum(*fwd)),
-        "rev_ms": cuda_ms(lambda: sk.segment_sum(*rev, site="rev")),
+        "fwd_ms": cuda_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
+        "rev_ms": cuda_ms(lambda: sk.segment_sum(*rev, site="rev",
+                                                 plan=p_rev)),
+        "fwd_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(*fwd), reps=3),
+        "rev_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(*rev), reps=3),
         "fwd_bound_ms": bound(nbytes(g.csc_indptr, g.src, v, w, out),
                               2 * E * TF_DIM)[0],
+        "rev_bound_ms": bound(nbytes(g.csr_indptr, dst_csr, g.csr_eids,
+                                     dout, w, dx), 2 * E * TF_DIM)[0],
         "shape": "transformer complete graph, u_mul_e, F=64, (E, F) weight"}
 
 
 def _profile_step(step):
     """Device time by kernel over one training step, from torch.profiler
-    (CUPTI): the kernels' total and the largest entries."""
+    (CUPTI): the kernels' total and the largest entries, and the same time
+    grouped by the torch op that launched each kernel (``_by_op``)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True, with_stack=True) as prof:
         step()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -898,7 +1023,72 @@ def _profile_step(step):
     rows.sort(key=lambda r: -r[1])
     return {"device_ms": sum(r[1] for r in rows), "kernels": len(rows),
             "top": [{"name": n[:90], "ms": ms, "calls": c}
-                    for n, ms, c in rows[:12]]}
+                    for n, ms, c in rows[:12]],
+            **_by_op(prof.events())}
+
+
+def _site(ev):
+    """The two innermost frames in the port or this script that ran an op
+    ('file(line): function < its caller'): from the op's recorded stack,
+    or from the Python-function events that torch.profiler's
+    ``with_stack`` nests the op under."""
+    marks = ("dgl_hack_tpu_torch/", "chip_smoke.py")
+    frames = list(ev.stack or ())
+    parent = ev.cpu_parent
+    while parent is not None:
+        frames.append(parent.name)
+        parent = parent.cpu_parent
+    ours = [f[f.index(m):] for f in frames for m in marks if m in f]
+    return " < ".join(ours[:2]) or None
+
+
+def _by_op(events, top=16):
+    """Device time of the kernels launched under each torch op, grouped by
+    the innermost op (or autograd node, for K1-K6, which launch through
+    ctypes inside a backward), the autograd node whose backward ran it
+    ("forward" outside the backward), the op's first input shape and its
+    Python site where the profiler recorded one: the op's own stack, or
+    for a backward op of a builtin node the stack of the forward op that
+    made the node (matched by sequence number); "?" where it recorded
+    none.  ``gathers`` keeps the groups of torch's gather kernels alone."""
+    fwd_site = {}
+    for ev in events:
+        if ev.sequence_nr >= 0 and not ev.name.startswith("autograd::"):
+            site = _site(ev)
+            if site is not None:
+                fwd_site.setdefault(ev.sequence_nr, site)
+    groups, gathers = {}, {}
+    for ev in events:
+        if not ev.kernels:
+            continue
+        node, site = "forward", _site(ev)
+        parent = ev.cpu_parent
+        while parent is not None:
+            if parent.name.startswith("autograd::engine::evaluate_function"):
+                node = parent.name.split(": ", 1)[-1]
+                if site is None:
+                    site = fwd_site.get(parent.sequence_nr)
+                break
+            parent = parent.cpu_parent
+        shape = ev.input_shapes[0] if ev.input_shapes else None
+        key = (ev.name, node, str(shape), site or "?")
+        for k in ev.kernels:
+            for table, keep in ((groups, True), (gathers, "gather" in k.name)):
+                if keep:
+                    grp = table.setdefault(key, {"ms": 0.0, "launches": 0,
+                                                 "kernels": set()})
+                    grp["ms"] += k.duration / 1e3
+                    grp["launches"] += 1
+                    grp["kernels"].add(k.name[:60])
+
+    def rows(table):
+        out = [{"op": k[0], "autograd": k[1], "shape": k[2], "site": k[3],
+                "ms": v["ms"],
+                "launches": v["launches"], "kernels": sorted(v["kernels"])}
+               for k, v in table.items()]
+        return sorted(out, key=lambda r: -r["ms"])[:top]
+    return {"by_op_ms": sum(v["ms"] for v in groups.values()),
+            "by_op": rows(groups), "gathers": rows(gathers)}
 
 
 def _transformer_vs_cpu(dev):
@@ -925,6 +1115,7 @@ def phase_transformer(build, k6, checks, dev, timings):
     copy_task_loss, torch.optim.Adam at the example's lr 3e-3)."""
     from dgl_hack_tpu_torch.models import (GraphTransformer, build_graphs,
                                            copy_task_loss)
+    from dgl_hack_tpu_torch.ops.cuda import spmm_kernel as sk
     t0 = time.perf_counter()
     graphs = build_graphs(TF_B, TF_L, device=dev)
     build_s = time.perf_counter() - t0
@@ -968,7 +1159,9 @@ def phase_transformer(build, k6, checks, dev, timings):
           "edges": {"encoder": graphs[0].num_edges(),
                     "decoder": graphs[1].num_edges(),
                     "cross": graphs[2].num_edges()},
-          "graph_build_s": build_s, "steps": steps, "losses": losses,
+          "graph_build_s": build_s,
+          "plan_build_ms": [plan_build_ms(sk, g) for g in graphs],
+          "steps": steps, "losses": losses,
           "train_time_s": train_s, "epoch_ms": 1e3 * train_s / steps,
           "launches": counts,
           "launches_per_step": {k: v / steps for k, v in counts.items()},
@@ -1036,7 +1229,8 @@ def main() -> int:
     phase_gat(dt, gk, checks, dev)
     ds, g, data_s = _reddit(dt, dev)
     emit({"phase": "reddit_data", "nodes": g.num_src_nodes,
-          "edges": g.num_edges(), "seconds": data_s})
+          "edges": g.num_edges(), "seconds": data_s,
+          "plan_build_ms": plan_build_ms(sk, g)})
     timings = {}
     c_gcn = phase_gcn(dt, build, sk, ds, g, checks, dev, timings)
     c_gat = phase_gat_train(dt, build, gk, sk, ds, g, checks, dev,

@@ -16,7 +16,7 @@ host-side numpy arrays stay cached, so host code never copies back.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,8 +107,9 @@ class Graph:
         self._node_frames = node_frames
         self._edge_frame = {} if edge_frame is None else edge_frame
         self._np_cache = {} if host_cache is None else host_cache
-        # device tensors derived from the structure (ops/cuda fills it)
-        self.derived: Dict[str, Tensor] = {}
+        # device tensors derived from the structure, and K1's row plans
+        # (tuples of them with a .to); ops/cuda fills it
+        self.derived: Dict[str, Any] = {}
 
     # -- basic properties ---------------------------------------------------
     @property

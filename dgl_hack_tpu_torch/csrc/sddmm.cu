@@ -25,7 +25,7 @@
 // rows fit in its 50 MB).  A dot does 2F operations per edge, far below
 // the fp32 rate.
 //
-// Design (simple and right first):
+// Design:
 // * Elementwise ops, F >= 32: each warp walks a tile of kTileE consecutive
 //   edges; lanes cover features, 4 per lane per 128-wide pass.  Edges are
 //   dst-sorted, so the rhs row stays in registers while dst[e] is
@@ -34,16 +34,28 @@
 //   a whole dst segment.
 // * Elementwise ops, F < 32: the warp splits into 32/Fp lane groups (Fp =
 //   F rounded up to a power of two), one edge per group, as K1 does.
-// * dot: one kernel body, instantiated twice.  D <= 32: each (edge, head)
-//   item takes a group of Dp lanes (Dp = D rounded up to a power of two;
-//   lanes past D add 0).  D > 32: each item takes the warp, whose lanes
-//   stride over d.  A fixed shuffle-xor tree then sums the group.  The
-//   d loop exists only in the D > 32 instance: on the H100 a runtime loop
-//   in the narrow instance, even one that ran once, made it slower.
+// * dot, D <= 32 with 4 | D and 16-byte aligned lhs and rhs (the
+//   transformer's heads, D = 16): one thread per (edge, head) item, i =
+//   e * H + h, consecutive threads on consecutive items.  A thread reads
+//   its two D-wide head slices with D / 4 float4 loads each and sums them
+//   in a fixed fmaf chain; the H threads of an edge read src[e] and dst[e]
+//   in the same warp load (one transaction), and a warp's 32 outputs are
+//   one coalesced store.  At the transformer's shape the operands sit in
+//   L2 and the cost is issue and latency, not bytes: a 16-lane group per
+//   item, loading 4 B a lane and summing by shuffles, puts only 2 items
+//   in flight per warp round.  D / 4 is a template parameter (1..8), so
+//   the chain has no runtime loop.
+// * dot, otherwise: one kernel body, instantiated twice.  D <= 32: each
+//   (edge, head) item takes a group of Dp lanes (Dp = D rounded up to a
+//   power of two; lanes past D add 0).  D > 32: each item takes the warp,
+//   whose lanes stride over d.  A fixed shuffle-xor tree then sums the
+//   group.  The d loop exists only in the D > 32 instance: on the H100 a
+//   runtime loop in the narrow instance, even one that ran once, made it
+//   slower.
 // Every sum has a fixed order, so every result repeats bitwise; the
 // elementwise ops are one IEEE op per element (no fast math), so they
 // equal the plain PyTorch version bitwise.  Left for later: vector (16 B)
-// loads, several items per lane for narrow heads, bf16 storage.
+// loads in the elementwise ops, bf16 storage.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -171,6 +183,51 @@ __global__ void sddmm_dot_kernel(const int* __restrict__ src,
   }
 }
 
+// out[i] for items i = e * H + h, D = 4 * D4: one thread per item, see
+// the design note.
+template <int D4>
+__global__ void sddmm_dot_vec_kernel(const int* __restrict__ src,
+                                     const int* __restrict__ dst,
+                                     const float* __restrict__ lhs,
+                                     const float* __restrict__ rhs,
+                                     float* __restrict__ out, uint32_t items,
+                                     uint32_t H) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= items) return;
+  const uint32_t e = i / H;
+  const uint32_t h = i - e * H;
+  const int64_t F = (int64_t)H * (4 * D4);
+  const int64_t row = src ? (int64_t)__ldg(src + e) : (int64_t)e;
+  const int64_t col = (int64_t)h * (4 * D4);
+  const float4* lr = reinterpret_cast<const float4*>(lhs + row * F + col);
+  const float4* rr = reinterpret_cast<const float4*>(
+      rhs + (int64_t)__ldg(dst + e) * F + col);
+  float4 l[D4], r[D4];
+#pragma unroll
+  for (int k = 0; k < D4; ++k) {
+    l[k] = __ldg(lr + k);
+    r[k] = __ldg(rr + k);
+  }
+  float p = 0.0f;
+#pragma unroll
+  for (int k = 0; k < D4; ++k) {
+    p = fmaf(l[k].x, r[k].x, p);
+    p = fmaf(l[k].y, r[k].y, p);
+    p = fmaf(l[k].z, r[k].z, p);
+    p = fmaf(l[k].w, r[k].w, p);
+  }
+  out[i] = p;
+}
+
+template <int D4>
+void launch_dot_vec(const int* src, const int* dst, const float* lhs,
+                    const float* rhs, float* out, uint32_t items, uint32_t H,
+                    cudaStream_t stream) {
+  constexpr int kThreads = kWarps * 32;
+  sddmm_dot_vec_kernel<D4><<<(items + kThreads - 1) / kThreads, kThreads, 0,
+                             stream>>>(src, dst, lhs, rhs, out, items, H);
+}
+
 template <int OP>
 void launch_elem(const int* src, const int* dst, const float* lhs,
                  const float* rhs, float* out, int E, int F,
@@ -201,6 +258,20 @@ extern "C" int sddmm_f32(const int* src, const int* dst, const float* lhs,
       if (D <= 0 || F % D != 0) return (int)cudaErrorInvalidValue;
       const int H = F / D;
       const int64_t items = (int64_t)E * H;
+      const bool vec = D <= 32 && D % 4 == 0 && items <= UINT32_MAX &&
+                       (uintptr_t)lhs % 16 == 0 && (uintptr_t)rhs % 16 == 0;
+      if (vec) {
+        using Launch = void (*)(const int*, const int*, const float*,
+                                const float*, float*, uint32_t, uint32_t,
+                                cudaStream_t);
+        static const Launch by_d4[8] = {
+            launch_dot_vec<1>, launch_dot_vec<2>, launch_dot_vec<3>,
+            launch_dot_vec<4>, launch_dot_vec<5>, launch_dot_vec<6>,
+            launch_dot_vec<7>, launch_dot_vec<8>};
+        by_d4[D / 4 - 1](src, dst, lhs, rhs, out, (uint32_t)items,
+                         (uint32_t)H, stream);
+        break;
+      }
       const int64_t tile = D <= 32 ? kTileI : kTileW;   // kTile of the instance
       const int64_t warps = (items + tile - 1) / tile;
       const int64_t blocks = (warps + kWarps - 1) / kWarps;

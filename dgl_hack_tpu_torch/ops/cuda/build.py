@@ -38,8 +38,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
-    # indptr, gidx, eid, x, w, w_kind, out, num_rows, F, stream
-    "segment_sum_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    # indptr, gidx, eid, x, w, w_kind, out, num_rows, F, vec, slice, T,
+    # long_rows, piece_ptr, pieces, num_long, num_pieces, partial, stream
+    "segment_sum_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _I, _I, _P, _P],
     # indptr, gidx, x, w, w_kind, raw, num_rows, F, stream
     "segment_max_f32": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
     # csr_indptr, dst_csr, csr_eids, x, w, w_kind, raw, g, dx, dw,

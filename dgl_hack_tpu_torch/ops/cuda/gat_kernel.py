@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from .build import LAUNCHES, check, library, ptr, require, stream_ptr
-from .spmm_kernel import _unsupported, rev_gidx, segment_sum
+from .spmm_kernel import (_unsupported, graph_row_plan, rev_gidx,
+                          segment_sum)
 
 Tensor = torch.Tensor
 
@@ -225,7 +226,8 @@ class GatFused(torch.autograd.Function):
         dwh, del_, draw, dw = gat_bwd(g.csr_indptr, g.csr_eids, rev_gidx(g),
                                       wh, el, er, shift, den, sds, dout, w,
                                       ctx.slope)
-        der = segment_sum(g.csc_indptr, draw, site="edge")
+        der = segment_sum(g.csc_indptr, draw, site="edge",
+                          plan=graph_row_plan(g, "csc"))
         return (dwh.view(-1, H, D), del_, der,
                 dw if ctx.needs_input_grad[3] else None, None, None, None)
 

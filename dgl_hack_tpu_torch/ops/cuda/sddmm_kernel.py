@@ -22,7 +22,7 @@ import torch
 from ..common import apply_binary
 from .build import LAUNCHES, check, library, ptr, require, stream_ptr
 from .spmm_kernel import (_I32_MAX, PLAIN_CHUNK_ELEMS, check_cuda_call,
-                          segment_sum)
+                          graph_row_plan, segment_sum)
 
 Tensor = torch.Tensor
 
@@ -135,7 +135,8 @@ class GsddmmFn(torch.autograd.Function):
         dlhs_e = dy = None
         if op in ("copy_rhs", "add", "sub"):
             if need_rhs:
-                dy = segment_sum(g.csc_indptr, gr, site="edge")
+                dy = segment_sum(g.csc_indptr, gr, site="edge",
+                                 plan=graph_row_plan(g, "csc"))
                 if op == "sub":
                     dy = -dy
             dlhs_e = gr
@@ -147,12 +148,14 @@ class GsddmmFn(torch.autograd.Function):
                 # sum over v's in-edges of g[e] * lhs[u or e]
                 dy = segment_sum(g.csc_indptr, lhs,
                                  g.src if node_lhs else None, w=gr,
-                                 site="fwd" if node_lhs else "edge")
+                                 site="fwd" if node_lhs else "edge",
+                                 plan=graph_row_plan(g, "csc"))
                 if op == "div":
                     dy = -dy * yy * yy
         dlhs = None
         if need_lhs:
-            dlhs = (segment_sum(g.csr_indptr, dlhs_e, g.csr_eids, site="rev")
+            dlhs = (segment_sum(g.csr_indptr, dlhs_e, g.csr_eids, site="rev",
+                                plan=graph_row_plan(g, "csr"))
                     if node_lhs else dlhs_e)
         return dlhs, dy, None, None, None, None
 

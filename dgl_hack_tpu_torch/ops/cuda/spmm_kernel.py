@@ -10,10 +10,16 @@ the plain version; a CUDA tensor launches the kernel or raises.
 custom VJP: the forward reduces over the CSC direction, dx runs the same
 kernel over the CSR direction, and dw = <x[src], g[dst]> stays a plain
 gather-and-dot.
+
+K1 cuts rows of more than ``K1_PIECE`` edges into pieces that separate
+warps sum, then adds each long row's partial sums in piece order.  The
+list of long rows and pieces is the row plan (``row_plan``), built from
+an indptr with torch ops on its device and cached per graph and
+direction (``graph_row_plan``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -79,16 +85,121 @@ def segment_sum_plain(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
     return out
 
 
+# Rows of more than K1_PIECE edges are cut into pieces of at most
+# K1_PIECE edges, one warp each.  At bench.py's shape (N = 1M, E = 16M,
+# largest in-degree 173,324) 97% of the edges lie in 2,155 such rows,
+# which give 61,641 pieces and 32 MB of partial rows at F = 128.
+K1_PIECE = 256
+
+# The H100's L2 holds 50 MB.  A feature slice of x is meant to stay there
+# while every row gathers from it, beside the indices, weights and output
+# that stream through, so a slice may take up to this many bytes.  On an
+# H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md), K1 over synthetic
+# Reddit at F = 602 (x 561 MB) took 16.4 ms in 32-column slices, 16.9 in
+# 64, 18.5 in 16 and 23.4 unsliced; over bench.py's 512 MB x at F = 128
+# every slice width was slower than none.  The rule picks the best at
+# both.
+L2_BYTES = 50 * 10 ** 6
+SLICE_BUDGET = L2_BYTES * 3 // 5
+SLICE_WIDTHS = (64, 32, 16)
+
+
+class RowPlan(NamedTuple):
+    """The rows of an indptr longer than ``K1_PIECE`` edges, and their
+    pieces: long row l is ``long_rows[l]``, its pieces are
+    ``pieces[piece_ptr[l]:piece_ptr[l + 1]]``, in edge order, and piece p
+    covers edges ``[pieces[p, 0], pieces[p, 1])``.  All int32, on the
+    indptr's device."""
+    long_rows: Tensor     # (L,)
+    piece_ptr: Tensor     # (L + 1,)
+    pieces: Tensor        # (P, 2)
+
+    def to(self, device) -> "RowPlan":
+        return RowPlan(*(t.to(device) for t in self))
+
+
+def row_plan(indptr: Tensor, piece: int = K1_PIECE) -> RowPlan:
+    """K1's row plan of ``indptr``, from torch ops on its device: degrees,
+    the mask of rows longer than ``piece``, ceil(deg / piece) pieces each,
+    and their cumulative sum."""
+    ip = indptr.long()
+    deg = ip[1:] - ip[:-1]
+    long_rows = torch.nonzero(deg > piece).squeeze(1)
+    counts = (deg[long_rows] + piece - 1) // piece
+    piece_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    num_pieces = int(piece_ptr[-1])
+    owner = torch.repeat_interleave(
+        torch.arange(long_rows.numel(), device=ip.device), counts,
+        output_size=num_pieces)
+    k = torch.arange(num_pieces, device=ip.device) - piece_ptr[owner]
+    beg = ip[long_rows[owner]] + k * piece
+    end = torch.minimum(beg + piece, ip[long_rows[owner] + 1])
+    i32 = torch.int32
+    return RowPlan(long_rows.to(i32), piece_ptr.to(i32),
+                   torch.stack([beg, end], 1).to(i32).contiguous())
+
+
+def graph_row_plan(g, direction: str) -> RowPlan:
+    """The row plan of the graph's CSC (``"csc"``: the forward) or CSR
+    (``"csr"``: dx) indptr, cached on the graph."""
+    key = f"k1_plan_{direction}"
+    plan = g.derived.get(key)
+    if plan is None:
+        indptr = {"csc": g.csc_indptr, "csr": g.csr_indptr}[direction]
+        if indptr is None:
+            raise ValueError("gspmm backward needs the graph's CSR format")
+        plan = row_plan(indptr)
+        g.derived[key] = plan
+    return plan
+
+
+def vector_width(F: int, *tensors: Optional[Tensor]) -> int:
+    """Floats per K1 load: 4 where 4 | F and every tensor's data is
+    16-byte aligned, 2 where 2 | F and it is 8-byte aligned, else 1."""
+    for v in (4, 2):
+        if F % v == 0 and all(t is None or t.data_ptr() % (4 * v) == 0
+                              for t in tensors):
+            return v
+    return 1
+
+
+def slice_width(rows: int, F: int, edge_rows: bool) -> int:
+    """Columns per feature slice of K1: F (no slicing) where x has no reuse
+    (edge-row mode) or fits in ``SLICE_BUDGET`` whole; else the widest of
+    ``SLICE_WIDTHS`` whose slice of x fits; F where none does."""
+    if edge_rows or rows * F * 4 <= SLICE_BUDGET:
+        return F
+    for s in SLICE_WIDTHS:
+        if s < F and rows * s * 4 <= SLICE_BUDGET:
+            return s
+    return F
+
+
 def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
                 eid: Optional[Tensor] = None, w: Optional[Tensor] = None, *,
-                site: str = "fwd") -> Tensor:
+                site: str = "fwd", plan: Optional[RowPlan] = None) -> Tensor:
     """K1 wrapper.  x (rows, F) float32; indptr, gidx, eid int32; w None,
     (E,) or (E, F).  ``site`` names the call site in the launch count
-    (fwd, rev, edge)."""
+    (fwd, rev, edge).  ``plan`` is ``row_plan(indptr)``, built here when
+    None."""
     if x.device.type == "cpu":
         return segment_sum_plain(indptr, x, gidx, eid, w)
     if x.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {x.device}")
+    launch = segment_sum_launcher(indptr, x, gidx, eid, w, plan)
+    LAUNCHES.add(f"segment_sum.{site}")
+    return launch(None)
+
+
+def segment_sum_launcher(indptr: Tensor, x: Tensor,
+                         gidx: Optional[Tensor] = None,
+                         eid: Optional[Tensor] = None,
+                         w: Optional[Tensor] = None,
+                         plan: Optional[RowPlan] = None):
+    """Check K1's arguments on CUDA and return ``launch(slice_cols)``,
+    which runs the kernel at that slice width, or at ``slice_width``'s when
+    None, and returns the result.  ``segment_sum`` launches through it;
+    ``chip_smoke.py`` times the slice widths with it."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"segment_sum takes x of shape (rows, F), got "
@@ -115,13 +226,30 @@ def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
             raise ValueError(f"w has {w.shape[0]} rows, expected {E}")
     if max(num_rows, E, x.shape[0]) > _I32_MAX:
         raise ValueError("segment_sum: sizes exceed the int32 index range")
-    out = torch.empty((num_rows, F), dtype=torch.float32, device=dev)
-    lib = library()
-    LAUNCHES.add(f"segment_sum.{site}")
-    check("segment_sum", lib.segment_sum_f32(
-        ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind, ptr(out),
-        num_rows, F, stream_ptr(dev)))
-    return out
+    if plan is None:
+        plan = row_plan(indptr)
+    if any(t.device != dev or t.dtype != torch.int32 for t in plan):
+        raise ValueError("segment_sum: the row plan must be int32 on "
+                         f"{dev}")
+    L, P = plan.long_rows.numel(), plan.pieces.shape[0]
+    if plan.piece_ptr.numel() != L + 1:
+        raise ValueError("segment_sum: plan.piece_ptr does not match "
+                         "plan.long_rows")
+    vec = vector_width(F, x, w if w_kind == 2 else None)
+
+    def launch(slice_cols: Optional[int]) -> Tensor:
+        if slice_cols is None:
+            slice_cols = slice_width(x.shape[0], F, gidx is None)
+        out = torch.empty((num_rows, F), dtype=torch.float32, device=dev)
+        partial = torch.empty((P, F), dtype=torch.float32, device=dev) \
+            if P else None
+        check("segment_sum", library().segment_sum_f32(
+            ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind,
+            ptr(out), num_rows, F, vec, slice_cols, K1_PIECE,
+            ptr(plan.long_rows), ptr(plan.piece_ptr), ptr(plan.pieces), L,
+            P, ptr(partial), stream_ptr(dev)))
+        return out
+    return launch
 
 
 def rev_gidx(g) -> Tensor:
@@ -145,7 +273,8 @@ class GspmmSum(torch.autograd.Function):
     def forward(ctx, x: Tensor, w: Optional[Tensor], g) -> Tensor:
         ctx.g = g
         ctx.save_for_backward(x, w)
-        return segment_sum(g.csc_indptr, x, gidx=g.src, w=w, site="fwd")
+        return segment_sum(g.csc_indptr, x, gidx=g.src, w=w, site="fwd",
+                           plan=graph_row_plan(g, "csc"))
 
     @staticmethod
     def backward(ctx, dout: Tensor):
@@ -156,7 +285,8 @@ class GspmmSum(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # dx[u] = sum_{e=(u,v)} dout[v] * w[e]: the src-major direction
             dx = segment_sum(g.csr_indptr, dout, gidx=rev_gidx(g),
-                             eid=g.csr_eids, w=w, site="rev")
+                             eid=g.csr_eids, w=w, site="rev",
+                             plan=graph_row_plan(g, "csr"))
         if w is not None and ctx.needs_input_grad[1]:
             # dw[e] = <x[src_e], dout[dst_e]>, elementwise for (E, F) w
             prod = x[g.src] * dout[g.dst]
@@ -208,12 +338,14 @@ def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
     """Ready a graph for the kernels: its CSC and CSR arrays are the plan.
 
     Places ``csc_indptr``, ``src``, ``csr_indptr``, ``csr_eids`` and
-    ``dst[csr_eids]`` on ``device`` (the graph's own device when None) and
-    returns the graph.  The TPU plan knobs (tr, te, bc, wc, weighted,
+    ``dst[csr_eids]`` on ``device`` (the graph's own device when None),
+    builds K1's row plans of both directions there and returns the
+    graph.  The TPU plan knobs (tr, te, bc, wc, weighted,
     dense_hub, dense_threshold, dense_budget, flat, flat_width, sddmm,
     bucket_rows, bucket_rows_rev) are accepted for signature parity with
     the JAX package and ignored: the port's kernels read the graph's own
-    index arrays.  A graph does not need this call to run the kernels."""
+    index arrays.  A graph does not need this call to run the kernels:
+    what it builds is otherwise built at first use."""
     if g.edge_mask is not None:
         raise _unsupported("prepare_spmm on a masked (padded) graph",
                            "masked graphs")
@@ -222,4 +354,6 @@ def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
     if device is not None:
         g = g.to(device)
     rev_gidx(g)
+    graph_row_plan(g, "csc")
+    graph_row_plan(g, "csr")
     return g

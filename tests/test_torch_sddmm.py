@@ -183,9 +183,11 @@ def test_eligible_reach_kernel_on_cuda(monkeypatch, op, lt, rt, heads):
                     site=site)
     real_k1 = k6.segment_sum
 
-    def k1(indptr, x, gidx=None, eid=None, w=None, *, site="fwd"):
+    def k1(indptr, x, gidx=None, eid=None, w=None, *, site="fwd",
+           plan=None):
         calls.append(("segment_sum", site))
-        return real_k1(indptr, _untag(x), gidx, eid, _untag(w), site=site)
+        return real_k1(indptr, _untag(x), gidx, eid, _untag(w), site=site,
+                       plan=plan)
     monkeypatch.setattr(k6, "sddmm", recorder)
     monkeypatch.setattr(k6, "segment_sum", k1)
     rng = np.random.default_rng(9)
@@ -220,9 +222,11 @@ def test_graph_without_csr_reaches_kernel_on_cuda(monkeypatch, op):
                     site=site)
     real_k1 = k6.segment_sum
 
-    def k1(indptr, x, gidx=None, eid=None, w=None, *, site="fwd"):
+    def k1(indptr, x, gidx=None, eid=None, w=None, *, site="fwd",
+           plan=None):
         calls.append(("segment_sum", site))
-        return real_k1(indptr, _untag(x), gidx, eid, _untag(w), site=site)
+        return real_k1(indptr, _untag(x), gidx, eid, _untag(w), site=site,
+                       plan=plan)
     monkeypatch.setattr(k6, "sddmm", recorder)
     monkeypatch.setattr(k6, "segment_sum", k1)
     rng = np.random.default_rng(13)
