@@ -20,10 +20,15 @@ Phases, one JSON line each:
      full size (232,965 nodes x 602 features, 41 classes);
   5. GAT training on the same graph (8 heads x 8 hidden, 1 output head);
   6. K4/K5 (segment max and its fused argmax backward) against their plain
-     versions on phase 2's small graph (F in {7, 16, 41, 128}; weights
-     none, (E,) and (E, F); one case of integer features, which tie), and
-     on synthetic Reddit at both GraphSAGE layer widths (F = 602, 16), with
-     K1 at F = 602 (the mean aggregator's layer 0) at every slice width;
+     versions on phase 2's small graph, whose hub K4 takes in pieces (F in
+     {7, 16, 41, 128}; weights none, (E,) and (E, F); one case of integer
+     features, which tie); through the long-row split in both directions
+     (phase 2's plan graph and its transpose, F in {1, ..., 602}, a NaN,
+     misaligned tensors); at bench.py's shape (F = 128), timed at every
+     slice width; and on synthetic Reddit at both GraphSAGE layer widths
+     (F = 602, as it is and padded to 608 as gspmm runs it, and 16), timed
+     at every slice width, with K1 at F = 602 and 608 (the mean
+     aggregator's layer 0);
   7. GraphSAGE-pool training (hidden 16, 2 layers) on synthetic Reddit,
      then 3 steps each of the mean and gcn aggregators;
   8. K6 (gSDDMM) against its plain version on phase 2's small graph (F in
@@ -88,20 +93,59 @@ def abs_err(out, ref) -> float:
     return float((out - ref).abs().max()) if ref.numel() else 0.0
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of fn() from CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+BUSY = {}
+
+
+def keep_busy() -> None:
+    """Queue about 5 ms of work on the card (two 4096-wide fp32 matmuls),
+    behind which the host can queue a batch of short launches."""
+    if "a" not in BUSY:
+        BUSY["a"] = torch.ones((4096, 4096), device="cuda")
+        BUSY["out"] = torch.empty_like(BUSY["a"])
+    for _ in range(2):
+        torch.mm(BUSY["a"], BUSY["a"], out=BUSY["out"])
+
+
+def reset_peak_memory() -> None:
+    """Start a peak-memory reading: drop ``keep_busy``'s buffers and the
+    allocator's cache first, so that the peak is the run's own."""
+    BUSY.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def cuda_ms(fn, reps: int = 10, one_launch: bool = False) -> float:
+    """Median milliseconds of one fn() from CUDA events, after one warm-up.
+    A call of under 2 ms is timed as a batch of up to 20 launches queued
+    behind ``keep_busy``, so that the events bracket device time alone:
+    with one launch per pair of events the wrapper's host time counts too,
+    and it alone spread such a reading by +-15% between processes.
+    ``one_launch`` times every call that second way, as this script timed
+    all calls before it batched the short ones."""
+    def timed(batch):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if batch:
+            keep_busy()                     # the host runs ahead
         s.record()
-        fn()
+        for _ in range(max(batch, 1)):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
+        return s.elapsed_time(e) / max(batch, 1)
+    fn()
+    torch.cuda.synchronize()
+    batch = 0 if one_launch else \
+        int(min(20, 2.0 // max(timed(0), 1e-3)))        # 0: one, no queue
+    return float(np.median([timed(batch) for _ in range(reps)]))
+
+
+def both_ms(fn, reps: int = 10):
+    """(ms, one_launch_ms) of fn(): ``cuda_ms``'s reading and, for a call
+    short enough to be batched, the one-launch reading beside it, which is
+    what records made before the batching hold; else None."""
+    ms = cuda_ms(fn, reps)
+    return ms, (cuda_ms(fn, reps, one_launch=True) if ms < 2.0 else None)
 
 
 def nbytes(*tensors) -> int:
@@ -118,9 +162,12 @@ def bound(num_bytes: int, num_ops: float):
 
 
 def timing(ms, plain_ms, num_bytes, num_ops, shape, library_ms=None):
+    """One kernel's record; ``ms`` is a time or ``both_ms``'s pair."""
+    ms, one = ms if isinstance(ms, tuple) else (ms, None)
     b_ms, b_by = bound(num_bytes, num_ops)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms, "shape": shape}
+    return {"ms": ms, "one_launch_ms": one, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "shape": shape}
 
 
 def k1_ref(sk, indptr, x, gidx=None, eid=None, w=None):
@@ -293,7 +340,7 @@ def phase_k1(dt, sk, checks, dev):
               lambda: sk.segment_sum_plain(g.csc_indptr, x, g.src))})
     checks.raise_if_failed("k1_small")
 
-    phase_k1_plan(dt, sk, checks, dev)
+    plan_edges = phase_k1_plan(dt, sk, checks, dev)
 
     t0 = time.perf_counter()
     gb = random_power_law_graph(1_000_000, 16.0, alpha=2.1, seed=0)
@@ -311,10 +358,10 @@ def phase_k1(dt, sk, checks, dev):
     times = {
         "fwd_ms": cuda_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
         "fwd_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(*fwd)),
-        "rev_ms": cuda_ms(lambda: sk.segment_sum(*rev, site="rev",
-                                                 plan=p_rev)),
         "rev_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(*rev)),
     }
+    times["rev_ms"], times["rev_one_launch_ms"] = both_ms(
+        lambda: sk.segment_sum(*rev, site="rev", plan=p_rev))
     A = csr_matrix(gb)
     times["fwd_library_ms"] = cuda_ms(lambda: torch.sparse.mm(A, x))
     A = csr_matrix(gb, reverse=True)
@@ -326,7 +373,7 @@ def phase_k1(dt, sk, checks, dev):
     times["rev_bound_ms"], _ = bound(
         nbytes(gb.csr_indptr, dst_csr, x, out), gb.num_edges() * F)
     ref = k1_ref(sk, *fwd)
-    sweep = slice_sweep(sk, checks, "bench fwd F=128", fwd, p_fwd, ref)
+    sweep = k1_slice_sweep(sk, checks, "bench fwd F=128", fwd, p_fwd, ref)
     del ref, out
     E = gb.num_edges()
     emit({"phase": "k1_bench_shape", "nodes": gb.num_src_nodes, "edges": E,
@@ -338,7 +385,7 @@ def phase_k1(dt, sk, checks, dev):
           "slice_width_rule": sk.slice_width(gb.num_src_nodes, F, False),
           "slice_sweep_fwd": sweep})
     checks.raise_if_failed("k1_bench_shape")
-    return g, gb
+    return g, gb, plan_edges
 
 
 def plan_build_ms(sk, g):
@@ -357,19 +404,23 @@ def plan_build_ms(sk, g):
     return res
 
 
-def slice_sweep(sk, checks, what, args, plan, ref, reps=5):
-    """K1 at feature-slice widths 16, 32, 64 and F (no slicing): ms of
-    each, each result held to the float64 reference."""
-    F = args[1].shape[1]
-    launch = sk.segment_sum_launcher(*args, plan=plan)
+def slice_sweep(launch, F, check, reps=5):
+    """ms of ``launch(s)``, a kernel's launcher, at feature-slice widths
+    16, 32, 64 and F (no slicing); ``check(s, out, again)`` holds each
+    width's result, and its repeat, to the reference."""
     res = {}
     for s in (16, 32, 64, F):
-        out = launch(s)
-        checks.compare("segment_sum", f"{what} slice {s}", out, ref, K1_TOL,
-                       launch(s))
-        del out
+        check(s, launch(s), launch(s))
         res[str(s)] = cuda_ms(lambda: launch(s), reps=reps)
     return res
+
+
+def k1_slice_sweep(sk, checks, what, args, plan, ref):
+    """K1's slice sweep, each width held to the float64 reference."""
+    return slice_sweep(
+        sk.segment_sum_launcher(*args, plan=plan), args[1].shape[1],
+        lambda s, out, again: checks.compare(
+            "segment_sum", f"{what} slice {s}", out, ref, K1_TOL, again))
 
 
 def phase_k1_plan(dt, sk, checks, dev):
@@ -419,6 +470,7 @@ def phase_k1_plan(dt, sk, checks, dev):
           "pieces": plan.pieces.shape[0], "load_width": vec,
           "plan_build_ms": plan_build_ms(sk, g), "rel_err": errs})
     checks.raise_if_failed("k1_plan")
+    return src, dst, n
 
 
 def composed_gat(g, fsrc, el, er, w, slope):
@@ -540,13 +592,15 @@ def phase_gcn(dt, build, sk, ds, g, checks, dev, timings):
                    sk.segment_sum(*rev, site="rev", plan=p_rev))
     A = csr_matrix(g)
     timings["segment_sum"] = timing(
-        cuda_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
+        both_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
         cuda_ms(lambda: sk.segment_sum_plain(*fwd)),
         nbytes(g.csc_indptr, g.src, x, out), g.num_edges() * 16,
         "synthetic Reddit, F=16, forward",
         library_ms=cuda_ms(lambda: torch.sparse.mm(A, x)))
+    rev_ms, rev_one = both_ms(
+        lambda: sk.segment_sum(*rev, site="rev", plan=p_rev))
     timings["segment_sum"].update(
-        rev_ms=cuda_ms(lambda: sk.segment_sum(*rev, site="rev", plan=p_rev)),
+        rev_ms=rev_ms, rev_one_launch_ms=rev_one,
         rev_plain_ms=cuda_ms(lambda: sk.segment_sum_plain(*rev)))
     del A
     checks.raise_if_failed("gcn kernel check")
@@ -645,28 +699,54 @@ def phase_gat_train(dt, build, gk, sk, ds, g, checks, dev, timings):
     return counts
 
 
-def _k4k5_case(sm, sk, g, x, w, gout, checks, what):
+def _k4k5_case(sm, sk, g, x, w, gout, checks, what, plans=True, x_bwd=None):
     """K4 against its plain version (exactly) and K5 against its plain
-    version run in float64 (K5_TOL), each repeated bitwise."""
-    raw = sm.segment_max(g.csc_indptr, x, g.src, w)
-    checks.exact("segment_max", what, raw,
-                 sm.segment_max_plain(g.csc_indptr, x, g.src, w),
-                 sm.segment_max(g.csc_indptr, x, g.src, w))
-    args = (g.csr_indptr, sk.rev_gidx(g), g.csr_eids, x, w, raw, gout)
-    out, again = sm.segment_max_bwd(*args), sm.segment_max_bwd(*args)
-    ref = sm.segment_max_bwd_plain(*args, acc_dtype=torch.float64)
+    version run in float64 (K5_TOL), each repeated bitwise.  With ``plans``
+    the graph's cached row plans are passed, else the wrappers build them.
+    ``x_bwd`` is the x that K5 takes where it is not K4's: x without the
+    zero columns that pad it.  Returns raw, the errors and the float64
+    reference's dx in float32."""
+    p_fwd = sk.graph_row_plan(g, "csc") if plans else None
+    p_rev = sk.graph_row_plan(g, "csr") if plans else None
+    fwd = (g.csc_indptr, x, g.src, w)
+    raw = sm.segment_max(*fwd, plan=p_fwd)
+    checks.exact("segment_max", what, raw, sm.segment_max_plain(*fwd),
+                 sm.segment_max(*fwd, plan=p_fwd))
+    args = (g.csr_indptr, sk.rev_gidx(g), g.csr_eids,
+            x if x_bwd is None else x_bwd, w, raw, gout)
+    out = sm.segment_max_bwd(*args, plan=p_rev)
+    again = sm.segment_max_bwd(*args, plan=p_rev)
+    ref = [None if r is None else r.float() for r in
+           sm.segment_max_bwd_plain(*args, acc_dtype=torch.float64)]
     errs = {}
     for name, a, b, r in zip(("dx", "dw"), out, again, ref):
         if r is not None:
             errs[name] = checks.compare("segment_max_bwd", f"{what} {name}",
-                                        a, r.float(), K5_TOL, b)
-    return raw, errs
+                                        a, r, K5_TOL, b)
+    return raw, errs, ref[0]
+
+
+def _k4k5_weights(g, F, rng):
+    """The three weight kinds of K4/K5 on g: none, (E,), (E, F)."""
+    E = g.num_edges()
+    return (("none", None),
+            ("scalar", torch.from_numpy(rng.normal(size=E).astype(np.float32)
+                                        ).to(g.device)),
+            ("full", torch.from_numpy(rng.normal(size=(E, F))
+                                      .astype(np.float32)).to(g.device)))
+
+
+def _plan_sizes(sk, g):
+    return {d: {"long_rows": sk.graph_row_plan(g, d).long_rows.numel(),
+                "pieces": sk.graph_row_plan(g, d).pieces.shape[0]}
+            for d in ("csc", "csr")}
 
 
 def phase_k4k5_small(sm, sk, g, checks):
     """K4/K5 on phase 2's small graph (zero-in-degree rows, a hub of
-    12,010 in-edges) at F in {7, 16, 41, 128}, weights none, (E,), (E, F),
-    plus integer features, whose messages tie."""
+    12,010 in-edges, which K4 takes as 47 pieces of its row plan) at F in
+    {7, 16, 41, 128}, weights none, (E,), (E, F), plus integer features,
+    whose messages tie (there the wrappers build the plans themselves)."""
     rng = np.random.default_rng(4)
     dev = g.device
     E = g.num_edges()
@@ -677,49 +757,268 @@ def phase_k4k5_small(sm, sk, g, checks):
     for F in (7, 16, 41, 128):
         x = t(rng.normal(size=(g.num_src_nodes, F)))
         gout = t(rng.normal(size=(g.num_dst_nodes, F)))
-        for kind, w in (("none", None), ("scalar", t(rng.normal(size=E))),
-                        ("full", t(rng.normal(size=(E, F))))):
-            _, res[f"F{F}.{kind}"] = _k4k5_case(
+        for kind, w in _k4k5_weights(g, F, rng):
+            _, res[f"F{F}.{kind}"], _ = _k4k5_case(
                 sm, sk, g, x, w, gout, checks, f"small F={F} w={kind}")
     x = t(rng.integers(0, 3, size=(g.num_src_nodes, 16)))
     gout = t(rng.normal(size=(g.num_dst_nodes, 16)))
-    _, res["ties.F16"] = _k4k5_case(sm, sk, g, x, None, gout, checks,
-                                    "small ties F=16")
+    _, res["ties.F16"], _ = _k4k5_case(sm, sk, g, x, None, gout, checks,
+                                       "small ties F=16", plans=False)
     emit({"phase": "k4k5_small", "nodes": g.num_src_nodes, "edges": E,
-          "rel_err": res})
+          "plan": _plan_sizes(sk, g), "rel_err": res})
     checks.raise_if_failed("k4k5_small")
+
+
+def phase_k4k5_plan(dt, sm, sk, plan_edges, checks, dev):
+    """K4/K5 through the long-row split on phase k1_plan's graph (a hub of
+    101 pieces, rows of exactly T and T + 1 edges, empty rows) and on its
+    transpose, where the hub is a src row and K5 walks the pieces: every
+    weight kind at F in {1, 7, 16, 41, 128, 602} (F = 602 takes float2
+    loads), one NaN feature, and an x, a raw and a weight 4 bytes off
+    16-byte alignment (narrow loads)."""
+    rng = np.random.default_rng(12)
+    src, dst, n = plan_edges
+    res, plans = {}, {}
+    for tag, (s, d) in (("hub_dst", (src, dst)), ("hub_src", (dst, src))):
+        g = dt.prepare_spmm(dt.graph((s, d), num_nodes=n), device=dev)
+        plans[tag] = _plan_sizes(sk, g)
+        for F in (1, 7, 16, 41, 128, 602):
+            x = torch.from_numpy(rng.normal(size=(n, F)).astype(np.float32)
+                                 ).to(dev)
+            gout = torch.from_numpy(rng.normal(size=(n, F))
+                                    .astype(np.float32)).to(dev)
+            for kind, w in _k4k5_weights(g, F, rng):
+                _, res[f"{tag}.F{F}.{kind}"], _ = _k4k5_case(
+                    sm, sk, g, x, w, gout, checks, f"plan {tag} F={F} "
+                    f"w={kind}")
+    if plans["hub_dst"]["csc"] != {"long_rows": 3, "pieces": 101 + 2 + 4} \
+            or plans["hub_src"]["csr"] != plans["hub_dst"]["csc"]:
+        checks.failures.append(f"k4k5 plans {plans}")
+    # a NaN feature: its rows' raw is NaN in K4 and in the plain version
+    x = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32)).to(dev)
+    deg = g.out_degrees()
+    x[int(((deg > 0) & (deg < 64)).nonzero()[0]), 3] = float("nan")
+    raw = sm.segment_max(g.csc_indptr, x, g.src)
+    ref = sm.segment_max_plain(g.csc_indptr, x, g.src)
+    nan_rows = int(raw[:, 3].isnan().sum())
+    if not 0 < nan_rows < 64 or not bool((raw.isnan() == ref.isnan()).all()) \
+            or not bool((raw.nan_to_num(7.0) == ref.nan_to_num(7.0)).all()):
+        checks.failures.append("segment_max: NaN rows differ from plain")
+    dx, _ = sm.segment_max_bwd(g.csr_indptr, sk.rev_gidx(g), g.csr_eids, x,
+                               None, raw, gout[:, :16].contiguous())
+    if not bool(dx.isfinite().all()):
+        checks.failures.append("segment_max_bwd: a NaN max passed a "
+                               "gradient")
+    # misaligned tensors take narrower loads, never the plain version
+    vec = {}
+    for F in (128, 602):
+        E = g.num_edges()
+        xb, rb, gb_, wb = (torch.from_numpy(
+            rng.normal(size=rows * F + 1).astype(np.float32)).to(dev)
+            for rows in (n, n, n, E))
+        x_al, g_al, w_al = (b[:-1].view(-1, F) for b in (xb, gb_, wb))
+        x_off, w_off = xb[1:].view(n, F), wb[1:].view(E, F)
+        for name, x, w in (("x_off", x_off, None), ("w_off", x_al, w_off)):
+            vec[f"F{F}.{name}"] = sk.vector_width(F, x, w)
+            _k4k5_case(sm, sk, g, x, w, g_al, checks,
+                       f"plan F={F} {name}")
+        # K5 alone with a misaligned raw (a view of a copy of K4's result)
+        raw = sm.segment_max(g.csc_indptr, x_al, g.src, w_al)
+        rb[1:].copy_(raw.view(-1))
+        args = (g.csr_indptr, sk.rev_gidx(g), g.csr_eids, x_al, w_al,
+                rb[1:].view(n, F), g_al)
+        vec[f"F{F}.raw_off"] = sk.vector_width(F, *args[3:])
+        ref = sm.segment_max_bwd_plain(*args, acc_dtype=torch.float64)
+        for name, a, b, r in zip(("dx", "dw"), sm.segment_max_bwd(*args),
+                                 sm.segment_max_bwd(*args), ref):
+            checks.compare("segment_max_bwd", f"plan F={F} raw_off {name}",
+                           a, r.float(), K5_TOL, b)
+        vec[f"F{F}.aligned"] = sk.vector_width(F, x_al, w_al, raw, g_al)
+    # K5 with x and dx narrower than raw and g, as GspmmMax runs it padded
+    # (here the hub is a src row, so the partial dx rows are narrow too)
+    narrow = {}
+    for F, Fp in ((16, 32), (41, 64), (602, 608)):
+        x = torch.from_numpy(rng.normal(size=(n, F)).astype(np.float32)
+                             ).to(dev)
+        xp = sk.pad_columns(x, Fp)
+        gp = torch.from_numpy(rng.normal(size=(n, Fp)).astype(np.float32)
+                              ).to(dev)
+        for kind, w in _k4k5_weights(g, F, rng)[:2]:
+            _, narrow[f"F{F}.{kind}"], _ = _k4k5_case(
+                sm, sk, g, xp, w, gp, checks, f"plan F={F} in {Fp} w={kind}",
+                x_bwd=x)
+        vec[f"F{F}.in{Fp}"] = list(sm.max_bwd_load_widths(Fp, x, None, xp,
+                                                          gp))
+    if vec != {"F16.in32": [4, 4], "F41.in64": [4, 1], "F602.in608": [4, 2],
+               "F128.x_off": 1, "F128.w_off": 1, "F128.raw_off": 1,
+               "F128.aligned": 4, "F602.x_off": 1, "F602.w_off": 1,
+               "F602.raw_off": 1, "F602.aligned": 2}:
+        checks.failures.append(f"k4k5 load widths {vec}")
+    emit({"phase": "k4k5_plan", "nodes": n, "edges": g.num_edges(),
+          "plan": plans, "load_width": vec, "nan_rows": nan_rows,
+          "rel_err": res, "narrow_x_rel_err": narrow})
+    checks.raise_if_failed("k4k5_plan")
+
+
+def _k4k5_timings(sm, sk, g, x, gout, raw, shape, plain_reps=3, x_bwd=None):
+    """K4 and K5 (no weight) timed with CUDA events beside their plain
+    versions, with their byte bounds: the indices (not ``csr_eids``, which
+    K5 reads only under a weight) and each feature array once.  With
+    ``x_bwd`` (see ``_k4k5_case``) the bound counts every feature array at
+    x_bwd's columns, those of the function that gspmm computes, and the
+    bound over the arrays as they are run is ``bound_ms_at_run_width``."""
+    E, F = g.num_edges(), x.shape[1]
+    dst_csr = sk.rev_gidx(g)
+    p_fwd, p_rev = sk.graph_row_plan(g, "csc"), sk.graph_row_plan(g, "csr")
+    fwd = (g.csc_indptr, x, g.src)
+    rev = (g.csr_indptr, dst_csr, g.csr_eids, x if x_bwd is None else x_bwd,
+           None, raw, gout)
+    dx, _ = sm.segment_max_bwd(*rev, plan=p_rev)
+    k4_arrays, k5_arrays = (x, raw), (rev[3], raw, gout, dx)
+    cols = dx.shape[1]
+
+    def at_cols(*arrays):
+        return sum(4 * a.shape[0] * cols for a in arrays)
+    k4 = timing(both_ms(lambda: sm.segment_max(*fwd, plan=p_fwd)),
+                cuda_ms(lambda: sm.segment_max_plain(*fwd), reps=plain_reps),
+                nbytes(g.csc_indptr, g.src) + at_cols(*k4_arrays), E * cols,
+                shape)
+    k5 = timing(both_ms(lambda: sm.segment_max_bwd(*rev, plan=p_rev)),
+                cuda_ms(lambda: sm.segment_max_bwd_plain(*rev),
+                        reps=plain_reps),
+                nbytes(g.csr_indptr, dst_csr) + at_cols(*k5_arrays),
+                2 * E * cols, shape)
+    if x_bwd is not None:
+        k4["bound_ms_at_run_width"] = bound(
+            nbytes(g.csc_indptr, g.src, *k4_arrays), E * F)[0]
+        k5["bound_ms_at_run_width"] = bound(
+            nbytes(g.csr_indptr, dst_csr, *k5_arrays), 2 * E * F)[0]
+    return k4, k5
+
+
+def _k4k5_slice_sweeps(sm, sk, g, x, gout, raw, ref_dx, checks, what,
+                       x_bwd=None):
+    """K4's and K5's feature-slice widths 16, 32, 64 and none: K4 equal to
+    its unsliced result (itself equal to the plain version), K5 within
+    K5_TOL of the float64 reference."""
+    F = x.shape[1]
+    k4 = slice_sweep(
+        sm.segment_max_launcher(g.csc_indptr, x, g.src,
+                                plan=sk.graph_row_plan(g, "csc")), F,
+        lambda s, out, again: checks.exact(
+            "segment_max", f"{what} slice {s}", out, raw, again))
+    k5 = slice_sweep(
+        lambda s, launch=sm.segment_max_bwd_launcher(
+            g.csr_indptr, sk.rev_gidx(g), g.csr_eids,
+            x if x_bwd is None else x_bwd, None, raw, gout,
+            plan=sk.graph_row_plan(g, "csr")): launch(s)[0], F,
+        lambda s, out, again: checks.compare(
+            "segment_max_bwd", f"{what} slice {s} dx", out, ref_dx, K5_TOL,
+            again))
+    return {"k4": k4, "k5": k5}
+
+
+def phase_k4k5_bench(sm, sk, gb, checks):
+    """K4/K5 at bench.py's shape (power-law, N = 1M, in-degree 16, F = 128,
+    a hub row of ~173k in-edges cut into pieces), checked, timed, and at
+    every slice width."""
+    rng = np.random.default_rng(13)
+    F, N = 128, gb.num_src_nodes
+    x = torch.from_numpy(rng.normal(size=(N, F)).astype(np.float32)
+                         ).to(gb.device)
+    gout = torch.from_numpy(rng.normal(size=(N, F)).astype(np.float32)
+                            ).to(gb.device)
+    raw, errs, ref_dx = _k4k5_case(sm, sk, gb, x, None, gout, checks,
+                                   "bench F=128")
+    k4, k5 = _k4k5_timings(sm, sk, gb, x, gout, raw,
+                           "bench.py graph, F=128, no weight")
+    sweeps = _k4k5_slice_sweeps(sm, sk, gb, x, gout, raw, ref_dx, checks,
+                                "bench F=128")
+    del x, gout, raw, ref_dx
+    torch.cuda.empty_cache()
+    emit({"phase": "k4k5_bench_shape", "nodes": N, "edges": gb.num_edges(),
+          "F": F, "plan": _plan_sizes(sk, gb), "rel_err": errs,
+          "k4": k4, "k5": k5,
+          "slice_width_rule": {
+              "k4": sk.slice_width(N, F, False),
+              "k5": sm.max_bwd_slice_width(N, F, 0, False)},
+          "slice_sweep": sweeps})
+    checks.raise_if_failed("k4k5_bench_shape")
+
+
+def _padded_kernels(sm, sk, g, x, gout, checks, timings):
+    """K4, K5 and K1 as gspmm runs them at Reddit's F = 602: K4 and K1 on
+    x, and K5 on raw and the cotangent, padded with zero columns to 608,
+    whole 128-byte L2 lines (``padded_width``); K5 takes x itself and
+    writes dx at 602.  Checked, timed at every slice width, with the
+    padding copy's own time and gspmm max's time end to end (padding, K4,
+    the zero fill; then with its backward: the cotangent's padding, K5)."""
+    N, E, F = g.num_src_nodes, g.num_edges(), x.shape[1]
+    Fp = sk.padded_width(N, F, None)
+    xp, gp = sk.pad_columns(x, Fp), sk.pad_columns(gout, Fp)
+    raw, errs, ref_dx = _k4k5_case(sm, sk, g, xp, None, gp, checks,
+                                   f"reddit F={F} padded to {Fp}", x_bwd=x)
+    shape = f"synthetic Reddit, F={F} padded to {Fp}, relu features, " \
+            "no weight"
+    timings["segment_max"], timings["segment_max_bwd"] = _k4k5_timings(
+        sm, sk, g, xp, gp, raw, shape, x_bwd=x)
+    res = {"width": Fp, "rel_err": errs, "k4": timings["segment_max"],
+           "k5": timings["segment_max_bwd"],
+           "slice_sweep": _k4k5_slice_sweeps(sm, sk, g, xp, gp, raw, ref_dx,
+                                             checks, f"reddit F={Fp}",
+                                             x_bwd=x),
+           "k5_load_widths": sm.max_bwd_load_widths(Fp, x, None, raw, gp),
+           "pad_ms": cuda_ms(lambda: sk.pad_columns(x, Fp))}
+    del raw, ref_dx
+    fwd = (g.csc_indptr, xp, g.src)
+    plan = sk.graph_row_plan(g, "csc")
+    ref = k1_ref(sk, *fwd)
+    res["k1_rel_err"] = checks.compare(
+        "segment_sum", f"reddit F={Fp} fwd", sk.segment_sum(*fwd, plan=plan),
+        ref, K1_TOL, sk.segment_sum(*fwd, plan=plan))
+    res["k1_ms"] = cuda_ms(lambda: sk.segment_sum(*fwd, plan=plan))
+    res["k1_slice_sweep"] = k1_slice_sweep(sk, checks, f"reddit F={Fp}", fwd,
+                                           plan, ref)
+    del ref, xp, gp
+    xg = x.clone().requires_grad_()
+
+    def fwd_bwd():
+        xg.grad = None
+        (sm.gspmm_max(g, xg) * gout).sum().backward()
+    with torch.no_grad():
+        res["gspmm_max_fwd_ms"] = cuda_ms(lambda: sm.gspmm_max(g, x))
+    res["gspmm_max_fwd_bwd_ms"] = cuda_ms(fwd_bwd)
+    return res
 
 
 def phase_sage_kernels(sm, sk, g, checks, dev, timings):
     """K4/K5 at the GraphSAGE-pool main path's shapes on synthetic Reddit:
-    layer 0 reduces relu(fc_pool(x)) at F = 602, layer 1 at F = 16 (relu
-    zeros tie, as on the main path); K1 at F = 602, the mean aggregator's
-    layer 0.  Timed with CUDA events against the plain versions."""
+    layer 0 reduces relu(fc_pool(x)) at F = 602, which gspmm pads to 608
+    (the kernels are timed at both widths; the padded one is the main
+    path's), layer 1 at F = 16 (relu zeros tie, as on the main path); K1 at
+    F = 602, the mean aggregator's layer 0, and padded.  Timed with CUDA
+    events against the plain versions."""
     rng = np.random.default_rng(5)
     N, E = g.num_src_nodes, g.num_edges()
-    dst_csr = sk.rev_gidx(g)
     res = {}
     for F in (602, 16):
         x = torch.relu(torch.from_numpy(
             rng.normal(size=(N, F)).astype(np.float32)).to(dev))
         gout = torch.from_numpy(rng.normal(size=(N, F)).astype(np.float32)
                                 ).to(dev)
-        raw, res[f"F{F}"] = _k4k5_case(sm, sk, g, x, None, gout, checks,
-                                       f"reddit F={F}")
+        raw, res[f"F{F}"], ref_dx = _k4k5_case(
+            sm, sk, g, x, None, gout, checks, f"reddit F={F}")
+        k4, k5 = _k4k5_timings(
+            sm, sk, g, x, gout, raw,
+            f"synthetic Reddit, F={F}, relu features, no weight")
+        if F == 16:
+            narrow = {"k4_reddit_F16": k4, "k5_reddit_F16": k5}
         if F == 602:
-            shape = "synthetic Reddit, F=602, relu features, no weight"
-            timings["segment_max"] = timing(
-                cuda_ms(lambda: sm.segment_max(g.csc_indptr, x, g.src)),
-                cuda_ms(lambda: sm.segment_max_plain(g.csc_indptr, x, g.src),
-                        reps=3),
-                nbytes(g.csc_indptr, g.src, x, raw), E * F, shape)
-            args = (g.csr_indptr, dst_csr, g.csr_eids, x, None, raw, gout)
-            dx, _ = sm.segment_max_bwd(*args)
-            timings["segment_max_bwd"] = timing(
-                cuda_ms(lambda: sm.segment_max_bwd(*args)),
-                cuda_ms(lambda: sm.segment_max_bwd_plain(*args), reps=3),
-                nbytes(g.csr_indptr, dst_csr, g.csr_eids, x, raw, gout, dx),
-                2 * E * F, shape)
+            unpadded = {"k4_reddit_F602": k4, "k5_reddit_F602": k5}
+            sweeps = _k4k5_slice_sweeps(sm, sk, g, x, gout, raw, ref_dx,
+                                        checks, "reddit F=602")
+            rule = {"k4": sk.slice_width(N, F, False),
+                    "k5": sm.max_bwd_slice_width(N, F, 0, False)}
             fwd = (g.csc_indptr, x, g.src)
             plan = sk.graph_row_plan(g, "csc")
             out = sk.segment_sum(*fwd, plan=plan)
@@ -736,15 +1035,18 @@ def phase_sage_kernels(sm, sk, g, checks, dev, timings):
                 library_ms=cuda_ms(lambda: torch.sparse.mm(A, x), reps=3))
             k1_602.update(
                 slice_width_rule=sk.slice_width(N, F, False),
-                slice_sweep=slice_sweep(sk, checks, "reddit F=602", fwd,
-                                        plan, ref))
-            del ref
-            del dx, out, args, A
-        del x, gout, raw
+                slice_sweep=k1_slice_sweep(sk, checks, "reddit F=602", fwd,
+                                           plan, ref))
+            del ref, out, A, raw, ref_dx
+            torch.cuda.empty_cache()
+            padded = _padded_kernels(sm, sk, g, x, gout, checks, timings)
+            raw = ref_dx = None
+        del x, gout, raw, ref_dx
         torch.cuda.empty_cache()
     emit({"phase": "sage_kernels", "nodes": N, "edges": E, "rel_err": res,
-          "k4_reddit": timings["segment_max"],
-          "k5_reddit": timings["segment_max_bwd"], "k1_reddit_F602": k1_602})
+          **unpadded, **narrow, "k4k5_slice_width_rule": rule,
+          "k4k5_slice_sweep": sweeps, "k1_reddit_F602": k1_602,
+          "padded": padded})
     checks.raise_if_failed("sage_kernels")
 
 
@@ -761,8 +1063,7 @@ def phase_sage_train(build, ds, g, dev):
         torch.manual_seed(0)
         model = GraphSAGE(hidden_feats=16, out_feats=ds.num_classes,
                           num_layers=2, aggregator_type=agg, dropout=0.5)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak_memory()
         res, c = _train(build, model, ds, g, epochs, 3e-3, dev)
         emit({"phase": f"sage_{agg}_train", "nodes": g.num_src_nodes,
               "edges": g.num_edges(), "features": int(ds.features.shape[1]),
@@ -953,7 +1254,7 @@ def _transformer_kernels(k6, graphs, checks, timings):
                          K6_DOT_TOL, k6.sddmm("dot", *args))
     lib_ms = library_sddmm_ms(g, k, q, H)
     timings["sddmm"] = timing(
-        cuda_ms(lambda: k6.sddmm("dot", *args)),
+        both_ms(lambda: k6.sddmm("dot", *args)),
         cuda_ms(lambda: k6.sddmm_plain("dot", *args), reps=3),
         nbytes(g.src, g.dst, k, q, out), 2 * E * TF_DIM,
         f"transformer complete graph (B={TF_B}, L={TF_L}), u_dot_v, "
@@ -963,8 +1264,9 @@ def _transformer_kernels(k6, graphs, checks, timings):
     bout = k6.sddmm(*bargs)
     checks.exact("sddmm", "transformer bwd g*q[dst] F=64", bout,
                  k6.sddmm_plain(*bargs), k6.sddmm(*bargs))
+    bwd_ms, bwd_one = both_ms(lambda: k6.sddmm(*bargs))
     timings["sddmm"].update(
-        bwd_ms=cuda_ms(lambda: k6.sddmm(*bargs)),
+        bwd_ms=bwd_ms, bwd_one_launch_ms=bwd_one,
         bwd_plain_ms=cuda_ms(lambda: k6.sddmm_plain(*bargs), reps=3),
         bwd_bound_ms=bound(nbytes(g.dst, q, gl, bout), E * TF_DIM)[0],
         dot_rel_err=err)
@@ -991,10 +1293,12 @@ def _transformer_k1(k6_timings, g, rng, checks):
     checks.compare("segment_sum", "transformer dx F=64", dx,
                    k1_ref(sk, *rev), K1_TOL,
                    sk.segment_sum(*rev, site="rev", plan=p_rev))
+    fwd_ms, fwd_one = both_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd))
+    rev_ms, rev_one = both_ms(lambda: sk.segment_sum(*rev, site="rev",
+                                                     plan=p_rev))
     k6_timings["segment_sum_tf"] = {
-        "fwd_ms": cuda_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
-        "rev_ms": cuda_ms(lambda: sk.segment_sum(*rev, site="rev",
-                                                 plan=p_rev)),
+        "fwd_ms": fwd_ms, "rev_ms": rev_ms,
+        "fwd_one_launch_ms": fwd_one, "rev_one_launch_ms": rev_one,
         "fwd_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(*fwd), reps=3),
         "rev_plain_ms": cuda_ms(lambda: sk.segment_sum_plain(*rev), reps=3),
         "fwd_bound_ms": bound(nbytes(g.csc_indptr, g.src, v, w, out),
@@ -1125,6 +1429,7 @@ def phase_transformer(build, k6, checks, dev, timings):
         checks.failures.append(f"transformer small forward vs CPU: logits "
                                f"rel err {small_rel}, loss {small_loss_rel}")
     checks.raise_if_failed("transformer kernel check")
+    BUSY.clear()
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
@@ -1204,6 +1509,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(sys.argv) > 1:
+        print(__doc__.split("Phases")[0], file=sys.stderr)
+        return 2
     sys.path.insert(0, REPO)
     import dgl_hack_tpu_torch as dt
     from dgl_hack_tpu_torch.ops.cuda import build
@@ -1219,11 +1527,13 @@ def main() -> int:
 
     card = phase_build(build)
     checks = Checks()
-    g_small, g_bench = phase_k1(dt, sk, checks, dev)
+    g_small, g_bench, plan_edges = phase_k1(dt, sk, checks, dev)
     phase_k6_bench(k6, g_bench, checks)
+    phase_k4k5_bench(sm, sk, g_bench, checks)
     del g_bench
     torch.cuda.empty_cache()
     phase_k4k5_small(sm, sk, g_small, checks)
+    phase_k4k5_plan(dt, sm, sk, plan_edges, checks, dev)
     phase_k6_small(k6, g_small, checks)
     del g_small
     phase_gat(dt, gk, checks, dev)

@@ -1,0 +1,295 @@
+// What the row-walking kernels share: K1 (segment_sum.cu), K4 and K5
+// (segment_max.cu).  Each reduces, per row of a CSR-style indptr, over the
+// row's edges, gathering one node row per edge; each is bound by those
+// gathered bytes, and short of that by how the work is spread over warps
+// and how many loads a warp keeps in flight.
+//
+// * Work items (RowPlan, work_item).  One warp owns one item: a row of at
+//   most T edges, or one piece of at most T edges of a longer row.  The
+//   plan (built from indptr by spmm_kernel.py:row_plan with torch ops on
+//   the device) lists the long rows, their pieces, each piece's row and
+//   where each row's pieces start.  A piece writes its partial row to
+//   scratch (pieces x F floats); row_fixup then combines each long row's
+//   partials in piece order.  No float atomics, so every result repeats
+//   bitwise.  Pieces come first in the grid so the heavy work starts early
+//   and the short rows fill the tail.
+// * Loads (load, store).  A lane reads V consecutive floats of a row
+//   (V = 4, 2 or 1, chosen by the wrapper from F's divisibility and the
+//   pointers' alignment: float4 needs 4 | F and 16-byte aligned tensors;
+//   F = 602 is 8-byte aligned per row and takes float2).
+// * The edge walk (walk_edges).  Lanes per edge = the slice's width / V
+//   rounded up to a power of two, at most 32; the warp's 32 / lanes groups
+//   take every (32 / lanes)-th edge of the item, kUnroll edges at a time,
+//   so a warp has up to 32 / lanes * kUnroll row loads in flight.  The warp
+//   loads the indices of 32 edges at once, one per lane, a chunk ahead, and
+//   hands them to the groups by shuffles, so a row load never waits on its
+//   own index load.
+// * Feature slices (launch_shape).  For wide F over a gathered array
+//   larger than L2 the wrapper cuts the columns into slices of S columns.
+//   The slice is the slowest grid dimension, so the blocks in flight at one
+//   time all read the same slice, and that slice (rows x S x 4 bytes) stays
+//   in L2 while every row gathers from it; only the indices are read again
+//   per slice.  A slice of a row costs one 128-byte L2 line where it starts
+//   on a line boundary and two where it straddles one, so gspmm runs the
+//   kernels over copies whose columns are padded to whole lines
+//   (spmm_kernel.py:padded_width, run_width).
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;        // warps per block
+constexpr int kUnroll = 4;       // edges in flight per lane group
+constexpr int kFixCols = 128;    // columns per fix-up block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kNeg = -1e30f;   // MINMAX_NEG: the max kernels' floor
+
+struct RowPlan {
+  int T;                 // rows of more than T edges are cut into pieces
+  const int* long_rows;  // (L,) the long rows
+  const int* piece_ptr;  // (L + 1,) long row l's pieces: [ptr[l], ptr[l+1])
+  const int* pieces;     // (P, 2) each piece's edges [beg, end)
+  const int* piece_row;  // (P,) the row each piece is cut from
+  int num_long;
+  int num_pieces;
+  float* partial;        // (P, F) the pieces' partial rows
+};
+
+// kStream: a read-once load (ld.global.cs), which L2 evicts first, for
+// what streams beside a gathered slice that should stay in L2.
+template <int V, bool kStream = false>
+__device__ __forceinline__ void load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    const float4 t = kStream ? __ldcs(q) : __ldg(q);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2* q = reinterpret_cast<const float2*>(p);
+    const float2 t = kStream ? __ldcs(q) : __ldg(q);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = kStream ? __ldcs(p) : __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
+// Columns [c, c + V) of a row of n columns, moved VX floats at a time (VX
+// divides V, n and c): a piece at or past column n is left as it is on a
+// load and not written on a store.  For a row narrower, or less aligned,
+// than the rows the kernel walks beside it.
+template <int V, int VX, bool kStream = false>
+__device__ __forceinline__ void load_clipped(const float* row, int c, int n,
+                                             float (&v)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; i += VX)
+    if (c + i < n) {
+      float t[VX];
+      load<VX, kStream>(row + c + i, t);
+#pragma unroll
+      for (int k = 0; k < VX; ++k) v[i + k] = t[k];
+    }
+}
+
+template <int V, int VX>
+__device__ __forceinline__ void store_clipped(float* row, int c, int n,
+                                              const float (&v)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; i += VX)
+    if (c + i < n) {
+      float t[VX];
+#pragma unroll
+      for (int k = 0; k < VX; ++k) t[k] = v[i + k];
+      store<VX>(row + c + i, t);
+    }
+}
+
+// Edge e's weights for columns [c, c + V) into wv; W: the weight kind, 0
+// none (wv is left as it is), 1 scalar per edge (E,), 2 full (E, F).
+template <int V, int W>
+__device__ __forceinline__ void load_weight(const float* w, int64_t e,
+                                            int64_t F, int c, float (&wv)[V]) {
+  if constexpr (W == 1) {
+    const float s = __ldg(w + e);
+#pragma unroll
+    for (int k = 0; k < V; ++k) wv[k] = s;
+  } else if constexpr (W == 2) {
+    load<V>(w + e * F + c, wv);
+  }
+}
+
+// running max that propagates NaN, as torch.maximum does
+__device__ __forceinline__ float max_nan(float acc, float m) {
+  return (m > acc || m != m) ? m : acc;
+}
+
+// The calling warp's item of a grid of ceil((P + num_rows) / kWarps)
+// blocks: items [0, P) are pieces, [P, P + num_rows) rows.  False where
+// there is nothing to do: past the last item, or a long row, which its
+// pieces and the fix-up write.  Warp-uniform.
+struct WorkItem {
+  int beg, end;    // the item's edges
+  int64_t row;     // its row
+  int64_t piece;   // its piece, or -1 for a whole row
+};
+
+__device__ __forceinline__ bool work_item(const RowPlan& p, const int* indptr,
+                                          int num_rows, WorkItem& it) {
+  const int64_t item = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (item >= (int64_t)p.num_pieces + num_rows) return false;
+  if (item < p.num_pieces) {
+    it.piece = item;
+    it.row = p.piece_row[item];
+    it.beg = p.pieces[2 * item];
+    it.end = p.pieces[2 * item + 1];
+    return true;
+  }
+  it.piece = -1;
+  it.row = item - p.num_pieces;
+  it.beg = indptr[it.row];
+  it.end = indptr[it.row + 1];
+  return it.end - it.beg <= p.T;
+}
+
+// The warp walks edges [beg, end) in chunks of 32: lane i loads edge
+// jc + i's gather row (gidx[j], or j itself when gidx is NULL) and, with
+// kWantE, its edge id (eid[j], or j), the next chunk's while this one is
+// worked on; group grp = lane / lanes takes the chunk's edges grp,
+// grp + groups, ... from the lanes that hold them, kUnroll at a time, and
+// hands them to body(row, e, ok); ok[u] is false past the item's end.
+// Every lane calls body the same number of times, so it may shuffle.
+template <bool kWantE, class Body>
+__device__ __forceinline__ void walk_edges(int beg, int end, const int* gidx,
+                                           const int* eid, int lanes,
+                                           Body body) {
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / lanes;
+  const int grp = lane / lanes;
+  int row_next = 0, e_next = 0;
+  if (beg + lane < end) {
+    row_next = gidx ? __ldg(gidx + beg + lane) : beg + lane;
+    if (kWantE) e_next = eid ? __ldg(eid + beg + lane) : beg + lane;
+  }
+  for (int jc = beg; jc < end; jc += 32) {           // warp-uniform
+    const int row_mine = row_next, e_mine = e_next;
+    const int jn = jc + 32 + lane;
+    if (jn < end) {
+      row_next = gidx ? __ldg(gidx + jn) : jn;
+      if (kWantE) e_next = eid ? __ldg(eid + jn) : jn;
+    }
+    const int n = min(32, end - jc);
+    for (int b = 0; b * groups < n; b += kUnroll) {  // warp-uniform
+      int64_t row[kUnroll], e[kUnroll];
+      bool ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int t = (b + u) * groups + grp;        // edge jc + t
+        row[u] = __shfl_sync(kFull, row_mine, t & 31);
+        e[u] = kWantE ? __shfl_sync(kFull, e_mine, t & 31) : 0;
+        ok[u] = t < n;
+      }
+      body(row, e, ok);
+    }
+  }
+}
+
+// out[long_rows[l], f] = the long row l's partial rows combined in piece
+// order: their sum, or with kMax their NaN-keeping max.
+// grid (L, ceil(F / kFixCols)), one thread per column.
+template <bool kMax>
+__global__ void __launch_bounds__(kFixCols)
+row_fixup(RowPlan p, float* out, int F) {
+  const int l = blockIdx.x;
+  const int f = blockIdx.y * kFixCols + threadIdx.x;
+  if (f >= F) return;
+  const int p0 = p.piece_ptr[l];
+  const int p1 = p.piece_ptr[l + 1];
+  float acc = kMax ? kNeg : 0.0f;
+#pragma unroll 8
+  for (int q = p0; q < p1; ++q) {
+    const float v = p.partial[(int64_t)q * F + f];
+    acc = kMax ? max_nan(acc, v) : acc + v;
+  }
+  out[(int64_t)p.long_rows[l] * F + f] = acc;
+}
+
+template <bool kMax>
+void launch_fixup(const RowPlan& p, float* out, int F, cudaStream_t stream) {
+  if (p.num_long > 0)
+    row_fixup<kMax><<<dim3((unsigned)p.num_long,
+                           (unsigned)((F + kFixCols - 1) / kFixCols)),
+                      kFixCols, 0, stream>>>(p, out, F);
+}
+
+inline bool aligned(const void* p, int bytes) {
+  return p == nullptr || (uintptr_t)p % bytes == 0;
+}
+
+// The grid of a row-walking kernel and its slice width S and lanes per
+// edge.  False where the wrapper's choices do not fit: vec (floats per
+// load) must be 1, 2 or 4 and divide F and slice (columns per feature
+// slice; F or more for none), and the plan's scratch must be there and
+// aligned for vec.
+struct LaunchShape {
+  dim3 grid;
+  int S, lanes;
+};
+
+inline bool launch_shape(int num_rows, int F, int vec, int slice, const RowPlan& p,
+                  LaunchShape& s) {
+  if (!(vec == 1 || vec == 2 || vec == 4) || F % vec != 0 || slice <= 0 ||
+      slice % vec != 0 || p.T <= 0 || !aligned(p.partial, 4 * vec) ||
+      (p.num_pieces > 0 && p.partial == nullptr))
+    return false;
+  s.S = slice < F ? slice : F;
+  s.lanes = 1;
+  while (s.lanes < 32 && s.lanes * vec < s.S) s.lanes <<= 1;
+  const int64_t items = (int64_t)p.num_pieces + num_rows;
+  s.grid = dim3((unsigned)((items + kWarps - 1) / kWarps),
+                (unsigned)((F + s.S - 1) / s.S));
+  return true;
+}
+
+// Launches kernel<V, W>(args, shape.S, shape.lanes) on shape.grid for the
+// run-time vec (1, 2, 4) and w_kind (0, 1, 2): the kernels are compiled per
+// load width and weight kind, so that each keeps only its own registers.
+#define ROWWALK_LAUNCH_W(kernel, V, w_kind, shape, stream, args)             \
+  do {                                                                       \
+    const int threads_ = kWarps * 32;                                        \
+    if ((w_kind) == 0)                                                       \
+      kernel<V, 0><<<(shape).grid, threads_, 0, stream>>>(                   \
+          args, (shape).S, (shape).lanes);                                   \
+    else if ((w_kind) == 1)                                                  \
+      kernel<V, 1><<<(shape).grid, threads_, 0, stream>>>(                   \
+          args, (shape).S, (shape).lanes);                                   \
+    else                                                                     \
+      kernel<V, 2><<<(shape).grid, threads_, 0, stream>>>(                   \
+          args, (shape).S, (shape).lanes);                                   \
+  } while (0)
+#define ROWWALK_LAUNCH(kernel, vec, w_kind, shape, stream, args)             \
+  do {                                                                       \
+    if ((vec) == 4)                                                          \
+      ROWWALK_LAUNCH_W(kernel, 4, w_kind, shape, stream, args);              \
+    else if ((vec) == 2)                                                     \
+      ROWWALK_LAUNCH_W(kernel, 2, w_kind, shape, stream, args);              \
+    else                                                                     \
+      ROWWALK_LAUNCH_W(kernel, 1, w_kind, shape, stream, args);              \
+  } while (0)
+
+// w_kind must be 0, 1 or 2, with a weight where it is not 0, aligned for
+// the load width where it is 2
+inline bool bad_weight(const float* w, int w_kind, int vbytes) {
+  return w_kind < 0 || w_kind > 2 || (w_kind != 0 && w == nullptr) ||
+         (w_kind == 2 && !aligned(w, vbytes));
+}
+
+}  // namespace

@@ -36,18 +36,21 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# a row plan (spmm_kernel.py:plan_args): T, long_rows, piece_ptr, pieces,
+# piece_row, num_long, num_pieces, partial
+_PLAN = [_I, _P, _P, _P, _P, _I, _I, _P]
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
-    # indptr, gidx, eid, x, w, w_kind, out, num_rows, F, vec, slice, T,
-    # long_rows, piece_ptr, pieces, num_long, num_pieces, partial, stream
-    "segment_sum_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _I, _I, _P, _P],
-    # indptr, gidx, x, w, w_kind, raw, num_rows, F, stream
-    "segment_max_f32": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
+    # indptr, gidx, eid, x, w, w_kind, out, num_rows, F, vec, slice, plan,
+    # stream
+    "segment_sum_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                        *_PLAN, _P],
+    # indptr, gidx, x, w, w_kind, raw, num_rows, F, vec, slice, plan, stream
+    "segment_max_f32": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, *_PLAN, _P],
     # csr_indptr, dst_csr, csr_eids, x, w, w_kind, raw, g, dx, dw,
-    # num_src, F, stream
+    # num_src, F, Fx, vec, vec_x, slice, plan, stream
     "segment_max_bwd_f32": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                            _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, *_PLAN, _P],
     # indptr, src, wh, el, er, w, shift, rst, den,
     # num_dst, H, D, slope, exact, stream
     "gat_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

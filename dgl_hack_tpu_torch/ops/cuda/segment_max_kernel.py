@@ -16,6 +16,28 @@ backward), the caller zero-fills ``raw <= MINMAX_NEG / 2``, and min is
 ``-max(-x)``.  The backward finds the argmax edges by float equality of
 the recomputed message with the saved raw max, so every tied edge gets
 the full cotangent, on either device.
+
+On this card both kernels are bound by the node rows they gather per
+edge (x in K4, raw in K5, and g where an edge hits the max), far above
+their compulsory bytes, and at F = 602 by how many L2 lines those rows'
+slices touch.  The design is K1's (``csrc/rowwalk.cuh``): work items
+from the graph's cached row plans (``graph_row_plan``: the CSC
+direction's for K4, the CSR direction's for K5), so a hub row is cut into
+pieces of ``K1_PIECE`` edges whose partial rows a fix-up combines in
+piece order; 16-, 8- or 4-byte loads by ``vector_width`` over every
+tensor the kernel touches; several edges in flight per lane group; and
+feature slices that keep the gathered array's columns in L2
+(``slice_width``).  On the card ``GspmmMax`` lines the slices up with the
+L2's 128-byte lines by running over copies of x whose columns are padded
+(``run_width``), so that K4 and K5 run at F = 608 where x has 602: K4
+over a padded copy of x that lives through the forward only, K5 over the
+padded raw and cotangent, while it takes x and writes dx, which it streams
+and does not gather, at their own 602 columns (``max_bwd_load_widths``).  K5 with an (E,) weight whose gradient
+is wanted runs unsliced: dw[e] sums over all columns, and one warp must
+own it for the sum to repeat bitwise (``max_bwd_slice_width``).  Left for
+later: bf16 storage; K5's g loads, one scattered 16-byte load per (v, f)
+pair, a third of its time; and a slice-major copy in place of the padded
+one (no line of a slice would then hold another slice's columns).
 """
 from __future__ import annotations
 
@@ -24,8 +46,10 @@ from typing import Optional, Tuple
 import torch
 
 from .build import LAUNCHES, check, library, ptr, require, stream_ptr
-from .spmm_kernel import (_I32_MAX, check_cuda_call, flat_weight,
-                          local_rows, rev_gidx, row_chunks)
+from .spmm_kernel import (_I32_MAX, RowPlan, check_cuda_call, checked_plan,
+                          flat_weight, graph_row_plan, local_rows, pad_columns,
+                          plan_args, plan_scratch, rev_gidx, row_chunks,
+                          run_width, slice_width, vector_width)
 
 Tensor = torch.Tensor
 
@@ -69,14 +93,46 @@ def segment_max_plain(indptr: Tensor, x: Tensor, gidx: Tensor,
     return out
 
 
+def max_bwd_slice_width(rows: int, F: int, w_kind: int, want_dw: bool) -> int:
+    """Columns per feature slice of K5 over a gathered raw of ``rows``
+    rows.  K4 over a gathered x takes K1's rule (``slice_width``) as it
+    is, and so does K5, since what must stay in L2 is the same, one slice
+    of the array gathered per edge; but an (E,) weight whose gradient is
+    wanted takes F (one slice), since dw[e] sums over every column and one
+    warp must own that sum.
+
+    On an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md), at slice widths
+    16 / 32 / 64 / none: over synthetic Reddit at F = 608 (602 padded to
+    whole L2 lines) K4 took 14.5 / 7.8 / 11.3 / 19.1 ms and K5 21.4 / 17.7
+    / 20.4 / 25.1; at F = 602 unpadded K4 17.9 / 16.6 / 17.4 / 24.6 and K5
+    28.3 / 25.6 / 25.5 / 29.9; over bench.py's graph at F = 128 (no slice
+    of a 512 MB array fits) K4 5.6 / 3.3 / 3.0 / 2.9 and K5 4.7 / 2.7 / 1.8
+    / 1.4.  The rule picks 32 on Reddit and none at bench.py's shape."""
+    return F if w_kind == 1 and want_dw else slice_width(rows, F, False)
+
+
 def segment_max(indptr: Tensor, x: Tensor, gidx: Tensor,
-                w: Optional[Tensor] = None) -> Tensor:
+                w: Optional[Tensor] = None, *,
+                plan: Optional[RowPlan] = None) -> Tensor:
     """K4 wrapper; arguments and result as ``segment_max_plain``.  x (rows,
-    F) float32; indptr, gidx int32."""
+    F) float32; indptr, gidx int32.  ``plan`` is ``row_plan(indptr)``,
+    built here when None."""
     if x.device.type == "cpu":
         return segment_max_plain(indptr, x, gidx, w)
     if x.device.type != "cuda":
         raise ValueError(f"segment_max: unsupported device {x.device}")
+    launch = segment_max_launcher(indptr, x, gidx, w, plan)
+    LAUNCHES.add("segment_max.fwd")
+    return launch(None)
+
+
+def segment_max_launcher(indptr: Tensor, x: Tensor, gidx: Tensor,
+                         w: Optional[Tensor] = None,
+                         plan: Optional[RowPlan] = None):
+    """Check K4's arguments on CUDA and return ``launch(slice_cols)``,
+    which runs the kernel at that slice width, or at ``slice_width``'s
+    when None, and returns raw.  ``segment_max`` launches through it;
+    ``chip_smoke.py`` times the slice widths with it."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"segment_max takes x of shape (rows, F), got "
@@ -90,13 +146,19 @@ def segment_max(indptr: Tensor, x: Tensor, gidx: Tensor,
         require(w, "w", torch.float32, dev)
     if max(num_rows, E, x.shape[0]) > _I32_MAX:
         raise ValueError("segment_max: sizes exceed the int32 index range")
-    out = torch.empty((num_rows, F), dtype=torch.float32, device=dev)
-    lib = library()
-    LAUNCHES.add("segment_max.fwd")
-    check("segment_max", lib.segment_max_f32(
-        ptr(indptr), ptr(gidx), ptr(x), ptr(w), w_kind, ptr(out), num_rows,
-        F, stream_ptr(dev)))
-    return out
+    plan = checked_plan(plan, indptr, "segment_max")
+    vec = vector_width(F, x, w if w_kind == 2 else None)
+
+    def launch(slice_cols: Optional[int]) -> Tensor:
+        if slice_cols is None:
+            slice_cols = slice_width(x.shape[0], F, False)
+        out = torch.empty((num_rows, F), dtype=torch.float32, device=dev)
+        check("segment_max", library().segment_max_f32(
+            ptr(indptr), ptr(gidx), ptr(x), ptr(w), w_kind, ptr(out),
+            num_rows, F, vec, slice_cols,
+            *plan_args(plan, plan_scratch(plan, F)), stream_ptr(dev)))
+        return out
+    return launch
 
 
 # ---------------------------------------------------------------------------
@@ -112,11 +174,15 @@ def segment_max_bwd_plain(csr_indptr: Tensor, dst_csr: Tensor,
     (m == raw[v]);  dx[u] = sum_j eq * g[v] * w[e];  dw[e] = sum_f eq *
     x[u] * g[v] for (E,) weights, elementwise for (E, F).  The comparison
     runs in x's dtype; the products and sums in ``acc_dtype`` (x's when
-    None), so a float64 reference can check the float32 kernel.  Returns
-    (dx, dw), dw None without w or ``want_dw``."""
+    None), so a float64 reference can check the float32 kernel.  An x of
+    fewer columns than raw and g stands for x with zero columns added (no
+    (E, F) weight then), and dx has x's columns.  Returns (dx, dw), dw
+    None without w or ``want_dw``."""
     if x.is_cuda:
         LAUNCHES.add("plain.segment_max_bwd")
     acc = acc_dtype or x.dtype
+    Fx = x.shape[1]
+    x = pad_columns(x, raw.shape[1])
     Ns, F = x.shape
     dx = torch.zeros((Ns, F), dtype=acc, device=x.device)
     dw = None
@@ -135,21 +201,52 @@ def segment_max_bwd_plain(csr_indptr: Tensor, dst_csr: Tensor,
         if dw is not None:
             prod = xu.to(acc) * gv
             dw[e] = prod.sum(-1) if w.dim() == 1 else prod
-    return dx, dw
+    return dx[:, :Fx], dw
+
+
+def max_bwd_load_widths(F: int, x: Tensor, w: Optional[Tensor], raw: Tensor,
+                        g: Tensor) -> Tuple[int, int]:
+    """Floats per load of K5: (of raw, g and an (E, F) weight, which set
+    the columns a lane owns; of x, and per store of dx).  Each is
+    ``vector_width``'s over its tensors' width and alignment, the second
+    at most the first."""
+    vec = vector_width(F, raw, g, w if w is not None and w.dim() == 2
+                       else None)
+    return vec, min(vec, vector_width(x.shape[1], x))
 
 
 def segment_max_bwd(csr_indptr: Tensor, dst_csr: Tensor, csr_eids: Tensor,
                     x: Tensor, w: Optional[Tensor], raw: Tensor, g: Tensor,
-                    want_dw: bool = True) -> Tuple[Tensor, Optional[Tensor]]:
+                    want_dw: bool = True, *, plan: Optional[RowPlan] = None
+                    ) -> Tuple[Tensor, Optional[Tensor]]:
     """K5 wrapper; arguments and results as ``segment_max_bwd_plain``.
-    x (N_src, F), raw and g (N_dst, F) float32; index arrays int32."""
+    x (N_src, Fx), raw and g (N_dst, F) float32, Fx <= F; index arrays
+    int32.  ``plan`` is ``row_plan(csr_indptr)``, built here when None."""
     if x.device.type == "cpu":
         return segment_max_bwd_plain(csr_indptr, dst_csr, csr_eids, x, w,
                                      raw, g, want_dw)
     if x.device.type != "cuda":
         raise ValueError(f"segment_max_bwd: unsupported device {x.device}")
+    launch = segment_max_bwd_launcher(csr_indptr, dst_csr, csr_eids, x, w,
+                                      raw, g, want_dw, plan)
+    LAUNCHES.add("segment_max.bwd")
+    return launch(None)
+
+
+def segment_max_bwd_launcher(csr_indptr: Tensor, dst_csr: Tensor,
+                             csr_eids: Tensor, x: Tensor,
+                             w: Optional[Tensor], raw: Tensor, g: Tensor,
+                             want_dw: bool = True,
+                             plan: Optional[RowPlan] = None):
+    """Check K5's arguments on CUDA and return ``launch(slice_cols)``,
+    which runs the kernel at that slice width, or at
+    ``max_bwd_slice_width``'s when None, and returns (dx, dw)."""
     dev = x.device
-    Ns, F = x.shape
+    if x.dim() != 2:
+        raise ValueError(f"segment_max_bwd takes x of shape (rows, F), got "
+                         f"{tuple(x.shape)}")
+    Ns, Fx = x.shape
+    F = raw.shape[-1]
     E = csr_eids.numel()
     require(csr_indptr, "csr_indptr", torch.int32, dev, Ns + 1)
     require(dst_csr, "dst_csr", torch.int32, dev, E)
@@ -157,23 +254,36 @@ def segment_max_bwd(csr_indptr: Tensor, dst_csr: Tensor, csr_eids: Tensor,
     require(x, "x", torch.float32, dev)
     require(raw, "raw", torch.float32, dev)
     require(g, "g", torch.float32, dev, raw.numel())
-    if raw.dim() != 2 or raw.shape[1] != F:
-        raise ValueError(f"raw of shape {tuple(raw.shape)} for F={F}")
+    if raw.dim() != 2 or Fx > F:
+        raise ValueError(f"raw of shape {tuple(raw.shape)} for x of "
+                         f"{Fx} columns")
     w_kind = _w_kind(w, E, F)
+    if w_kind == 2 and Fx != F:
+        raise ValueError(f"an (E, F) weight needs x at raw's {F} columns, "
+                         f"got {Fx}")
     if w is not None:
         require(w, "w", torch.float32, dev)
     if max(Ns, E, raw.shape[0]) > _I32_MAX:
         raise ValueError("segment_max_bwd: sizes exceed the int32 index "
                          "range")
-    dx = torch.empty((Ns, F), dtype=torch.float32, device=dev)
-    dw = torch.empty(w.shape, dtype=torch.float32, device=dev) \
-        if w is not None and want_dw else None
-    lib = library()
-    LAUNCHES.add("segment_max.bwd")
-    check("segment_max_bwd", lib.segment_max_bwd_f32(
-        ptr(csr_indptr), ptr(dst_csr), ptr(csr_eids), ptr(x), ptr(w), w_kind,
-        ptr(raw), ptr(g), ptr(dx), ptr(dw), Ns, F, stream_ptr(dev)))
-    return dx, dw
+    want_dw = want_dw and w is not None
+    plan = checked_plan(plan, csr_indptr, "segment_max_bwd")
+    vec, vec_x = max_bwd_load_widths(F, x, w, raw, g)
+
+    def launch(slice_cols: Optional[int]
+               ) -> Tuple[Tensor, Optional[Tensor]]:
+        if slice_cols is None:
+            slice_cols = max_bwd_slice_width(raw.shape[0], F, w_kind, want_dw)
+        dx = torch.empty((Ns, Fx), dtype=torch.float32, device=dev)
+        dw = torch.empty(w.shape, dtype=torch.float32, device=dev) \
+            if want_dw else None
+        check("segment_max_bwd", library().segment_max_bwd_f32(
+            ptr(csr_indptr), ptr(dst_csr), ptr(csr_eids), ptr(x), ptr(w),
+            w_kind, ptr(raw), ptr(g), ptr(dx), ptr(dw), Ns, F, Fx, vec,
+            vec_x, slice_cols, *plan_args(plan, plan_scratch(plan, Fx)),
+            stream_ptr(dev)))
+        return dx, dw
+    return launch
 
 
 # ---------------------------------------------------------------------------
@@ -183,11 +293,17 @@ class GspmmMax(torch.autograd.Function):
     """raw[v] = max_{e=(u,v)} max(x[u] * w[e], MINMAX_NEG) over the graph's
     CSC direction (K4); the backward walks the CSR direction (K5).
 
-    x (N_src, F); w None, (E,) or (E, F) in internal edge order."""
+    x (N_src, F); w None, (E,) or (E, F) in internal edge order.  Returns
+    (N_dst, ``run_width(x, w)``): K4 runs over a padded copy of x, and the
+    caller cuts the result back to F columns, so that autograd hands the
+    backward a padded cotangent.  What is saved is the caller's x, which
+    K5 takes as it is, so the padded copy lives through the forward
+    only."""
 
     @staticmethod
     def forward(ctx, x: Tensor, w: Optional[Tensor], g) -> Tensor:
-        raw = segment_max(g.csc_indptr, x, g.src, w)
+        raw = segment_max(g.csc_indptr, pad_columns(x, run_width(x, w)),
+                          g.src, w, plan=graph_row_plan(g, "csc"))
         ctx.g = g
         ctx.save_for_backward(x, w, raw)
         return raw
@@ -198,7 +314,8 @@ class GspmmMax(torch.autograd.Function):
         g = ctx.g
         want_dw = w is not None and ctx.needs_input_grad[1]
         dx, dw = segment_max_bwd(g.csr_indptr, rev_gidx(g), g.csr_eids, x,
-                                 w, raw, draw.contiguous(), want_dw)
+                                 w, raw, draw.contiguous(), want_dw,
+                                 plan=graph_row_plan(g, "csr"))
         return dx if ctx.needs_input_grad[0] else None, dw, None
 
 
@@ -207,7 +324,8 @@ def gspmm_max(g, x: Tensor, w: Optional[Tensor] = None,
     """copy_u / u_mul_e max or min through K4 (K5 in the backward).  x (N,
     ...) and w (E,), (E, 1...) or (E, ...) broadcastable to x's feature
     shape.  Zero in-degree rows, and rows whose every message is at or
-    below MINMAX_NEG / 2, give 0.  Returns (N_dst, ...)."""
+    below MINMAX_NEG / 2, give 0.  Returns (N_dst, ...).  On the card K4
+    and K5 run over a wide x at ``run_width``'s padded width."""
     if reduce_op not in ("max", "min"):
         raise ValueError(f"gspmm_max takes max or min, got {reduce_op!r}")
     check_cuda_call(g, x, f"gspmm {reduce_op}")
@@ -215,7 +333,7 @@ def gspmm_max(g, x: Tensor, w: Optional[Tensor] = None,
     x2 = x.reshape(shape[0], -1)
     if reduce_op == "min":
         x2 = -x2
-    raw = GspmmMax.apply(x2.contiguous(), flat_weight(w, shape), g)
+    raw = GspmmMax.apply(x2, flat_weight(w, shape), g)[:, :x2.shape[1]]
     val = -raw if reduce_op == "min" else raw
     out = torch.where(raw > MINMAX_NEG * 0.5, val, torch.zeros_like(val))
     return out.reshape((out.shape[0],) + tuple(shape[1:]))

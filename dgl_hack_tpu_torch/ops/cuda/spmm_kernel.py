@@ -15,7 +15,9 @@ K1 cuts rows of more than ``K1_PIECE`` edges into pieces that separate
 warps sum, then adds each long row's partial sums in piece order.  The
 list of long rows and pieces is the row plan (``row_plan``), built from
 an indptr with torch ops on its device and cached per graph and
-direction (``graph_row_plan``).
+direction (``graph_row_plan``).  On the card ``GspmmSum`` runs K1 over a
+copy of x whose columns are padded to whole 128-byte L2 lines where K1
+will slice them (``run_width``); the copy lives through the forward only.
 """
 from __future__ import annotations
 
@@ -104,15 +106,31 @@ SLICE_BUDGET = L2_BYTES * 3 // 5
 SLICE_WIDTHS = (64, 32, 16)
 
 
+# An L2 line holds 128 bytes, LINE_COLS float32 columns.  A feature slice
+# gathered from a row-major array costs one line per edge where it starts
+# on a line boundary and two where it straddles one.  Rows of 602 floats
+# (2,408 bytes) start on a line boundary once in 16, so gspmm pads the
+# columns of a sliced x with zeros to the next multiple of LINE_COLS and
+# cuts the result back.  On an H100 80GB HBM3 at 700 W (chip_smoke.py,
+# PERF.md), K4 over synthetic Reddit in 32-column slices took 16.2 ms at
+# F = 602 and 7.9 at 608, K1 16.2 and 7.8, K5 24.4 and 16.5.
+LINE_COLS = 32
+
+# Only the card's kernels gain from the padding: the plain versions that a
+# CPU tensor takes read whole rows.
+PAD_DEVICES = ("cuda",)
+
+
 class RowPlan(NamedTuple):
     """The rows of an indptr longer than ``K1_PIECE`` edges, and their
     pieces: long row l is ``long_rows[l]``, its pieces are
     ``pieces[piece_ptr[l]:piece_ptr[l + 1]]``, in edge order, and piece p
-    covers edges ``[pieces[p, 0], pieces[p, 1])``.  All int32, on the
-    indptr's device."""
+    covers edges ``[pieces[p, 0], pieces[p, 1])`` of row ``piece_row[p]``.
+    All int32, on the indptr's device."""
     long_rows: Tensor     # (L,)
     piece_ptr: Tensor     # (L + 1,)
     pieces: Tensor        # (P, 2)
+    piece_row: Tensor     # (P,)
 
     def to(self, device) -> "RowPlan":
         return RowPlan(*(t.to(device) for t in self))
@@ -132,16 +150,18 @@ def row_plan(indptr: Tensor, piece: int = K1_PIECE) -> RowPlan:
         torch.arange(long_rows.numel(), device=ip.device), counts,
         output_size=num_pieces)
     k = torch.arange(num_pieces, device=ip.device) - piece_ptr[owner]
-    beg = ip[long_rows[owner]] + k * piece
-    end = torch.minimum(beg + piece, ip[long_rows[owner] + 1])
+    piece_row = long_rows[owner]
+    beg = ip[piece_row] + k * piece
+    end = torch.minimum(beg + piece, ip[piece_row + 1])
     i32 = torch.int32
     return RowPlan(long_rows.to(i32), piece_ptr.to(i32),
-                   torch.stack([beg, end], 1).to(i32).contiguous())
+                   torch.stack([beg, end], 1).to(i32).contiguous(),
+                   piece_row.to(i32))
 
 
 def graph_row_plan(g, direction: str) -> RowPlan:
-    """The row plan of the graph's CSC (``"csc"``: the forward) or CSR
-    (``"csr"``: dx) indptr, cached on the graph."""
+    """The row plan of the graph's CSC (``"csc"``: K1's and K4's forward) or
+    CSR (``"csr"``: K1's dx, K5) indptr, cached on the graph."""
     key = f"k1_plan_{direction}"
     plan = g.derived.get(key)
     if plan is None:
@@ -153,9 +173,44 @@ def graph_row_plan(g, direction: str) -> RowPlan:
     return plan
 
 
+def checked_plan(plan: Optional[RowPlan], indptr: Tensor, what: str
+                 ) -> RowPlan:
+    """``plan``, or ``row_plan(indptr)`` when None, checked for a kernel
+    launch on indptr's device."""
+    if plan is None:
+        plan = row_plan(indptr)
+    if any(t.device != indptr.device or t.dtype != torch.int32
+           or not t.is_contiguous() for t in plan):
+        raise ValueError(f"{what}: the row plan must be contiguous int32 on "
+                         f"{indptr.device}")
+    P = plan.pieces.shape[0]
+    if plan.piece_ptr.numel() != plan.long_rows.numel() + 1 \
+            or plan.piece_row.numel() != P:
+        raise ValueError(f"{what}: plan.piece_ptr and plan.piece_row do not "
+                         "match plan.long_rows and plan.pieces")
+    return plan
+
+
+def plan_scratch(plan: RowPlan, F: int) -> Optional[Tensor]:
+    """The (pieces, F) float32 scratch for the plan's partial rows, None
+    without pieces."""
+    P = plan.pieces.shape[0]
+    return torch.empty((P, F), dtype=torch.float32,
+                       device=plan.pieces.device) if P else None
+
+
+def plan_args(plan: RowPlan, partial: Optional[Tensor]) -> tuple:
+    """The plan as the C entry points take it: T, long_rows, piece_ptr,
+    pieces, piece_row, num_long, num_pieces, partial."""
+    return (K1_PIECE, ptr(plan.long_rows), ptr(plan.piece_ptr),
+            ptr(plan.pieces), ptr(plan.piece_row), plan.long_rows.numel(),
+            plan.pieces.shape[0], ptr(partial))
+
+
 def vector_width(F: int, *tensors: Optional[Tensor]) -> int:
-    """Floats per K1 load: 4 where 4 | F and every tensor's data is
-    16-byte aligned, 2 where 2 | F and it is 8-byte aligned, else 1."""
+    """Floats per load of K1, K4 and K5: 4 where 4 | F and every tensor's
+    data is 16-byte aligned, 2 where 2 | F and it is 8-byte aligned, else
+    1."""
     for v in (4, 2):
         if F % v == 0 and all(t is None or t.data_ptr() % (4 * v) == 0
                               for t in tensors):
@@ -164,15 +219,41 @@ def vector_width(F: int, *tensors: Optional[Tensor]) -> int:
 
 
 def slice_width(rows: int, F: int, edge_rows: bool) -> int:
-    """Columns per feature slice of K1: F (no slicing) where x has no reuse
-    (edge-row mode) or fits in ``SLICE_BUDGET`` whole; else the widest of
-    ``SLICE_WIDTHS`` whose slice of x fits; F where none does."""
+    """Columns per feature slice of K1 over a gathered x of ``rows`` rows:
+    F (no slicing) where x has no reuse (edge-row mode) or fits in
+    ``SLICE_BUDGET`` whole; else the widest of ``SLICE_WIDTHS`` whose slice
+    of x fits; F where none does."""
     if edge_rows or rows * F * 4 <= SLICE_BUDGET:
         return F
     for s in SLICE_WIDTHS:
         if s < F and rows * s * 4 <= SLICE_BUDGET:
             return s
     return F
+
+
+def padded_width(rows: int, F: int, w: Optional[Tensor]) -> int:
+    """The width gspmm pads an x of ``rows`` rows and F columns to before
+    K1 or K4 gathers it: the next multiple of ``LINE_COLS`` where the
+    kernel cuts the columns into slices (``slice_width``); F (no padding)
+    where it does not, and under an (E, F) weight, which would need the
+    same padding."""
+    if (w is not None and w.dim() == 2) or slice_width(rows, F, False) >= F:
+        return F
+    return -(-F // LINE_COLS) * LINE_COLS
+
+
+def run_width(x2: Tensor, w: Optional[Tensor]) -> int:
+    """The width at which gspmm runs its kernels over x2 (rows, F):
+    ``padded_width`` on a device of ``PAD_DEVICES``, else F."""
+    rows, F = x2.shape
+    return padded_width(rows, F, w) if x2.device.type in PAD_DEVICES else F
+
+
+def pad_columns(x2: Tensor, width: int) -> Tensor:
+    """x2 (rows, F) with zero columns up to ``width``, contiguous."""
+    if width > x2.shape[1]:
+        x2 = torch.nn.functional.pad(x2, (0, width - x2.shape[1]))
+    return x2.contiguous()
 
 
 def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
@@ -226,28 +307,17 @@ def segment_sum_launcher(indptr: Tensor, x: Tensor,
             raise ValueError(f"w has {w.shape[0]} rows, expected {E}")
     if max(num_rows, E, x.shape[0]) > _I32_MAX:
         raise ValueError("segment_sum: sizes exceed the int32 index range")
-    if plan is None:
-        plan = row_plan(indptr)
-    if any(t.device != dev or t.dtype != torch.int32 for t in plan):
-        raise ValueError("segment_sum: the row plan must be int32 on "
-                         f"{dev}")
-    L, P = plan.long_rows.numel(), plan.pieces.shape[0]
-    if plan.piece_ptr.numel() != L + 1:
-        raise ValueError("segment_sum: plan.piece_ptr does not match "
-                         "plan.long_rows")
+    plan = checked_plan(plan, indptr, "segment_sum")
     vec = vector_width(F, x, w if w_kind == 2 else None)
 
     def launch(slice_cols: Optional[int]) -> Tensor:
         if slice_cols is None:
             slice_cols = slice_width(x.shape[0], F, gidx is None)
         out = torch.empty((num_rows, F), dtype=torch.float32, device=dev)
-        partial = torch.empty((P, F), dtype=torch.float32, device=dev) \
-            if P else None
         check("segment_sum", library().segment_sum_f32(
             ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind,
-            ptr(out), num_rows, F, vec, slice_cols, K1_PIECE,
-            ptr(plan.long_rows), ptr(plan.piece_ptr), ptr(plan.pieces), L,
-            P, ptr(partial), stream_ptr(dev)))
+            ptr(out), num_rows, F, vec, slice_cols,
+            *plan_args(plan, plan_scratch(plan, F)), stream_ptr(dev)))
         return out
     return launch
 
@@ -267,29 +337,35 @@ def rev_gidx(g) -> Tensor:
 class GspmmSum(torch.autograd.Function):
     """out[v] = sum_{e=(u,v)} x[u] * w[e] over the graph's CSC direction.
 
-    x (N_src, F); w None, (E,) or (E, F) in internal edge order."""
+    x (N_src, F); w None, (E,) or (E, F) in internal edge order.  Returns
+    (N_dst, ``run_width(x, w)``): K1 runs over a padded copy of x that is
+    dropped after the forward (the backward needs x only for dw, and
+    takes the caller's), and the caller cuts the result back to F
+    columns, so that autograd hands the backward a padded cotangent."""
 
     @staticmethod
     def forward(ctx, x: Tensor, w: Optional[Tensor], g) -> Tensor:
         ctx.g = g
         ctx.save_for_backward(x, w)
-        return segment_sum(g.csc_indptr, x, gidx=g.src, w=w, site="fwd",
+        return segment_sum(g.csc_indptr, pad_columns(x, run_width(x, w)),
+                           gidx=g.src, w=w, site="fwd",
                            plan=graph_row_plan(g, "csc"))
 
     @staticmethod
     def backward(ctx, dout: Tensor):
         x, w = ctx.saved_tensors
         g = ctx.g
+        F = x.shape[1]
         dout = dout.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # dx[u] = sum_{e=(u,v)} dout[v] * w[e]: the src-major direction
             dx = segment_sum(g.csr_indptr, dout, gidx=rev_gidx(g),
                              eid=g.csr_eids, w=w, site="rev",
-                             plan=graph_row_plan(g, "csr"))
+                             plan=graph_row_plan(g, "csr"))[:, :F]
         if w is not None and ctx.needs_input_grad[1]:
             # dw[e] = <x[src_e], dout[dst_e]>, elementwise for (E, F) w
-            prod = x[g.src] * dout[g.dst]
+            prod = x[g.src] * dout[:, :F][g.dst]
             dw = prod.sum(-1) if w.dim() == 1 else prod
         return dx, dw, None
 
@@ -321,11 +397,13 @@ def flat_weight(w: Optional[Tensor], shape) -> Optional[Tensor]:
 
 def gspmm_sum(g, x: Tensor, w: Optional[Tensor] = None) -> Tensor:
     """copy_u / u_mul_e sum through K1.  x (N, ...) and w (E,), (E, 1...)
-    or (E, ...) broadcastable to x's feature shape.  Returns (N_dst, ...)."""
+    or (E, ...) broadcastable to x's feature shape.  Returns (N_dst, ...).
+    A wide x that K1 will slice is first padded to whole L2 lines
+    (``padded_width``)."""
     check_cuda_call(g, x, "gspmm")
     shape = x.shape
-    x2 = x.reshape(shape[0], -1).contiguous()
-    out = GspmmSum.apply(x2, flat_weight(w, shape), g)
+    x2 = x.reshape(shape[0], -1)
+    out = GspmmSum.apply(x2, flat_weight(w, shape), g)[:, :x2.shape[1]]
     return out.reshape((out.shape[0],) + tuple(shape[1:]))
 
 

@@ -326,9 +326,9 @@ def test_max_min_reach_kernel_on_cuda(monkeypatch, op, lt, rt, launches,
     calls = {"fwd": 0, "bwd": 0}
     real_fwd, real_bwd = smk.segment_max, smk.segment_max_bwd
 
-    def fwd(indptr, x, gidx, w=None):
+    def fwd(indptr, x, gidx, w=None, **kw):
         calls["fwd"] += 1
-        return real_fwd(indptr, _untag(x), gidx, _untag(w))
+        return real_fwd(indptr, _untag(x), gidx, _untag(w), **kw)
 
     def bwd(*args, **kw):
         calls["bwd"] += 1
