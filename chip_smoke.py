@@ -14,11 +14,17 @@ Phases, one JSON line each:
      timed beside torch.sparse.mm, with the row plans' build time and the
      feature-slice widths 16, 32, 64 and none;
   3. K2/K3 (fused GAT forward/backward) against the plain composed
-     version and its autograd, in both softmax modes, plus a large-spread
-     case in 'exact' mode;
+     version and its autograd, in both softmax modes, on a graph with a
+     dst hub (K2's pieces) and a src hub (K3's), plus a large-spread case
+     in 'exact' mode and H = 2, D = 3,100 (wider than the first K3 took),
+     with the row plans' piece counts; and at bench.py's shape (H = 8,
+     D = 8, attn_w), checked and timed;
   4. GCN training through train_node_classifier on synthetic Reddit at
      full size (232,965 nodes x 602 features, 41 classes);
-  5. GAT training on the same graph (8 heads x 8 hidden, 1 output head);
+  5. GAT training on the same graph (8 heads x 8 hidden, 1 output head),
+     after K2/K3 checked and timed at both layers' shapes (H = 8, D = 8
+     and H = 1, D = 41, each with the sweep of floats per lane), with its
+     peak memory and a torch.profiler profile of one step;
   6. K4/K5 (segment max and its fused argmax backward) against their plain
      versions on phase 2's small graph, whose hub K4 takes in pieces (F in
      {7, 16, 41, 128}; weights none, (E,) and (E, F); one case of integer
@@ -516,12 +522,19 @@ def _gat_case(gk, g, H, D, mode, checks, rng, tag, scale=1.0):
     return errs
 
 
-def phase_gat(dt, gk, checks, dev):
+def phase_gat(dt, gk, sk, checks, dev):
+    """K2/K3 through gat_attention_fused and its gradients against the
+    composed plain version, in both softmax modes, on a graph with a dst
+    hub (K2 takes it in pieces of the CSC row plan) and a src hub (K3 in
+    pieces of the CSR plan); a large-spread 'exact' case; and H = 2,
+    D = 3,100 (H*D + H > 6,144, wider than the first K3 took) on a graph
+    small enough for the composed reference."""
     rng = np.random.default_rng(1)
     N = 20_000
     src = rng.integers(0, N, 400_000)
     dst = rng.integers(0, N - 1000, 400_000)      # 1000 isolated dst rows
-    dst[:15_000] = 3                              # a hub
+    dst[:15_000] = 3                              # a dst hub: K2's pieces
+    src[15_000:30_000] = 5                        # a src hub: K3's pieces
     g = dt.graph((src, dst), num_nodes=N, device=dev)
     res = {}
     for H, D in ((8, 8), (1, 7)):
@@ -531,7 +544,15 @@ def phase_gat(dt, gk, checks, dev):
     # logit spread > 100: only 'exact' is held to it ('shift' underflows)
     res["H8D8.exact.spread"] = _gat_case(gk, g, 8, 8, "exact", checks,
                                          rng, "spread", scale=60.0)
+    n = 2000
+    s2, d2 = rng.integers(0, n, 20_000), rng.integers(0, n, 20_000)
+    d2[:1500], s2[1500:3000] = 1, 2               # hubs of 6 pieces
+    g2 = dt.graph((s2, d2), num_nodes=n, device=dev)
+    for mode in ("shift", "exact"):
+        res[f"H2D3100.{mode}"] = _gat_case(gk, g2, 2, 3100, mode, checks,
+                                           rng, "wide")
     emit({"phase": "gat_vs_composed", "nodes": N, "edges": g.num_edges(),
+          "plan": _plan_sizes(sk, g), "wide_plan": _plan_sizes(sk, g2),
           "rel_err": res})
     checks.raise_if_failed("gat_vs_composed")
 
@@ -549,8 +570,7 @@ def _train(build, model, ds, g, epochs, lr, dev):
     build.LAUNCHES.reset()
     res = train_node_classifier(model, g, ds.features, ds.labels,
                                 ds.train_mask, ds.val_mask, ds.test_mask,
-                                num_epochs=epochs, lr=lr, weight_decay=5e-4,
-                                device=dev)
+                                num_epochs=epochs, lr=lr, device=dev)
     torch.cuda.synchronize()
     counts = dict(build.LAUNCHES.counts)
     return res, counts
@@ -621,9 +641,13 @@ def phase_gcn(dt, build, sk, ds, g, checks, dev, timings):
     return counts
 
 
-def _gat_kernels_at(gk, sk, g, H, D, checks, rng, timings=None):
-    """K2, K3 and K1's edge-row (der) call on a graph at head shape (H, D),
-    against their plain versions; timed when ``timings`` is given."""
+def _gat_kernels_at(gk, sk, g, H, D, checks, rng, tag, timed=False,
+                    sweep=False):
+    """K2, K3 and K1's edge-row (der) call on a graph at head shape (H, D)
+    with attn_w, against their plain versions, each repeated bitwise.
+    With ``timed`` returns K2's and K3's timing records (shift mode), with
+    ``sweep`` also their sweeps of floats per lane (4, 8), each held to
+    the plain version."""
     dev = g.device
     N, E = g.num_src_nodes, g.num_edges()
 
@@ -635,68 +659,145 @@ def _gat_kernels_at(gk, sk, g, H, D, checks, rng, timings=None):
     w = torch.from_numpy((rng.random((E, H)) > 0.6).astype(np.float32)
                          / 0.4).to(dev)
     shift = gk.shift_bound(el, er, 0.2).contiguous()
+    p_fwd, p_rev = sk.graph_row_plan(g, "csc"), sk.graph_row_plan(g, "csr")
     fwd_args = (g.csc_indptr, g.src, wh, el, er, w, shift, 0.2, False)
-    rst, den, sh = gk.gat_fwd(*fwd_args)
-    again = gk.gat_fwd(*fwd_args)
+    rst, den, sh = gk.gat_fwd(*fwd_args, plan=p_fwd)
+    again = gk.gat_fwd(*fwd_args, plan=p_fwd)
     ref = gk.gat_fwd_plain(*fwd_args)
     for i, name in enumerate(("rst", "den")):
-        checks.compare("gat_fwd", f"reddit H={H} D={D} {name}",
+        checks.compare("gat_fwd", f"{tag} H={H} D={D} {name}",
                        (rst, den)[i], ref[i], GAT_TOL, again[i])
-    del ref, again
+    del again
     sds = (rst.view(N, H, D) * dout.view(N, H, D)).sum(-1).contiguous()
     bwd_args = (g.csr_indptr, g.csr_eids, sk.rev_gidx(g), wh, el, er, sh,
                 den, sds, dout, w, 0.2)
-    outs = gk.gat_bwd(*bwd_args)
-    outs2 = gk.gat_bwd(*bwd_args)
+    outs = gk.gat_bwd(*bwd_args, plan=p_rev)
+    outs2 = gk.gat_bwd(*bwd_args, plan=p_rev)
     refs = gk.gat_bwd_plain(*bwd_args)
     for name, a, b, r in zip(("dwh", "del", "draw", "dw"), outs, outs2, refs):
-        checks.compare("gat_bwd", f"reddit H={H} D={D} {name}", a, r,
+        checks.compare("gat_bwd", f"{tag} H={H} D={D} {name}", a, r,
                        GAT_TOL, b)
-    del refs, outs2
+    del outs2
     draw = outs[2]
-    der = sk.segment_sum(g.csc_indptr, draw, site="edge")
-    checks.compare("segment_sum", f"reddit der H={H}", der,
+    der = sk.segment_sum(g.csc_indptr, draw, site="edge", plan=p_fwd)
+    checks.compare("segment_sum", f"{tag} der H={H}", der,
                    k1_ref(sk, g.csc_indptr, draw), K1_TOL,
-                   sk.segment_sum(g.csc_indptr, draw, site="edge"))
-    if timings is not None:
-        shape = f"synthetic Reddit, H={H}, D={D}, attn_w"
+                   sk.segment_sum(g.csc_indptr, draw, site="edge",
+                                  plan=p_fwd))
+    res = {}
+    if timed:
+        shape = f"{tag}, H={H}, D={D}, attn_w"
         # per edge and head: logit, leaky, exp, weight, den (~8) and D
         # multiply-adds forward; about twice that backward
-        timings["gat_fwd"] = timing(
-            cuda_ms(lambda: gk.gat_fwd(*fwd_args)),
+        res["gat_fwd"] = timing(
+            both_ms(lambda: gk.gat_fwd(*fwd_args, plan=p_fwd)),
             cuda_ms(lambda: gk.gat_fwd_plain(*fwd_args), reps=3),
             nbytes(g.csc_indptr, g.src, wh, el, er, w, shift, rst, den),
             E * H * (8 + 2 * D), shape + ", shift mode")
-        timings["gat_bwd"] = timing(
-            cuda_ms(lambda: gk.gat_bwd(*bwd_args)),
-            cuda_ms(lambda: gk.gat_bwd_plain(*bwd_args), reps=3),
-            nbytes(*bwd_args[:11], *outs), E * H * (12 + 4 * D), shape)
-    del outs, fwd_args, bwd_args
+        # as the main path runs it: attn_w is a dropout mask, so no dw;
+        # with dw beside it
+        res["gat_bwd"] = timing(
+            both_ms(lambda: gk.gat_bwd(*bwd_args, False, plan=p_rev)),
+            cuda_ms(lambda: gk.gat_bwd_plain(*bwd_args, False), reps=3),
+            nbytes(*bwd_args[:11], *outs[:3]), E * H * (12 + 4 * D),
+            shape + ", no dw")
+        dw_ms, dw_one = both_ms(lambda: gk.gat_bwd(*bwd_args, plan=p_rev))
+        res["gat_bwd"].update(with_dw_ms=dw_ms, with_dw_one_launch_ms=dw_one,
+                              with_dw_bound_ms=bound(
+                                  nbytes(*bwd_args[:11], *outs),
+                                  E * H * (12 + 4 * D))[0])
+    if sweep:
+        res["lane_sweep"] = gat_lane_sweep(
+            gk, checks, f"{tag} H={H} D={D}",
+            gk.gat_fwd_launcher(*fwd_args, p_fwd)[0],
+            gk.gat_bwd_launcher(*bwd_args, plan=p_rev), ref[:2], refs)
+    del ref, refs, outs, fwd_args, bwd_args
     torch.cuda.empty_cache()
+    return res
+
+
+def gat_lane_sweep(gk, checks, what, launch_fwd, launch_bwd, ref_fwd,
+                   ref_bwd, reps=5):
+    """ms of K2 and K3 at 4 and 8 floats per lane (the rules:
+    ``K2_LANE_FLOATS``, ``K3_LANE_FLOATS``), each setting's results and
+    their repeat held to the plain versions."""
+    res = {"k2": {}, "k3": {}}
+    for f in (4, 8):
+        for key, kernel, launch, refs, names in (
+                ("k2", "gat_fwd", launch_fwd, ref_fwd, ("rst", "den")),
+                ("k3", "gat_bwd", launch_bwd, ref_bwd,
+                 ("dwh", "del", "draw", "dw"))):
+            for name, a, b, r in zip(names, launch(f), launch(f), refs):
+                checks.compare(kernel, f"{what} lane_floats {f} {name}", a,
+                               r, GAT_TOL, b)
+            res[key][f"lane_floats {f}"] = cuda_ms(lambda: launch(f),
+                                                   reps=reps)
+    return res
+
+
+def _train_step(model, ds, g, lr, dev):
+    """train_node_classifier's own training step (``node_classifier_step``)
+    on ``model``, taken once as a warm-up, for the profile."""
+    from dgl_hack_tpu_torch.models.training import node_classifier_step
+    step, _ = node_classifier_step(model, g, ds.features, ds.labels,
+                                   ds.train_mask, lr=lr, device=dev)
+    step()                                      # warm-up, outside the trace
+    return step
 
 
 def phase_gat_train(dt, build, gk, sk, ds, g, checks, dev, timings):
+    """K2/K3 at the GAT main path's shapes on synthetic Reddit (hidden
+    layer H = 8, D = 8; output layer H = 1, D = 41), checked, timed and
+    swept over floats per lane; then GAT training 5 steps with its peak
+    memory, and a torch.profiler profile of one step."""
     from dgl_hack_tpu_torch.models import GAT
     rng = np.random.default_rng(3)
     N, E = g.num_src_nodes, g.num_edges()
-    # the main path's shapes: hidden layer H=8, D=8; output layer H=1, D=41
-    _gat_kernels_at(gk, sk, g, 8, 8, checks, rng, timings)
-    _gat_kernels_at(gk, sk, g, 1, ds.num_classes, checks, rng)
+    hidden = _gat_kernels_at(gk, sk, g, 8, 8, checks, rng,
+                             "synthetic Reddit", timed=True, sweep=True)
+    timings["gat_fwd"], timings["gat_bwd"] = hidden["gat_fwd"], \
+        hidden["gat_bwd"]
+    out = _gat_kernels_at(gk, sk, g, 1, ds.num_classes, checks, rng,
+                          "synthetic Reddit", timed=True, sweep=True)
     checks.raise_if_failed("gat kernel check")
 
     torch.manual_seed(0)
     model = GAT(hidden_feats=8, out_feats=ds.num_classes, heads=(8, 1),
                 feat_drop=0.6, attn_drop=0.6)
-    res, counts = _train(build, model, ds, g, 5, 5e-3, dev)
+    lr = 5e-3
+    reset_peak_memory()
+    res, counts = _train(build, model, ds, g, 5, lr, dev)
+    peak = torch.cuda.max_memory_allocated()
+    profile = _profile_step(_train_step(res["model"], ds, g, lr, dev),
+                            "gat_train")
+    epoch_ms = 1e3 * res["train_time_s"] / 4
     emit({"phase": "gat_train", "nodes": N, "edges": E,
           "heads": [8, 1], "hidden": 8, "epochs": 5,
           "losses": res["losses"], "train_time_s": res["train_time_s"],
-          "epoch_ms": 1e3 * res["train_time_s"] / 4,
-          "test_acc": res["test_acc"], "launches": counts,
-          "k2_reddit": timings["gat_fwd"], "k3_reddit": timings["gat_bwd"]})
+          "epoch_ms": epoch_ms, "test_acc": res["test_acc"],
+          "launches": counts, "peak_memory_bytes": peak,
+          "k2_reddit": timings["gat_fwd"], "k3_reddit": timings["gat_bwd"],
+          "k2_reddit_H1D41": out["gat_fwd"],
+          "k3_reddit_H1D41": out["gat_bwd"],
+          "sweep_H8D8": hidden["lane_sweep"],
+          "sweep_H1D41": out["lane_sweep"], "profile": profile,
+          "device_busy_share": profile["device_ms"] / epoch_ms})
     _check_training("gat_train", res, counts,
                     ("gat_fwd", "gat_bwd", "segment_sum.edge"))
     return counts
+
+
+def phase_gat_bench(gk, sk, gb, checks):
+    """K2/K3 at bench.py's shape (power-law, N = 1M, in-degree 16, a dst hub
+    of ~173k edges that K2 takes in 677 pieces) at H = 8, D = 8 with
+    attn_w: checked and timed."""
+    rng = np.random.default_rng(14)
+    res = _gat_kernels_at(gk, sk, gb, 8, 8, checks, rng, "bench.py graph",
+                          timed=True)
+    emit({"phase": "gat_bench_shape", "nodes": gb.num_src_nodes,
+          "edges": gb.num_edges(), "plan": _plan_sizes(sk, gb),
+          "k2": res["gat_fwd"], "k3": res["gat_bwd"]})
+    checks.raise_if_failed("gat_bench_shape")
 
 
 def _k4k5_case(sm, sk, g, x, w, gout, checks, what, plans=True, x_bwd=None):
@@ -1308,7 +1409,7 @@ def _transformer_k1(k6_timings, g, rng, checks):
         "shape": "transformer complete graph, u_mul_e, F=64, (E, F) weight"}
 
 
-def _profile_step(step):
+def _profile_step(step, phase="transformer_train"):
     """Device time by kernel over one training step, from torch.profiler
     (CUPTI): the kernels' total and the largest entries, and the same time
     grouped by the torch op that launched each kernel (``_by_op``)."""
@@ -1322,8 +1423,8 @@ def _profile_step(step):
             if str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0]
     if not rows:
-        raise SystemExit("transformer_train failed: torch.profiler recorded "
-                         "no device time for a training step")
+        raise SystemExit(f"{phase} failed: torch.profiler recorded no "
+                         "device time for a training step")
     rows.sort(key=lambda r: -r[1])
     return {"device_ms": sum(r[1] for r in rows), "kernels": len(rows),
             "top": [{"name": n[:90], "ms": ms, "calls": c}
@@ -1530,13 +1631,14 @@ def main() -> int:
     g_small, g_bench, plan_edges = phase_k1(dt, sk, checks, dev)
     phase_k6_bench(k6, g_bench, checks)
     phase_k4k5_bench(sm, sk, g_bench, checks)
+    phase_gat_bench(gk, sk, g_bench, checks)
     del g_bench
     torch.cuda.empty_cache()
     phase_k4k5_small(sm, sk, g_small, checks)
     phase_k4k5_plan(dt, sm, sk, plan_edges, checks, dev)
     phase_k6_small(k6, g_small, checks)
     del g_small
-    phase_gat(dt, gk, checks, dev)
+    phase_gat(dt, gk, sk, checks, dev)
     ds, g, data_s = _reddit(dt, dev)
     emit({"phase": "reddit_data", "nodes": g.num_src_nodes,
           "edges": g.num_edges(), "seconds": data_s,

@@ -10,7 +10,8 @@
 //   draw   = dlogit * leaky'(raw)
 //   dWh[u,h,:] += aw * dout[v,h,:]
 //   del[u,h]   += draw
-//   draw_out[e,h] = draw;  dw[e,h] = a * daw  (when w is given)
+//   draw_out[e,h] = draw;  dw[e,h] = a * daw  (when w is given and dw
+//   is asked for: GAT's attention dropout needs no dw)
 // sds[v,h] = <rst[v,h,:], dout[v,h,:]> comes from the caller; der is the
 // CSC-direction segment sum of draw_out (K1 in edge-row mode).
 //
@@ -19,106 +20,240 @@
 // math is that kernel's and the legacy path's (_gat_fused_bwd).  The TPU
 // version expanded src windows to slots with one-hot matmuls and sent
 // per-slot outputs back to edge order with an inverse-slot gather; here a
-// warp walks one src row's out-edges and writes per-edge outputs at their
+// warp walks a src row's out-edges and writes per-edge outputs at their
 // internal edge id directly.
 //
-// Bound on the H100: bytes.  Per edge it reads one dout row (4*H*D B) and
-// er/shift/den/sds (16*H B) of the dst, the indices (8 B) and 4*H B of w
-// when given; it writes 4*H B of draw (and of dw).  Per src row it reads
-// Wh and el once from L1 and writes 4*(H*D + H) B.
+// Bound on the H100: bytes.  Per edge it gathers one dout row (4*H*D B: 256
+// at H = 8, D = 8) and er/shift/den/sds of the dst (16*H B), streams the
+// indices (8 B) and 4*H B of w when given, and writes 4*H B of draw (and
+// of dw); per src row it reads Wh and el once and writes 4*(H*D + H) B.
+// draw and dw are written as 4*H-byte pieces of (E, H) arrays in CSR order,
+// i.e. scattered 32-byte sectors at H = 8.  The dot and the exp per (edge,
+// head) sit far below the fp32 rate.  The first design was held back by
+// latency: one edge at a time behind three dependent memory round trips
+// and two __syncwarp, a per-head dot summed by one lane per head from
+// shared memory (31 of 32 lanes idle at H = 1), Wh[u] reloaded per edge,
+// 4-byte loads, and one warp for a whole hub row.
 //
-// Design: one warp owns one src row.  Per edge, lanes form the products
-// Wh*dout across features into shared memory, one lane per head sums
-// its D products in a fixed order (any D, no cross-lane shuffle tree),
-// and lanes accumulate dWh in shared memory over features they own.  Two
-// __syncwarp per edge; no atomics, so results repeat bitwise.  Shared
-// memory per warp: 4*(2*H*D + 2*H) B; the wrapper picks warps per block
-// to stay under 48 KB.  Left for later: register accumulators for narrow
-// rows, fewer syncs, splitting hub rows.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design: rowwalk.cuh's head-major walk.
+// * Work items from the CSR row plan (graph_row_plan(g, "csr")): a warp owns
+//   a src row of at most T = 256 edges or one piece of a longer row.  A
+//   piece writes its partial dWh (H*D) and del (H) rows to scratch and
+//   row_fixup adds a long row's partials in piece order; draw and dw of an
+//   edge are written by the piece that owns it.
+// * walk_edges over dst_csr with csr_eids, indices loaded a chunk ahead,
+//   kUnroll edges per lane group in flight, dout read V floats at a time.
+// * The dst's er, shift, den and sds come packed in one (N, H, 4) array
+//   that the wrapper makes per backward (30 MB at Reddit): one 16-byte
+//   load per (edge, head) where four 4-byte loads were four scattered
+//   requests.  w is read and draw and dw written with streaming accesses
+//   (touched once, evicted first), and dw only where attn_w wants a
+//   gradient (GAT's dropout mask does not).
+// * A head gets as few lanes as hold its D columns at 4 floats a lane
+//   (gat_kernel.py:K3_LANE_FLOATS; K3 holds more per column than K2, and 8
+//   cost it occupancy).  Wh[u, h] and el[u, h] sit in registers across the
+//   item; the dWh and del accumulators too.  The per-head dot is each
+//   lane's fixed fma chain over its columns, then head_sum's xor shuffles
+//   over the head's lanes (all get the same bits); the epilogue runs in
+//   every lane of a head, so no lane waits for another.  No shared memory
+//   and no __syncwarp in the edge loop; the lane groups combine in a fixed
+//   tree at the end of the item.
+// * A head wider than one pass (D > 128) goes in passes of 128 columns;
+//   each pass adds its part of daw to draw_out[e, h], which the lane that
+//   owns (e, h) reads back in the next pass, and the last pass finishes
+//   draw, dw and del.  So every H*D that K2 takes, K3 takes, with no
+//   shared-memory limit.
+// * No atomics: every result repeats bitwise.  No feature slices: on the
+//   card a slice of whole heads cost about a whole unsliced pass (PERF.md:
+//   the time goes per edge, not per byte).
+// What is left: at H = 1 the per-edge requests (dout, the packed dst row,
+// w, draw) are 4-byte-wide scattered sectors, and the registers of four
+// edges in flight allow 16 warps an SM, so the output layer runs at
+// latency, not bandwidth.  Left for later: bf16 storage; masked graphs (the
+// mask as a zero attn_w).
+#include "rowwalk.cuh"
 
 namespace {
 
-__device__ __forceinline__ float leaky(float x, float slope) {
-  return x >= 0.0f ? x : slope * x;
-}
+struct Args {
+  const int* indptr;    // CSR
+  const int* eids;      // csr_eids: internal edge id of each CSR edge
+  const int* dst;       // dst of each CSR edge
+  const float* wh;      // (N_src, H*D)
+  const float* el;      // (N_src, H)
+  const float4* dstp;   // (N_dst, H) of (er[v,h], shift, den, sds)
+  const float* dout;    // (N_dst, H*D)
+  const float* w;       // (E, H) or NULL
+  float* dwh;           // (N_src, H*D)
+  float* del;           // (N_src, H)
+  float* draw;          // (E, H)
+  float* dw;            // (E, H), or NULL; only with w
+  int num_src, H, D;
+  float slope;
+  RowPlan plan;         // partial: (P, H*D) dWh, then (P, H) del
+};
 
-__global__ void gat_bwd_kernel(
-    const int* __restrict__ csr_indptr, const int* __restrict__ csr_eids,
-    const int* __restrict__ dst_csr, const float* __restrict__ wh,
-    const float* __restrict__ el, const float* __restrict__ er,
-    const float* __restrict__ shift, const float* __restrict__ den,
-    const float* __restrict__ sds, const float* __restrict__ dout,
-    const float* __restrict__ w, float* __restrict__ dwh,
-    float* __restrict__ del, float* __restrict__ draw_out,
-    float* __restrict__ dw, int num_src, int H, int D, float slope) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int HD = H * D;
-  float* prod = smem + (size_t)warp * (2 * HD + 2 * H);
-  float* acc = prod + HD;        // dWh accumulator (HD)
-  float* aw_s = acc + HD;        // per-edge aw (H)
-  float* del_acc = aw_s + H;     // del accumulator (H)
-  const int64_t u = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (u >= num_src) return;
-  const int beg = csr_indptr[u];
-  const int end = csr_indptr[u + 1];
-
-  for (int f = lane; f < HD; f += 32) acc[f] = 0.0f;
-  for (int h = lane; h < H; h += 32) del_acc[h] = 0.0f;
-  __syncwarp();
-
-  for (int k = beg; k < end; ++k) {
-    const int64_t e = csr_eids[k];
-    const int64_t v = dst_csr[k];
-    for (int f = lane; f < HD; f += 32)
-      prod[f] = wh[u * HD + f] * dout[v * HD + f];
-    __syncwarp();
-    for (int h = lane; h < H; h += 32) {
-      float daw = 0.0f;
-      for (int d = 0; d < D; ++d) daw += prod[h * D + d];
-      const float raw = el[u * H + h] + er[v * H + h];
-      const float dd = den[v * H + h];
-      const float a =
-          expf(fminf(leaky(raw, slope) - shift[v * H + h], 60.0f)) /
-          (dd > 0.0f ? dd : 1.0f);
-      const float wv = w ? w[e * H + h] : 1.0f;
-      const float dlogit = a * (daw * wv - sds[v * H + h]);
-      const float draw = dlogit * (raw >= 0.0f ? 1.0f : slope);
-      draw_out[e * H + h] = draw;
-      if (dw) dw[e * H + h] = a * daw;
-      aw_s[h] = a * wv;
-      del_acc[h] += draw;
+// grid of head_shape; W: attn_w given; NC: s.NC
+template <int V, int W, int NC>
+__global__ void __launch_bounds__(kWarps * 32)
+gat_bwd_kernel(Args a, HeadWalk s) {
+  WorkItem it;
+  if (!work_item(a.plan, a.indptr, a.num_src, it)) return;  // warp-uniform
+  const int H = a.H, D = a.D;
+  const int64_t HD = (int64_t)H * D;
+  const bool piece = it.piece >= 0;
+  float* dwh_row =
+      piece ? a.plan.partial + it.piece * HD : a.dwh + it.row * HD;
+  float* del_row = piece ? a.plan.partial + a.plan.num_pieces * HD +
+                               it.piece * H
+                         : a.del + it.row * H;
+  const int grp = (threadIdx.x & 31) / s.lanes;
+  const float slope = a.slope;
+  for (int h0 = 0; h0 < H; h0 += s.Hp) {        // warp-uniform
+    float dl = 0.0f;                                 // del of the head
+    for (int ch = 0; ch < s.nchunk; ++ch) {          // warp-uniform
+      const HeadLane<NC> L =
+          head_lane<V, NC>(s, h0, H, ch * s.Lh * V * NC, D);
+      const bool last = ch == s.nchunk - 1;
+      const float elu = L.on ? __ldg(a.el + it.row * H + L.h) : 0.0f;
+      float whu[NC][V], acc[NC][V];
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) whu[k][i] = 0.0f, acc[k][i] = 0.0f;
+        if (L.cok[k])
+          load<V>(a.wh + it.row * HD + (int64_t)L.h * D + L.col[k], whu[k]);
+      }
+      walk_edges<true>(
+          it.beg, it.end, a.dst, a.eids, s.lanes,
+          [&](const int64_t (&row)[kUnroll], const int64_t (&e)[kUnroll],
+              const bool (&ok)[kUnroll]) {
+        float dv[kUnroll][NC][V];
+        float erv[kUnroll], shv[kUnroll], dnv[kUnroll], sdv[kUnroll],
+            wv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          erv[u] = shv[u] = dnv[u] = sdv[u] = 0.0f;
+          wv[u] = 1.0f;
+#pragma unroll
+          for (int k = 0; k < NC; ++k)
+#pragma unroll
+            for (int i = 0; i < V; ++i) dv[u][k][i] = 0.0f;
+          if (ok[u] && L.on) {
+            const int64_t vh = row[u] * H + L.h;
+            const float4 q = __ldg(a.dstp + vh);    // one 16-byte load
+            erv[u] = q.x, shv[u] = q.y, dnv[u] = q.z, sdv[u] = q.w;
+            if (W) wv[u] = __ldcs(a.w + e[u] * H + L.h);   // read once
+#pragma unroll
+            for (int k = 0; k < NC; ++k)
+              if (L.cok[k])
+                load<V>(a.dout + row[u] * HD + (int64_t)L.h * D + L.col[k],
+                        dv[u][k]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          float pd = 0.0f;
+#pragma unroll
+          for (int k = 0; k < NC; ++k)
+#pragma unroll
+            for (int i = 0; i < V; ++i) pd = fmaf(whu[k][i], dv[u][k][i], pd);
+          pd = head_sum(pd, s.Lh);                   // all 32 lanes
+          if (!(ok[u] && L.on)) continue;
+          const float raw = elu + erv[u];
+          const float dd = dnv[u];
+          const float at =
+              expf(fminf(leaky(raw, slope) - shv[u], 60.0f)) /
+              (dd > 0.0f ? dd : 1.0f);
+          const float aw = W ? at * wv[u] : at;
+#pragma unroll
+          for (int k = 0; k < NC; ++k)
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              acc[k][i] = fmaf(aw, dv[u][k][i], acc[k][i]);
+          const int64_t eh = e[u] * H + L.h;
+          float daw = pd;
+          if (s.nchunk > 1) {                        // warp-uniform
+            // the head's lane 0 owns (e, h) in every pass of the item
+            if (ch > 0) daw = (L.q == 0 ? a.draw[eh] : 0.0f) + pd;
+            if (!last && L.q == 0) a.draw[eh] = daw;
+          }
+          if (last) {
+            const float da = W ? daw * wv[u] : daw;
+            const float dlogit = at * (da - sdv[u]);
+            const float dr = dlogit * (raw >= 0.0f ? 1.0f : slope);
+            dl += dr;
+            if (L.q == 0) {                // written once: evict first
+              __stcs(a.draw + eh, dr);
+              if (W && a.dw != nullptr) __stcs(a.dw + eh, at * daw);
+            }
+          }
+        }
+      });
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[k][i] = group_sum(acc[k][i], s.lanes);
+        if (grp == 0 && L.cok[k])
+          store<V>(dwh_row + (int64_t)L.h * D + L.col[k], acc[k]);
+      }
+      if (last) {
+        dl = group_sum(dl, s.lanes);
+        if (grp == 0 && L.on && L.q == 0) del_row[L.h] = dl;
+      }
     }
-    __syncwarp();
-    for (int f = lane; f < HD; f += 32)
-      acc[f] += aw_s[f / D] * dout[v * HD + f];
   }
-  __syncwarp();
-  for (int f = lane; f < HD; f += 32) dwh[u * HD + f] = acc[f];
-  for (int h = lane; h < H; h += 32) del[u * H + h] = del_acc[h];
 }
+
+struct Launch {
+  template <int V, int W, int NC>
+  static void go(const dim3& grid, const cudaStream_t& stream, const Args& a,
+                 const HeadWalk& s) {
+    gat_bwd_kernel<V, W, NC><<<grid, kWarps * 32, 0, stream>>>(a, s);
+  }
+};
 
 }  // namespace
 
+// vec: floats per load of Wh and dout and per store of dWh (1, 2, 4;
+// divides D); lane_floats: the most floats of an edge's row a lane holds
+// (head_shape); T, long_rows, piece_ptr, pieces, piece_row, num_long,
+// num_pieces: the CSR row plan of spmm_kernel.py:row_plan; partial:
+// num_pieces * (H*D + H) floats.  dw: NULL, or given with w.  dst_packed:
+// (N_dst, H, 4) of er, shift, den and sds.
 extern "C" int gat_bwd_f32(const int* csr_indptr, const int* csr_eids,
                            const int* dst_csr, const float* wh,
-                           const float* el, const float* er,
-                           const float* shift, const float* den,
-                           const float* sds, const float* dout,
-                           const float* w, float* dwh, float* del,
+                           const float* el, const float* dst_packed,
+                           const float* dout, const float* w,
+                           float* dwh, float* del,
                            float* draw_out, float* dw, int num_src, int H,
-                           int D, float slope, int warps_per_block,
+                           int D, float slope, int vec, int lane_floats,
+                           int T, const int* long_rows, const int* piece_ptr,
+                           const int* pieces, const int* piece_row,
+                           int num_long, int num_pieces, float* partial,
                            cudaStream_t stream) {
-  if (num_src > 0 && H > 0 && D > 0) {
-    const int blocks = (num_src + warps_per_block - 1) / warps_per_block;
-    const size_t smem =
-        (size_t)warps_per_block * (2 * H * D + 2 * H) * sizeof(float);
-    gat_bwd_kernel<<<blocks, warps_per_block * 32, smem, stream>>>(
-        csr_indptr, csr_eids, dst_csr, wh, el, er, shift, den, sds, dout, w,
-        dwh, del, draw_out, dw, num_src, H, D, slope);
+  if (num_src <= 0 || H <= 0 || D <= 0) return (int)cudaGetLastError();
+  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
+                     num_pieces, partial};
+  dim3 grid;
+  HeadWalk s;
+  const int vbytes = 4 * vec;
+  if (!head_shape(num_src, H, D, vec, lane_floats, plan, grid, s) ||
+      !aligned(wh, vbytes) || !aligned(dout, vbytes) ||
+      !aligned(dwh, vbytes) || dst_packed == nullptr ||
+      !aligned(dst_packed, 16) ||
+      (w == nullptr && dw != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{csr_indptr, csr_eids, dst_csr, wh, el,
+               reinterpret_cast<const float4*>(dst_packed), dout, w, dwh,
+               del, draw_out, dw, num_src, H, D, slope, plan};
+  head_launch<Launch>(vec, w != nullptr, s, grid, stream, a, s);
+  if (num_long > 0) {
+    const int64_t HD = (int64_t)H * D;
+    launch_fixup<false>(plan, dwh, (int)HD, stream);
+    RowPlan del_plan = plan;
+    del_plan.partial = partial + (int64_t)num_pieces * HD;
+    launch_fixup<false>(del_plan, del, H, stream);
   }
   return (int)cudaGetLastError();
 }

@@ -6,120 +6,215 @@
 //   num[v,h,:] += p * w[e,h] * Wh[u,h,:]      (w = 1 when absent)
 //   den[v,h]   += p
 //   rst = num / den, and 0 where den == 0.
-// exact == 0 ("shift", the default): shift is the upper bound
-//   leaky(max_u el[u,h] + er[v,h]) that the wrapper computes and passes in.
-// exact == 1: the kernel takes the exact per-dst max in a first pass over
-//   the same edges and writes it to shift (-1e30 for an empty row).
-// Outputs rst (N, H*D), den (N, H), shift (N, H); the backward reuses
-// den and shift.  Edges are in internal (CSC) order, so w is indexed by
-// the CSC position itself.
+// shift is an input: in "shift" mode (the default) the upper bound
+// leaky(max_u el[u,h] + er[v,h]) over all u; in "exact" mode the per-dst
+// max, which the wrapper takes first: by monotony of leaky and of the
+// rounded add, max_u leaky(el[u,h] + er[v,h]) = leaky(max_u el[u,h] +
+// er[v,h]) bit for bit, so the exact max is K4 (segment max) over el on the
+// same CSC rows and two elementwise ops, with -1e30 for an empty row
+// (gat_kernel.py:exact_shift).  That first pass fixes each row's max before
+// any sum, so a long row's pieces all subtract the same max and the fix-up
+// only adds; no piece rescales its partials.  Outputs rst (N, H*D) and den
+// (N, H); the backward reuses den and shift.  Edges are in internal (CSC)
+// order, so w is indexed by the CSC position itself.
 //
 // Replaces the TPU kernels dgl_hack_tpu/ops/pallas/gat_kernel.py
 // _gat_kernel_shift (shift mode) and _gat_kernel (online-max "exact"),
-// launched by _gat_chunk_call.  On the TPU the exact mode needed a running
-// max with rescaling because a window's edges arrive in blocks; a warp
-// that owns a whole dst row can afford a second pass instead.
+// launched by _gat_chunk_call.
 //
-// Bound on the H100: bytes.  Per edge it reads one Wh row (4*H*D B), one
-// el row (4*H B) and the index (4 B), plus 4*H B of w when given; per row
-// it writes 4*(H*D + 2H) B.  The exp is recomputed by each of the D lanes
-// of a head (SFU work, far from the limit at these widths).
+// Bound on the H100: bytes.  Per edge it gathers one Wh row (4*H*D B: 256
+// at H = 8, D = 8) and one el row (4*H B), and streams the index (4 B) and
+// 4*H B of w when given; per row it writes 4*(H*D + H) B.  Wh at synthetic
+// Reddit is 60 MB, just over the 50 MB L2.  The exp and the D multiply-adds
+// per (edge, head) sit far below the fp32 rate.  What held the first design
+// back was latency: one edge at a time behind its index load, 4-byte loads,
+// the exp redone by each of a head's D lanes, and one warp for a whole hub
+// row.
 //
-// Design: one warp owns one dst row; lanes cover the H*D features (4 per
-// lane per pass, passes over wider rows); each lane computes the logit
-// of its own feature's head, so no shared memory and no synchronisation
-// inside the edge loop.  No atomics: results repeat bitwise.  Left for
-// later: using idle lanes when H*D < 32 (the 1-head output layer at small
-// D), vector loads, splitting hub rows.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design: rowwalk.cuh's head-major walk.
+// * Work items from the CSC row plan (graph_row_plan(g, "csc")): a warp owns
+//   a row of at most T = 256 edges or one piece of a longer row; a piece
+//   writes its partial num (H*D) and den (H) to scratch, and gat_fwd_fixup
+//   adds a long row's partials in piece order and divides.
+// * walk_edges with the src indices loaded a chunk ahead; each lane group
+//   takes kUnroll edges at a time, so a warp has up to 32 / lanes * kUnroll
+//   Wh rows in flight; Wh is read V = 4, 2 or 1 floats at a time, w with
+//   streaming loads (read once, evicted first, so Wh keeps the L2).
+// * A head gets as few lanes as hold its D columns at 8 floats a lane
+//   (gat_kernel.py:K2_LANE_FLOATS; one lane of two float4 at D = 8, eight
+//   lanes at D = 41): each computes the head's logit and exp once per edge,
+//   not each of D lanes, and a warp takes more edges at once (four groups
+//   of 8 lanes at H = 8).
+// * num and den stay in registers; the lane groups combine in a fixed tree
+//   at the end of the item.  No shared memory, no atomics: results repeat
+//   bitwise.
+// * No feature slices: slices of whole heads lost on the card at every
+//   width (PERF.md), since Wh at Reddit (60 MB) nearly fits the L2 whole.
+// Left for later: bf16 storage; masked graphs (the mask as a zero attn_w).
+#include "rowwalk.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr float kNeg = -1e30f;
+struct Args {
+  const int* indptr;    // CSC
+  const int* src;       // src of each CSC edge
+  const float* wh;      // (N_src, H*D)
+  const float* el;      // (N_src, H)
+  const float* er;      // (N_dst, H)
+  const float* w;       // (E, H) in CSC order, or NULL
+  const float* shift;   // (N_dst, H)
+  float* rst;           // (N_dst, H*D)
+  float* den;           // (N_dst, H)
+  int num_dst, H, D;
+  float slope;
+  RowPlan plan;         // partial: (P, H*D) num, then (P, H) den
+};
 
-__device__ __forceinline__ float leaky(float x, float slope) {
-  return x >= 0.0f ? x : slope * x;
-}
-
-__global__ void gat_fwd_kernel(const int* __restrict__ indptr,
-                               const int* __restrict__ src,
-                               const float* __restrict__ wh,
-                               const float* __restrict__ el,
-                               const float* __restrict__ er,
-                               const float* __restrict__ w,
-                               float* __restrict__ shift,
-                               float* __restrict__ rst,
-                               float* __restrict__ den, int num_dst, int H,
-                               int D, float slope, int exact) {
-  const int lane = threadIdx.x & 31;
-  const int64_t v = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (v >= num_dst) return;
-  const int beg = indptr[v];
-  const int end = indptr[v + 1];
-  const int HD = H * D;
-
-  for (int f0 = 0; f0 < HD; f0 += 128) {
-    int head[4];
-    float erv[4], m[4], num[4], dsum[4];
+// grid of head_shape; W: attn_w given; NC: s.NC
+template <int V, int W, int NC>
+__global__ void __launch_bounds__(kWarps * 32)
+gat_fwd_kernel(Args a, HeadWalk s) {
+  WorkItem it;
+  if (!work_item(a.plan, a.indptr, a.num_dst, it)) return;  // warp-uniform
+  const int H = a.H, D = a.D;
+  const int64_t HD = (int64_t)H * D;
+  const bool piece = it.piece >= 0;
+  float* num_row =
+      piece ? a.plan.partial + it.piece * HD : a.rst + it.row * HD;
+  float* den_row = piece ? a.plan.partial + a.plan.num_pieces * HD +
+                               it.piece * H
+                         : a.den + it.row * H;
+  const int grp = (threadIdx.x & 31) / s.lanes;
+  for (int h0 = 0; h0 < H; h0 += s.Hp) {        // warp-uniform
+    for (int ch = 0; ch < s.nchunk; ++ch) {          // warp-uniform
+      const HeadLane<NC> L =
+          head_lane<V, NC>(s, h0, H, ch * s.Lh * V * NC, D);
+      const float erv = L.on ? __ldg(a.er + it.row * H + L.h) : 0.0f;
+      const float sh = L.on ? __ldg(a.shift + it.row * H + L.h) : 0.0f;
+      float num[NC][V], dsum = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int f = f0 + lane + 32 * k;
-      head[k] = f < HD ? f / D : 0;
-      erv[k] = er[v * H + head[k]];
-      m[k] = exact ? kNeg : shift[v * H + head[k]];
-      num[k] = 0.0f;
-      dsum[k] = 0.0f;
-    }
-    if (exact) {
-      for (int j = beg; j < end; ++j) {
-        const int64_t u = src[j];
+      for (int k = 0; k < NC; ++k)
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          m[k] = fmaxf(m[k], leaky(el[u * H + head[k]] + erv[k], slope));
-      }
-    }
-    for (int j = beg; j < end; ++j) {
-      const int64_t u = src[j];
+        for (int i = 0; i < V; ++i) num[k][i] = 0.0f;
+      walk_edges<W != 0>(
+          it.beg, it.end, a.src, nullptr, s.lanes,
+          [&](const int64_t (&row)[kUnroll], const int64_t (&e)[kUnroll],
+              const bool (&ok)[kUnroll]) {
+        float elv[kUnroll], wv[kUnroll], xv[kUnroll][NC][V];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int f = f0 + lane + 32 * k;
-        if (f < HD) {
-          const float p =
-              expf(leaky(el[u * H + head[k]] + erv[k], slope) - m[k]);
-          const float pw = w ? p * w[(int64_t)j * H + head[k]] : p;
-          num[k] += pw * wh[u * HD + f];
-          dsum[k] += p;
+        for (int u = 0; u < kUnroll; ++u) {
+          elv[u] = 0.0f;
+          wv[u] = 1.0f;
+#pragma unroll
+          for (int k = 0; k < NC; ++k)
+#pragma unroll
+            for (int i = 0; i < V; ++i) xv[u][k][i] = 0.0f;
+          if (ok[u] && L.on) {
+            elv[u] = __ldg(a.el + row[u] * H + L.h);
+            if (W) wv[u] = __ldcs(a.w + e[u] * H + L.h);   // read once
+#pragma unroll
+            for (int k = 0; k < NC; ++k)
+              if (L.cok[k])
+                load<V>(a.wh + row[u] * HD + (int64_t)L.h * D + L.col[k],
+                        xv[u][k]);
+          }
         }
-      }
-    }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int f = f0 + lane + 32 * k;
-      if (f < HD) {
-        rst[v * HD + f] = dsum[k] > 0.0f ? num[k] / dsum[k] : 0.0f;
-        if (f % D == 0) {
-          den[v * H + head[k]] = dsum[k];
-          if (exact) shift[v * H + head[k]] = m[k];
+        for (int u = 0; u < kUnroll; ++u) {
+          if (ok[u] && L.on) {
+            const float p = expf(leaky(elv[u] + erv, a.slope) - sh);
+            const float pw = W ? p * wv[u] : p;
+            dsum += p;
+#pragma unroll
+            for (int k = 0; k < NC; ++k)
+#pragma unroll
+              for (int i = 0; i < V; ++i)
+                num[k][i] = fmaf(pw, xv[u][k][i], num[k][i]);
+          }
         }
+      });
+      dsum = group_sum(dsum, s.lanes);
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+#pragma unroll
+        for (int i = 0; i < V; ++i) num[k][i] = group_sum(num[k][i], s.lanes);
+      if (grp == 0 && L.on) {
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          if (!L.cok[k]) continue;
+          if (!piece)
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              num[k][i] = dsum > 0.0f ? num[k][i] / dsum : 0.0f;
+          store<V>(num_row + (int64_t)L.h * D + L.col[k], num[k]);
+        }
+        if (ch == 0 && L.q == 0) den_row[L.h] = dsum;
       }
     }
   }
 }
+
+// rst and den of each long row: its pieces' partial num and den added in
+// piece order, then divided.  grid (L, ceil(H*D / kFixCols)).
+__global__ void __launch_bounds__(kFixCols)
+gat_fwd_fixup(RowPlan p, float* rst, float* den, int H, int D) {
+  const int64_t HD = (int64_t)H * D;
+  const int64_t f = (int64_t)blockIdx.y * kFixCols + threadIdx.x;
+  if (f >= HD) return;
+  const int l = blockIdx.x;
+  const int h = (int)(f / D);
+  const float* pnum = p.partial;
+  const float* pden = p.partial + (int64_t)p.num_pieces * HD;
+  float n = 0.0f, d = 0.0f;
+  for (int q = p.piece_ptr[l]; q < p.piece_ptr[l + 1]; ++q) {
+    n += pnum[(int64_t)q * HD + f];
+    d += pden[(int64_t)q * H + h];
+  }
+  const int64_t r = p.long_rows[l];
+  rst[r * HD + f] = d > 0.0f ? n / d : 0.0f;
+  if (f % D == 0) den[r * H + h] = d;
+}
+
+struct Launch {
+  template <int V, int W, int NC>
+  static void go(const dim3& grid, const cudaStream_t& stream, const Args& a,
+                 const HeadWalk& s) {
+    gat_fwd_kernel<V, W, NC><<<grid, kWarps * 32, 0, stream>>>(a, s);
+  }
+};
 
 }  // namespace
 
+// vec: floats per load of Wh and per store of rst (1, 2, 4; divides D);
+// lane_floats: the most floats of an edge's row a lane holds (head_shape);
+// T, long_rows, piece_ptr, pieces, piece_row, num_long, num_pieces: the CSC
+// row plan of spmm_kernel.py:row_plan; partial: num_pieces * (H*D + H)
+// floats.
 extern "C" int gat_fwd_f32(const int* indptr, const int* src, const float* wh,
                            const float* el, const float* er, const float* w,
-                           float* shift, float* rst, float* den, int num_dst,
-                           int H, int D, float slope, int exact,
+                           const float* shift, float* rst, float* den,
+                           int num_dst, int H, int D, float slope, int vec,
+                           int lane_floats, int T,
+                           const int* long_rows, const int* piece_ptr,
+                           const int* pieces, const int* piece_row,
+                           int num_long, int num_pieces, float* partial,
                            cudaStream_t stream) {
-  if (num_dst > 0 && H > 0 && D > 0) {
-    const int blocks = (num_dst + kWarps - 1) / kWarps;
-    gat_fwd_kernel<<<blocks, kWarps * 32, 0, stream>>>(
-        indptr, src, wh, el, er, w, shift, rst, den, num_dst, H, D, slope,
-        exact);
-  }
+  if (num_dst <= 0 || H <= 0 || D <= 0) return (int)cudaGetLastError();
+  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
+                     num_pieces, partial};
+  dim3 grid;
+  HeadWalk s;
+  const int vbytes = 4 * vec;
+  if (!head_shape(num_dst, H, D, vec, lane_floats, plan, grid, s) ||
+      !aligned(wh, vbytes) || !aligned(rst, vbytes) || shift == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Args a{indptr, src, wh, el, er, w, shift, rst, den, num_dst, H, D,
+               slope, plan};
+  head_launch<Launch>(vec, w != nullptr, s, grid, stream, a, s);
+  const int64_t HD = (int64_t)H * D;
+  if (num_long > 0)
+    gat_fwd_fixup<<<dim3((unsigned)num_long,
+                         (unsigned)((HD + kFixCols - 1) / kFixCols)),
+                    kFixCols, 0, stream>>>(plan, rst, den, H, D);
   return (int)cudaGetLastError();
 }

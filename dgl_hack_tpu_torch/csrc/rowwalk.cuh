@@ -1,6 +1,8 @@
 // What the row-walking kernels share: K1 (segment_sum.cu), K4 and K5
-// (segment_max.cu).  Each reduces, per row of a CSR-style indptr, over the
-// row's edges, gathering one node row per edge; each is bound by those
+// (segment_max.cu), and K2 and K3 (gat_fwd.cu, gat_bwd.cu), which lay
+// their lanes out by head (the head-major walks at the end).  Each
+// reduces, per row of a CSR-style indptr, over the row's edges, gathering
+// one node row per edge; each is bound by those
 // gathered bytes, and short of that by how the work is spread over warps
 // and how many loads a warp keeps in flight.
 //
@@ -290,6 +292,145 @@ inline bool launch_shape(int num_rows, int F, int vec, int slice, const RowPlan&
 inline bool bad_weight(const float* w, int w_kind, int vbytes) {
   return w_kind < 0 || w_kind > 2 || (w_kind != 0 && w == nullptr) ||
          (w_kind == 2 && !aligned(w, vbytes));
+}
+
+// ---------------------------------------------------------------------------
+// Head-major walks: K2 and K3 (gat_fwd.cu, gat_bwd.cu).  Their rows are H
+// heads of D columns, and part of the work per edge is per head (a logit,
+// an exp, a dot over D), so lanes are laid out by head:
+// * lane q of a head's Lh lanes holds columns (q + k Lh) V .. + V of it for
+//   k < NC: NC V-column chunks, at most lane_floats floats per edge.  Lh is
+//   the fewest lanes (a power of two, at most 32) that hold the head so, so
+//   that a warp takes as many edges at once as it can; NC (1, 2, 4 or 8) is
+//   a template parameter, so each case keeps only its own registers.  V
+//   divides D, so a lane's V columns lie in one head;
+// * a lane group (walk_edges' lanes) holds Hp heads, Lh * Hp <= 32 lanes;
+//   a head's lanes are Lh aligned lanes of it, so head_sum reduces over
+//   them with xor shuffles and every lane of the head gets the same bits;
+// * a head wider than 32 lanes of lane_floats goes in nchunk passes of
+//   that many columns (one head a pass).
+// No feature slices: slices of whole heads lost on the card at every width
+// (PERF.md); K3 pays per edge, not per byte, so each slice costs it about a
+// whole unsliced pass.
+constexpr int kLaneFloatsMax = 8;   // NC * V, the most a lane holds an edge
+
+struct HeadWalk {
+  int Lh, NC, nchunk, Hp, lanes;
+};
+
+inline int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// The grid and head layout of a head-major kernel over num_rows rows and
+// the plan's pieces.  False where the wrapper's choices do not fit: vec
+// must be 1, 2 or 4 and divide D, lane_floats be a power of two from vec to
+// kLaneFloatsMax, and the plan's scratch be there and aligned for vec.
+inline bool head_shape(int num_rows, int H, int D, int vec, int lane_floats,
+                       const RowPlan& p, dim3& grid, HeadWalk& s) {
+  if (!(vec == 1 || vec == 2 || vec == 4) || H <= 0 || D <= 0 ||
+      D % vec != 0 || lane_floats < vec || lane_floats > kLaneFloatsMax ||
+      (lane_floats & (lane_floats - 1)) != 0 || p.T <= 0 || !aligned(p.partial, 4 * vec) ||
+      (p.num_pieces > 0 && p.partial == nullptr))
+    return false;
+  const int per_head = D / vec;                 // V-column chunks of a head
+  const int max_nc = lane_floats / vec;
+  const int lh = pow2_at_least((per_head + max_nc - 1) / max_nc);
+  s.Lh = lh < 32 ? lh : 32;
+  const int nc = pow2_at_least((per_head + s.Lh - 1) / s.Lh);
+  s.NC = nc < max_nc ? nc : max_nc;
+  const int cols = s.Lh * vec * s.NC;
+  s.nchunk = (D + cols - 1) / cols;
+  const int lanes = s.Lh * pow2_at_least(H);
+  s.lanes = lanes < 32 ? lanes : 32;
+  s.Hp = s.lanes / s.Lh;
+  const int64_t items = (int64_t)p.num_pieces + num_rows;
+  grid = dim3((unsigned)((items + kWarps - 1) / kWarps));
+  return true;
+}
+
+// The calling lane's place in a head-major pass over heads [h0, h0 + Hp)
+// of H and columns from c0 of each head.
+template <int NC>
+struct HeadLane {
+  int h;                    // the lane's head
+  int q;                    // its place among the head's Lh lanes
+  bool on;                  // the head is in the pass
+  int col[NC];              // first column of each of its V-column chunks
+  bool cok[NC];             // that chunk is in the head
+};
+
+template <int V, int NC>
+__device__ __forceinline__ HeadLane<NC> head_lane(const HeadWalk& s, int h0,
+                                                  int H, int c0, int D) {
+  const int sub = (threadIdx.x & 31) & (s.lanes - 1);
+  HeadLane<NC> L;
+  L.h = h0 + sub / s.Lh;
+  L.q = sub & (s.Lh - 1);
+  L.on = L.h < H;
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    L.col[k] = c0 + (L.q + k * s.Lh) * V;
+    L.cok[k] = L.on && L.col[k] < D;
+  }
+  return L;
+}
+
+// The sum of x over the Lh aligned lanes of a head, by xor shuffles: every
+// lane of the head adds the same two values at each step (a + b in one, b +
+// a in the other), so all get the same bits.  Called by all 32 lanes.
+__device__ __forceinline__ float head_sum(float x, int Lh) {
+  for (int off = Lh >> 1; off >= 1; off >>= 1)
+    x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// The fixed-order tree over the lane groups (lanes of equal place in
+// their group): group 0 ends with the sum.  Called by all 32 lanes.
+__device__ __forceinline__ float group_sum(float x, int lanes) {
+  for (int off = 16; off >= lanes; off >>= 1)
+    x += __shfl_down_sync(kFull, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float leaky(float x, float slope) {
+  return x >= 0.0f ? x : slope * x;
+}
+
+// Runs L::go<V, W, NC>(args...) for the run-time vec (1, 2, 4), a weight
+// that is there (W = 1) or not (W = 0) and s.NC, over the cases with
+// NC * V <= kLaneFloatsMax: the kernels are compiled per case.
+template <class L, int V, int W, class... A>
+void head_launch_nc(const HeadWalk& s, const A&... args) {
+  if (s.NC == 1) {
+    L::template go<V, W, 1>(args...);
+  } else if (s.NC == 2) {
+    if constexpr (2 * V <= kLaneFloatsMax) L::template go<V, W, 2>(args...);
+  } else if (s.NC == 4) {
+    if constexpr (4 * V <= kLaneFloatsMax) L::template go<V, W, 4>(args...);
+  } else {
+    if constexpr (8 * V <= kLaneFloatsMax) L::template go<V, W, 8>(args...);
+  }
+}
+
+template <class L, int V, class... A>
+void head_launch_w(bool w_on, const HeadWalk& s, const A&... args) {
+  if (w_on)
+    head_launch_nc<L, V, 1>(s, args...);
+  else
+    head_launch_nc<L, V, 0>(s, args...);
+}
+
+template <class L, class... A>
+void head_launch(int vec, bool w_on, const HeadWalk& s, const A&... args) {
+  if (vec == 4)
+    head_launch_w<L, 4>(w_on, s, args...);
+  else if (vec == 2)
+    head_launch_w<L, 2>(w_on, s, args...);
+  else
+    head_launch_w<L, 1>(w_on, s, args...);
 }
 
 }  // namespace

@@ -10,7 +10,7 @@ Adam step, on every parameter.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,23 +38,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def train_node_classifier(model: torch.nn.Module, g, feats, labels,
-                          train_mask, val_mask, test_mask, *,
-                          num_epochs: int = 200, lr: float = 1e-2,
-                          weight_decay: float = 5e-4, seed: int = 0,
-                          model_args: tuple = (),
-                          model_kwargs: Optional[dict] = None,
-                          log_every: int = 0, early_stop_patience: int = 0,
-                          device="cuda") -> Dict[str, Any]:
-    """Train ``model`` on graph ``g``; returns accuracies, epoch timing and
-    the per-step losses (warm-up step first).
+def node_classifier_step(model: torch.nn.Module, g, feats, labels,
+                         train_mask, *, lr: float = 1e-2,
+                         weight_decay: float = 5e-4, seed: int = 0,
+                         model_args: tuple = (),
+                         model_kwargs: Optional[dict] = None,
+                         device="cuda") -> Tuple[Callable[[], Tensor],
+                                                 Callable[..., tuple]]:
+    """The training step of ``train_node_classifier``, for callers that
+    drive (or profile) the steps themselves.
 
-    Runs on ``device``, the card unless the caller asks for the CPU
-    (``device="cpu"``); with no card, "cuda" raises rather than falling
-    back.  The graph and numpy inputs are moved there.  Dropout draws
-    come from a ``torch.Generator`` seeded with ``seed``.  Parameters
-    still uninitialised (lazy layers) are made by one forward pass before
-    the optimizer is built."""
+    Moves the model, graph and inputs to ``device`` (the card unless the
+    caller asks for the CPU; with no card, "cuda" raises rather than
+    falling back), makes any parameters still uninitialised (lazy layers)
+    by one forward pass, builds AdamW and returns ``(train_step,
+    evaluate)``: ``train_step()`` takes one step of forward, masked
+    cross-entropy, backward and update and returns the loss;
+    ``evaluate(*masks)`` returns the accuracy on each mask.  Dropout draws
+    come from a ``torch.Generator`` seeded with ``seed``."""
     model_kwargs = model_kwargs or {}
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -68,8 +69,7 @@ def train_node_classifier(model: torch.nn.Module, g, feats, labels,
 
     feats = None if feats is None else dev(feats, torch.float32)
     labels = dev(labels, torch.int64)
-    train_mask, val_mask, test_mask = (dev(m, torch.bool) for m in
-                                       (train_mask, val_mask, test_mask))
+    train_mask = dev(train_mask, torch.bool)
     model = model.to(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -93,11 +93,40 @@ def train_node_classifier(model: torch.nn.Module, g, feats, labels,
         return loss.detach()
 
     @torch.no_grad()
-    def evaluate():
+    def evaluate(*masks) -> tuple:
         model.eval()
         logits = logits_of(False)
-        return tuple(float(masked_accuracy(logits, labels, m))
-                     for m in (train_mask, val_mask, test_mask))
+        return tuple(float(masked_accuracy(logits, labels,
+                                           dev(m, torch.bool)))
+                     for m in masks)
+    return train_step, evaluate
+
+
+def train_node_classifier(model: torch.nn.Module, g, feats, labels,
+                          train_mask, val_mask, test_mask, *,
+                          num_epochs: int = 200, lr: float = 1e-2,
+                          weight_decay: float = 5e-4, seed: int = 0,
+                          model_args: tuple = (),
+                          model_kwargs: Optional[dict] = None,
+                          log_every: int = 0, early_stop_patience: int = 0,
+                          device="cuda") -> Dict[str, Any]:
+    """Train ``model`` on graph ``g``; returns accuracies, epoch timing and
+    the per-step losses (warm-up step first).
+
+    Runs on ``device``, the card unless the caller asks for the CPU
+    (``device="cpu"``); with no card, "cuda" raises rather than falling
+    back.  The graph and numpy inputs are moved there.  Each step is
+    ``node_classifier_step``'s."""
+    device = torch.device(device)
+    train_step, accuracy = node_classifier_step(
+        model, g, feats, labels, train_mask, lr=lr,
+        weight_decay=weight_decay, seed=seed, model_args=model_args,
+        model_kwargs=model_kwargs, device=device)
+    masks = tuple(torch.as_tensor(m, dtype=torch.bool).to(device)
+                  for m in (train_mask, val_mask, test_mask))
+
+    def evaluate():
+        return accuracy(*masks)
 
     losses = [train_step()]                 # warm-up, outside the clock
     _sync(device)

@@ -52,13 +52,13 @@ SIGNATURES = {
     "segment_max_bwd_f32": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, *_PLAN, _P],
     # indptr, src, wh, el, er, w, shift, rst, den,
-    # num_dst, H, D, slope, exact, stream
+    # num_dst, H, D, slope, vec, lane_floats, plan, stream
     "gat_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _F, _I, _P],
-    # csr_indptr, csr_eids, dst_csr, wh, el, er, shift, den, sds, dout, w,
-    # dwh, del, draw, dw, num_src, H, D, slope, warps_per_block, stream
-    "gat_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+                    _I, _I, _I, _F, _I, _I, *_PLAN, _P],
+    # csr_indptr, csr_eids, dst_csr, wh, el, dst_packed, dout, w, dwh,
+    # del, draw, dw, num_src, H, D, slope, vec, lane_floats, plan, stream
+    "gat_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _P, _I, _I, _I, _F, _I, _I, *_PLAN, _P],
     # src, dst, lhs, rhs, out, op, E, F, D, stream
     "sddmm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

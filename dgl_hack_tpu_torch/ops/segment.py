@@ -5,7 +5,10 @@ Conventions match the JAX package (and DGL):
 
 * ``mean`` = sum / clamp(count, 1);
 * ``max``/``min`` over an empty segment give 0, not +-inf;
-* ``prod`` over an empty segment gives 1.
+* ``prod`` over an empty segment gives 1;
+* integer data take the dtype's limits where float data take +-inf, so an
+  empty integer segment gives ``iinfo.min`` (max) or ``iinfo.max`` (min),
+  as ``jax.ops.segment_max``/``segment_min`` give it.
 """
 from __future__ import annotations
 
@@ -21,6 +24,16 @@ _REDUCERS = ("sum", "mean", "max", "min", "prod")
 def _expand(x: Tensor, ref: Tensor) -> Tensor:
     """Broadcast a (E,) vector against trailing feature dims of ``ref``."""
     return x.reshape(x.shape + (1,) * (ref.dim() - 1))
+
+
+def _lowest(dtype: torch.dtype):
+    """The identity of max: -inf, or the integer dtype's least value."""
+    return -float("inf") if dtype.is_floating_point else torch.iinfo(dtype).min
+
+
+def _highest(dtype: torch.dtype):
+    """The identity of min: +inf, or the integer dtype's greatest value."""
+    return float("inf") if dtype.is_floating_point else torch.iinfo(dtype).max
 
 
 def _scatter(data: Tensor, segment_ids: Tensor, num_segments: int,
@@ -47,13 +60,15 @@ def segment_mean(data: Tensor, segment_ids: Tensor,
 
 def segment_max(data: Tensor, segment_ids: Tensor,
                 num_segments: int) -> Tensor:
-    m = _scatter(data, segment_ids, num_segments, "amax", -float("inf"))
+    m = _scatter(data, segment_ids, num_segments, "amax",
+                 _lowest(data.dtype))
     return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
 
 
 def segment_min(data: Tensor, segment_ids: Tensor,
                 num_segments: int) -> Tensor:
-    m = _scatter(data, segment_ids, num_segments, "amin", float("inf"))
+    m = _scatter(data, segment_ids, num_segments, "amin",
+                 _highest(data.dtype))
     return torch.where(torch.isposinf(m), torch.zeros_like(m), m)
 
 
@@ -83,8 +98,8 @@ _SEGMENT_FNS = {
 
 def apply_identity_mask(reducer: str, data: Tensor, mask: Tensor) -> Tensor:
     """Replace masked-out rows with the reducer's identity element."""
-    ident = {"sum": 0.0, "mean": 0.0, "max": -float("inf"),
-             "min": float("inf"), "prod": 1.0}
+    ident = {"sum": 0, "mean": 0, "max": _lowest(data.dtype),
+             "min": _highest(data.dtype), "prod": 1}
     if reducer not in ident:
         raise ValueError(f"unknown reducer {reducer!r}")
     fill = torch.full((), ident[reducer], dtype=data.dtype,

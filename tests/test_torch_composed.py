@@ -44,3 +44,29 @@ def test_edge_softmax_and_sddmm_eid_order():
         st = dt.gsddmm(gt, op, torch.from_numpy(x), torch.from_numpy(y),
                        "u", "v", out_order="eid")
         assert_close(st.numpy(), sj, BARE_TOL, op)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("reducer", ["max", "min"])
+def test_segment_reduce_int32_vs_jax(reducer, masked):
+    """max/min over int32 data, masked or not: empty segments (segment 1,
+    and under the mask segment 3, all of whose entries are masked) give
+    the dtype's limit in both packages, bitwise."""
+    from dgl_hack_tpu.ops.segment import segment_reduce as jax_reduce
+    from dgl_hack_tpu_torch.ops.segment import segment_reduce
+    rng = np.random.default_rng(40)
+    data = rng.integers(-50, 50, size=(12, 2)).astype(np.int32)
+    ids = np.array([0, 0, 2, 2, 2, 3, 3, 4, 4, 4, 0, 2], np.int32)
+    mask = np.array([1, 0, 1, 1, 0, 0, 0, 1, 1, 1, 1, 0], bool) \
+        if masked else None
+    ref = jax_reduce(reducer, jnp.asarray(data), jnp.asarray(ids), 5,
+                     mask=None if mask is None else jnp.asarray(mask))
+    out = segment_reduce(reducer, torch.from_numpy(data),
+                         torch.from_numpy(ids).long(), 5,
+                         None if mask is None else torch.from_numpy(mask))
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    limit = np.iinfo(np.int32).min if reducer == "max" \
+        else np.iinfo(np.int32).max
+    assert (out[1] == limit).all()
+    assert bool((out[3] == limit).all()) == masked

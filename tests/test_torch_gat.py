@@ -169,3 +169,41 @@ def test_plain_kernels_match_composed_autograd():
         rk = _port_run(lambda f, a, b, ww: gk.gat_attention_fused(
             gt, f, a, b, 0.2, ww, softmax=mode), fsrc, el, er, w, t)
         _compare(rc, rk, BARE_TOL)
+
+
+BAD_SHAPES = {
+    "el (N, H, 1)": lambda f, a, b: (f, a[:, :, None], b),
+    "fsrc (N, H*D)": lambda f, a, b: (f.reshape(f.shape[0], -1), a, b),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_SHAPES))
+def test_bad_operand_shapes_rejected(case):
+    """Operands other than (N, H, D) / (N, H) / (N, H): the JAX package's
+    composed path fails on them, and the port raises a ValueError that
+    names the expected shapes, before it dispatches by device."""
+    rng = np.random.default_rng(14)
+    gj, gt = _graphs(rng)
+    fsrc, el, er, _, _ = _inputs(rng, 200, gt.num_edges(), 2, 4,
+                                 with_w=False)
+    bad = BAD_SHAPES[case](fsrc, el, er)
+    with pytest.raises(Exception):
+        np.asarray(jax_gat(gj, *map(jnp.asarray, bad), 0.2))
+    with pytest.raises(ValueError, match=r"fsrc \(N_src, H, D\), el "
+                       r"\(N_src, H\) and er \(N_dst, H\)"):
+        dt.gat_attention(gt, *map(torch.from_numpy, bad), 0.2)
+
+
+def test_operand_check_ties_widths():
+    """The port also names the shapes for operands the JAX composed path
+    would broadcast: an er of another head count, an el of another node
+    count."""
+    rng = np.random.default_rng(15)
+    _, gt = _graphs(rng)
+    fsrc, el, er, _, _ = _inputs(rng, 200, gt.num_edges(), 2, 4,
+                                 with_w=False)
+    f, a, b = map(torch.from_numpy, (fsrc, el, er))
+    for args in ((f, a, b[:, :1]), (f, a[:-1], b), (f[:-1], a[:-1], b)):
+        with pytest.raises(ValueError, match="gat_attention takes"):
+            dt.gat_attention(gt, *args, 0.2)
+    assert dt.gat_attention(gt, f, a, b, 0.2).shape == fsrc.shape
