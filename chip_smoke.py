@@ -49,16 +49,37 @@ Phases, one JSON line each:
      its shapes and a small forward held against the CPU; the profile of
      one step groups device time by kernel and by the torch op, autograd
      node and source line that launched it;
- 11. a twin of __graft_entry__.entry(): a GAT forward on a 512-node graph,
+ 11. SGC (k = 2), APPNP (hidden 64, k = 10) and TAGCN (hidden 16, k = 2)
+     on full synthetic Reddit through train_node_classifier, 3 steps each
+     (every propagation K1);
+ 12. K1's sorted-rows route (edge-row mode over runs of consecutive rows:
+     readouts, copy_e sums) against its plain version at a readout of
+     1,024 graphs of 24 nodes (F = 32), a single-graph readout over
+     synthetic Reddit (F = 602, one row of 911 pieces) and copy_e sum over
+     its 23.5 M CSC rows (F = 8), timed beside torch.segment_reduce;
+ 13. GIN graph classification at the full width of examples/train_gin.py
+     (hidden 32, 3 layers, the SBM mixture of 24-node graphs, Adam lr
+     5e-3): one forward held against the CPU, 5 steps in batches of 16,
+     then 5 timed steps on a batch of 1,024 graphs with a torch.profiler
+     profile of one step;
+ 14. every layer and pooling of the GIN/propagation/attention slice
+     (SGConv, APPNPConv, TAGConv, ChebConv, AGNNConv, EdgeConv,
+     GatedGraphConv, NNConv, the global poolings, Set2Set, the set
+     transformer, Sequential, WeightBasis) and GINConv(max), forward and
+     backward on the card against the same module on the CPU, on a batch
+     holding a dst hub and a src hub of 700 edges, with each module's
+     kernel launches;
+ 15. a twin of __graft_entry__.entry(): a GAT forward on a 512-node graph,
      held against the same model on the CPU.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
-Tolerances (max abs error / max |reference|): K1 and K5 <= 2e-5 against
-their plain versions run in float64 (the kernels' f32 sums); K2, K3 <=
-1e-4 against their f32 plain versions (the exp adds rounding); K4 equal
-to its plain version (the max is exact); K6 equal to its plain version
-for add/sub/mul/div/copy_rhs (one IEEE op per element), dot <= 1e-5
+Tolerances (max abs error / max |reference|): K1 (its rows route too)
+and K5 <= 2e-5 against their plain versions run in float64 (the kernels'
+f32 sums); the slice's layers <= 1e-4 against the CPU (``LAYER_TOL``);
+K2, K3 <= 1e-4 against their f32 plain versions (the exp adds rounding);
+K4 equal to its plain version (the max is exact); K6 equal to its plain
+version for add/sub/mul/div/copy_rhs (one IEEE op per element), dot <= 1e-5
 against its plain version run in float64, and its backward (K1 sums)
 <= 2e-5 against autograd through the plain version in float64.  Every
 kernel result must repeat bitwise across two runs.
@@ -67,9 +88,11 @@ Each kernel's bound is the larger of its compulsory bytes (each input
 read once, each output written once) at 3.35 TB/s and its operations at
 the fp32 rate of 67 TFLOP/s (H100 SXM data sheet); its library time is
 one PyTorch call computing the same function where there is one
-(``torch.sparse.mm`` on a CSR matrix for K1, ``torch.sparse.sampled_addmm``
+(``torch.sparse.mm`` on a CSR matrix for K1, ``torch.segment_reduce``
+for its rows route, ``torch.sparse.sampled_addmm``
 on a CSR matrix, batched over heads, for K6's dot), timed only.
 """
+import copy
 import json
 import os
 import subprocess
@@ -81,6 +104,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K1_TOL, GAT_TOL, K5_TOL = 2e-5, 1e-4, 2e-5
+LAYER_TOL = 1e-4
 K6_DOT_TOL, K6_BWD_TOL = 1e-5, 2e-5
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 
@@ -565,12 +589,13 @@ def _reddit(dt, dev):
     return ds, g, time.perf_counter() - t0
 
 
-def _train(build, model, ds, g, epochs, lr, dev):
+def _train(build, model, ds, g, epochs, lr, dev, weight_decay=5e-4):
     from dgl_hack_tpu_torch.models.training import train_node_classifier
     build.LAUNCHES.reset()
     res = train_node_classifier(model, g, ds.features, ds.labels,
                                 ds.train_mask, ds.val_mask, ds.test_mask,
-                                num_epochs=epochs, lr=lr, device=dev)
+                                num_epochs=epochs, lr=lr,
+                                weight_decay=weight_decay, device=dev)
     torch.cuda.synchronize()
     counts = dict(build.LAUNCHES.counts)
     return res, counts
@@ -1051,9 +1076,11 @@ def _padded_kernels(sm, sk, g, x, gout, checks, timings):
     """K4, K5 and K1 as gspmm runs them at Reddit's F = 602: K4 and K1 on
     x, and K5 on raw and the cotangent, padded with zero columns to 608,
     whole 128-byte L2 lines (``padded_width``); K5 takes x itself and
-    writes dx at 602.  Checked, timed at every slice width, with the
-    padding copy's own time and gspmm max's time end to end (padding, K4,
-    the zero fill; then with its backward: the cotangent's padding, K5)."""
+    writes dx at 602.  Checked, timed at every slice width (K1 also
+    beside its plain version and torch.sparse.mm on the padded x), with
+    the padding copy's own time and gspmm max's time end to end (padding,
+    K4, the zero fill; then with its backward: the cotangent's padding,
+    K5)."""
     N, E, F = g.num_src_nodes, g.num_edges(), x.shape[1]
     Fp = sk.padded_width(N, F, None)
     xp, gp = sk.pad_columns(x, Fp), sk.pad_columns(gout, Fp)
@@ -1078,6 +1105,10 @@ def _padded_kernels(sm, sk, g, x, gout, checks, timings):
         "segment_sum", f"reddit F={Fp} fwd", sk.segment_sum(*fwd, plan=plan),
         ref, K1_TOL, sk.segment_sum(*fwd, plan=plan))
     res["k1_ms"] = cuda_ms(lambda: sk.segment_sum(*fwd, plan=plan))
+    res["k1_plain_ms"] = cuda_ms(lambda: sk.segment_sum_plain(*fwd), reps=3)
+    A = csr_matrix(g)
+    res["k1_library_ms"] = cuda_ms(lambda: torch.sparse.mm(A, xp), reps=3)
+    del A
     res["k1_slice_sweep"] = k1_slice_sweep(sk, checks, f"reddit F={Fp}", fwd,
                                            plan, ref)
     del ref, xp, gp
@@ -1583,6 +1614,317 @@ def phase_transformer(build, k6, checks, dev, timings):
     return counts
 
 
+def phase_k1_rows(sk, g, ds, checks, dev, timings):
+    """K1's sorted-rows route (edge-row mode over consecutive rows,
+    ``SegmentSumRows``) against its plain version in float64, repeated
+    bitwise, at the three shapes of the slice's paths: a readout of 1,024
+    graphs of 24 nodes (F = 32), a single-graph readout over synthetic
+    Reddit's 232,965 nodes (F = 602, one row of 911 pieces), and copy_e
+    sum over its 23.5 M CSC rows (F = 8); each timed with its plain
+    version and torch.segment_reduce, the library call."""
+    rng = np.random.default_rng(12)
+    cases = [("readout 1024 x 24, F=32", sk.segments([24] * 1024, dev),
+              32, None),
+             ("one graph of synthetic Reddit, F=602",
+              sk.segments([g.num_dst_nodes], dev), 602,
+              torch.from_numpy(ds.features).to(dev)),
+             ("copy_e over synthetic Reddit's CSC rows, F=8",
+              sk.graph_segments(g, "csc"), 8, None)]
+    res = {}
+    for what, seg, F, x in cases:
+        rows = seg.ids.numel()
+        if x is None:
+            x = torch.from_numpy(rng.normal(size=(rows, F))
+                                 .astype(np.float32)).to(dev)
+        out = sk.segment_sum_rows(x, seg)
+        checks.compare("segment_sum", f"rows {what}", out,
+                       k1_ref(sk, seg.indptr, x), K1_TOL,
+                       sk.segment_sum_rows(x, seg))
+        lengths = (seg.indptr[1:] - seg.indptr[:-1]).long()
+        rec = timing(
+            both_ms(lambda: sk.segment_sum_rows(x, seg)),
+            cuda_ms(lambda: sk.segment_sum_plain(seg.indptr, x), reps=3),
+            nbytes(seg.indptr, x, out), rows * F, what,
+            library_ms=cuda_ms(lambda: torch.segment_reduce(
+                x, "sum", lengths=lengths)))
+        rec.update(segments=seg.indptr.numel() - 1, rows=rows,
+                   pieces=seg.plan.pieces.shape[0])
+        res[what] = rec
+        del x, out
+    timings["segment_sum_rows"] = res
+    emit({"phase": "k1_rows", "cases": res})
+    checks.raise_if_failed("k1_rows")
+
+
+def phase_propagation_train(build, ds, g, dev):
+    """SGC (k = 2), APPNP (hidden 64, k = 10, alpha 0.1, dropout 0.5) and
+    TAGCN (hidden 16, k = 2) on full synthetic Reddit through
+    train_node_classifier, 3 steps each, at the widths, learning rates and
+    weight decays of examples/train_{sgc,appnp,tagcn}.py: every
+    propagation is a copy_u sum through K1."""
+    from dgl_hack_tpu_torch.models import APPNP, SGC, TAGCN
+    C = ds.num_classes
+    counts = {}
+    for name, make, lr, wd in (
+            ("sgc", lambda: SGC(C, k=2), 0.2, 5e-6),
+            ("appnp", lambda: APPNP(64, C, k=10, alpha=0.1, dropout=0.5),
+             1e-2, 5e-4),
+            ("tagcn", lambda: TAGCN(16, C, k=2, dropout=0.5), 1e-2, 5e-4)):
+        torch.manual_seed(0)
+        reset_peak_memory()
+        res, c = _train(build, make(), ds, g, 3, lr, dev, weight_decay=wd)
+        emit({"phase": f"{name}_train", "nodes": g.num_src_nodes,
+              "edges": g.num_edges(), "features": int(ds.features.shape[1]),
+              "epochs": 3, "losses": res["losses"],
+              "train_time_s": res["train_time_s"],
+              "epoch_ms": 1e3 * res["train_time_s"] / 2,
+              "test_acc": res["test_acc"], "launches": c,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+        _check_training(f"{name}_train", res, c, ("segment_sum.fwd",))
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+GIN_DATA = dict(nodes_per_graph=24, communities=(1, 4), p_in=0.6,
+                p_out=0.05, seed=0)
+
+
+def _gin_eval_loss(model, batches):
+    """Mean cross-entropy of the log-softmax over batches, no gradient."""
+    with torch.no_grad():
+        model.eval()
+        return float(np.mean([float(torch.nn.functional.cross_entropy(
+            model(bg, x), y)) for bg, x, y in batches]))
+
+
+def phase_gin_train(build, checks, dev):
+    """GIN graph classification at the full width of examples/train_gin.py
+    (hidden 32, 3 layers, 2 classes, the SBM mixture of 200 graphs of 24
+    nodes with 8 features, Adam lr 5e-3) in batches of 16 graphs: one
+    forward held against the same model on the CPU, then a warm-up step
+    and 4 timed steps over the first batches, whose losses must be finite
+    and whose mean loss over those batches must fall;
+    then one batch of 1,024 graphs of the same generator (24,576 nodes):
+    a warm-up step, 5 timed steps, peak memory and a torch.profiler
+    profile of one step."""
+    from dgl_hack_tpu_torch.data import sbm_mixture
+    from dgl_hack_tpu_torch.models import GIN
+    from dgl_hack_tpu_torch.models.training import (graph_batches,
+                                                    graph_classifier_step)
+    ds = sbm_mixture(num_graphs=200, **GIN_DATA)
+    train_b = graph_batches(ds, 0, 160, 16, dev)
+    cpu_b = graph_batches(ds, 0, 16, 16, "cpu")[0]
+    torch.manual_seed(0)
+    model = GIN(hidden_feats=32, out_feats=ds.num_classes, num_layers=3)
+    with torch.no_grad():
+        ref = model(*cpu_b[:2])                 # CPU: materialises params
+        out = copy.deepcopy(model).to(dev)(*train_b[0][:2])
+    rel = rel_err(out.cpu(), ref)
+    if not (rel <= GAT_TOL and torch.isfinite(out).all()):
+        checks.failures.append(f"gin forward vs CPU: rel err {rel}")
+    checks.raise_if_failed("gin forward vs CPU")
+
+    step, _ = graph_classifier_step(model, train_b[0], lr=5e-3, device=dev)
+    before = _gin_eval_loss(model, train_b[:5])
+    build.LAUNCHES.reset()
+    losses = [step(*train_b[0])]                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in train_b[1:5]:
+        losses.append(step(*b))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 4
+    counts = dict(build.LAUNCHES.counts)
+    after = _gin_eval_loss(model, train_b[:5])
+    losses = [float(v) for v in losses]
+
+    big_ds = sbm_mixture(num_graphs=1024, **GIN_DATA)
+    big = graph_batches(big_ds, 0, 1024, 1024, dev)[0]
+    torch.manual_seed(0)
+    big_model = GIN(hidden_feats=32, out_feats=2, num_layers=3)
+    reset_peak_memory()
+    big_step, _ = graph_classifier_step(big_model, big, lr=5e-3, device=dev)
+    build.LAUNCHES.reset()
+    big_losses = [big_step(*big)]               # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        big_losses.append(big_step(*big))
+    torch.cuda.synchronize()
+    big_ms = 1e3 * (time.perf_counter() - t0) / 5
+    big_counts = dict(build.LAUNCHES.counts)
+    peak = torch.cuda.max_memory_allocated()
+    profile = _profile_step(lambda: big_step(*big), "gin_train")
+    emit({"phase": "gin_train", "graphs": len(ds.graphs), "batch": 16,
+          "nodes_per_batch": train_b[0][0].num_nodes(),
+          "edges_first_batch": train_b[0][0].num_edges(),
+          "rel_err_vs_cpu": rel, "step_losses": losses,
+          "mean_loss_before": before, "mean_loss_after": after,
+          "step_ms": step_ms, "launches": counts,
+          "big": {"graphs": 1024, "nodes": big[0].num_nodes(),
+                  "edges": big[0].num_edges(),
+                  "losses": [float(v) for v in big_losses],
+                  "step_ms": big_ms, "graphs_per_s": 1024 / (big_ms * 1e-3),
+                  "peak_memory_bytes": peak, "launches": big_counts,
+                  "profile": profile,
+                  "device_busy_share": profile["device_ms"] / big_ms}})
+    need = ("segment_sum.fwd", "segment_sum.rev", "segment_sum.rows")
+    _check_training("gin_train", {"losses": [before, *losses, after]},
+                    counts, need)
+    _check_training("gin_train batch 1024",
+                    {"losses": [float(v) for v in big_losses]}, big_counts,
+                    need)
+    return counts
+
+
+def _layer_graph(dt):
+    """A batch of a 2,048-node graph whose node 0 has 700 in-edges (a dst
+    hub: 3 pieces of K1's CSC plan) and node 1 700 out-edges (a src hub:
+    3 pieces of the CSR plan), with duplicate edges, and three small
+    graphs; the first graph's 2,048 node rows are one readout segment of
+    8 pieces."""
+    rng = np.random.default_rng(13)
+    n = 2048
+    src, dst = rng.integers(0, n, 6000), rng.integers(0, n, 6000)
+    dst[:700], src[700:1400] = 0, 1
+    src[-50:], dst[-50:] = src[:50], dst[:50]
+    parts = [dt.graph((src, dst), num_nodes=n)]
+    for k in (3, 7, 12):
+        parts.append(dt.graph((rng.integers(0, k, 3 * k),
+                               rng.integers(0, k, 3 * k)), num_nodes=k))
+    return dt.batch(parts)
+
+
+def _layer_cases(dt, g):
+    """(name, module, extra inputs, kernel counts that must be > 0) for
+    every layer and pooling of the slice, plus GINConv(max); DenseGraphConv
+    takes the dense adjacency in place of the graph ("dense")."""
+    from dgl_hack_tpu_torch import nn as tnn
+    rng = np.random.default_rng(14)
+    E = g.num_edges()
+    etypes = torch.from_numpy(rng.integers(0, 3, E))
+    efeat = torch.from_numpy(rng.normal(size=(E, 3)).astype(np.float32))
+    return [
+        ("GINConv(max)", tnn.GINConv(aggregator_type="max", learn_eps=True),
+         (), ("segment_max.fwd", "segment_max.bwd")),
+        ("SGConv", tnn.SGConv(8, k=2), (), ("segment_sum.fwd",)),
+        ("APPNPConv", tnn.APPNPConv(3, 0.1), (), ("segment_sum.fwd",)),
+        ("TAGConv", tnn.TAGConv(8, k=2), (), ("segment_sum.fwd",)),
+        ("ChebConv", tnn.ChebConv(8, k=3), (), ("segment_sum.fwd",)),
+        ("AGNNConv", tnn.AGNNConv(), (), ("sddmm.fwd", "sddmm.bwd")),
+        ("EdgeConv", tnn.EdgeConv(8), (), ("sddmm.fwd",)),
+        ("GatedGraphConv", tnn.GatedGraphConv(16, 2, 3), (etypes,),
+         ("segment_sum.rows",)),
+        ("NNConv(sum)", tnn.NNConv(8, tnn.Dense(16 * 8), "sum"), (efeat,),
+         ("segment_sum.rows",)),
+        ("NNConv(mean)", tnn.NNConv(8, tnn.Dense(16 * 8), "mean",
+                                    residual=True), (efeat,),
+         ("segment_sum.rows",)),
+        ("NNConv(max)", tnn.NNConv(8, tnn.Dense(16 * 8), "max"), (efeat,),
+         ()),
+        ("SumPooling", tnn.SumPooling(), (), ("segment_sum.rows",)),
+        ("WeightAndSum", tnn.WeightAndSum(), (), ("segment_sum.rows",)),
+        ("AvgPooling", tnn.AvgPooling(), (), ("segment_sum.rows",)),
+        ("MaxPooling", tnn.MaxPooling(), (), ()),
+        ("SortPooling", tnn.SortPooling(5), (), ()),
+        ("GlobalAttentionPooling", tnn.GlobalAttentionPooling(
+            tnn.Dense(1), tnn.Dense(8)), (), ("segment_sum.rows",)),
+        ("Set2Set", tnn.Set2Set(16, 2), (), ("segment_sum.rows",)),
+        ("SetTransformerEncoder(sab)",
+         tnn.SetTransformerEncoder(16, 2, 8, 32), (), ()),
+        ("SetTransformerEncoder(isab)",
+         tnn.SetTransformerEncoder(16, 2, 8, 32, block_type="isab", m=4),
+         (), ()),
+        ("SetTransformerDecoder", tnn.SetTransformerDecoder(16, 2, 8, 32,
+                                                            k=2), (), ()),
+        ("Sequential", tnn.Sequential([tnn.GraphConv(8), tnn.GraphConv(4)]),
+         (), ("segment_sum.fwd", "segment_sum.rev")),
+        ("DenseGraphConv", tnn.DenseGraphConv(8), "dense", ()),
+    ]
+
+
+def _grads_close(checks, name, mod_d, mod_c, x_d, x_c):
+    """The input's and every parameter's gradient on the card within
+    LAYER_TOL of the CPU's, relative to the larger of the tensor's max|ref|
+    and 1e-3 of the module's largest gradient: a gradient that is 0 up to
+    rounding (a softmax's shift invariance: the attention's key biases, a
+    gate's bias) is held to 1e-7 of that.  Returns the largest error and
+    the tensor it was found in."""
+    pairs = [("input", x_d.grad, x_c.grad)] + [
+        (n, p.grad, dict(mod_c.named_parameters())[n].grad)
+        for n, p in mod_d.named_parameters()]
+    top = max(float(r.abs().max()) for _, _, r in pairs)
+    worst = (0.0, "")
+    for what, out, ref in pairs:
+        scale = max(float(ref.abs().max()), 1e-3 * top, 1e-30)
+        err = float((out.cpu() - ref).abs().max()) / scale
+        worst = max(worst, (err, what))
+        if not err <= LAYER_TOL:
+            checks.failures.append(f"{name} d {what}: {err:.3g} > "
+                                   f"{LAYER_TOL}")
+    return worst
+
+
+def phase_layers(dt, build, checks, dev):
+    """Every layer and pooling of the slice, and GINConv(max), forward
+    and backward on the card against the same module (same weights) on
+    the CPU, on a batch holding a dst hub and a src hub of 700 edges; each
+    module's kernel launches on the card, and no plain path."""
+    g_c = _layer_graph(dt)
+    g_d = g_c.to(dev)
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.normal(size=(g_c.num_nodes(), 16))
+                         .astype(np.float32))
+    res = {}
+    src, dst = g_c.edges()
+    adj = torch.zeros((g_c.num_nodes(),) * 2).index_put_(
+        (dst.long(), src.long()), torch.ones(g_c.num_edges()),
+        accumulate=True)
+    for name, mod_c, extra, need in _layer_cases(dt, g_c):
+        on_c, on_d = (adj, adj.to(dev)) if extra == "dense" else (g_c, g_d)
+        extra = () if extra == "dense" else extra
+        torch.manual_seed(0)
+        x_c = x.clone().requires_grad_()
+        out_c = mod_c(on_c, x_c, *extra)        # CPU: materialises params
+        mod_d = copy.deepcopy(mod_c).to(dev)
+        x_d = x.clone().to(dev).requires_grad_()
+        build.LAUNCHES.reset()
+        out_d = mod_d(on_d, x_d, *(t.to(dev) for t in extra))
+        cot = torch.from_numpy(np.random.default_rng(16).normal(
+            size=tuple(out_c.shape)).astype(np.float32))
+        fin = torch.isfinite(out_c)
+        (torch.where(fin, out_c, 0.0) * cot).sum().backward()
+        (torch.where(fin.to(dev), out_d, 0.0) * cot.to(dev)).sum() \
+            .backward()
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES.counts)
+        fwd = rel_err(torch.where(fin, out_d.detach().cpu(), 0.0),
+                      torch.where(fin, out_c.detach(), 0.0))
+        if not (fwd <= LAYER_TOL and bool((torch.isfinite(out_d.cpu())
+                                           == fin).all())):
+            checks.failures.append(f"{name} forward: rel err {fwd:.3g}")
+        grad, worst = _grads_close(checks, name, mod_d, mod_c, x_d, x_c)
+        missing = [k for k in need if counts.get(k, 0) <= 0]
+        plain = {k: v for k, v in counts.items() if k.startswith("plain.")}
+        if missing or plain:
+            checks.failures.append(f"{name}: launches {counts}")
+        res[name] = {"fwd_rel_err": fwd, "grad_rel_err": grad,
+                     "worst_grad": worst, "launches": counts}
+    from dgl_hack_tpu_torch.nn import WeightBasis
+    wb = WeightBasis((4, 5), 2, 6)
+    wb_d = copy.deepcopy(wb).to(dev)
+    res["WeightBasis"] = {"fwd_rel_err": rel_err(wb_d().detach().cpu(),
+                                                 wb().detach())}
+    if not res["WeightBasis"]["fwd_rel_err"] <= LAYER_TOL:
+        checks.failures.append("WeightBasis forward")
+    emit({"phase": "layers", "nodes": g_c.num_nodes(),
+          "edges": g_c.num_edges(), "graphs": len(g_c.batch_num_nodes),
+          "max_in_degree": int(g_c.in_degrees().max()),
+          "max_out_degree": int(g_c.out_degrees().max()), "modules": res})
+    checks.raise_if_failed("layers")
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -1649,12 +1991,16 @@ def main() -> int:
                             timings)
     phase_sage_kernels(sm, sk, g, checks, dev, timings)
     c_sage = phase_sage_train(build, ds, g, dev)
+    c_prop = phase_propagation_train(build, ds, g, dev)
+    phase_k1_rows(sk, g, ds, checks, dev, timings)
     del ds, g
     torch.cuda.empty_cache()
     c_tf = phase_transformer(build, k6, checks, dev, timings)
+    c_gin = phase_gin_train(build, checks, dev)
+    phase_layers(dt, build, checks, dev)
     phase_entry(dt, dev)
 
-    runs = (c_gcn, c_gat, c_sage, c_tf)
+    runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
                            if k.startswith("segment_sum.")),

@@ -78,6 +78,10 @@ class Graph:
       csr_eids            (E,)  internal edge ids in src-sorted order
       int2user / user2int (E,)  internal <-> user edge order (or None)
       edge_mask           (E,) bool or None; False rows are padding
+
+    A graph made by ``core.batch.batch`` also carries ``batch_num_nodes``
+    and ``batch_num_edges``, tuples of per-graph counts (None otherwise),
+    which the readouts take their segments from.
     """
 
     def __init__(self, *, num_src: int, num_dst: int, src: Tensor,
@@ -90,6 +94,8 @@ class Graph:
                  is_block: bool = False,
                  node_frames: Optional[Tuple[Dict[str, Tensor], ...]] = None,
                  edge_frame: Optional[Dict[str, Tensor]] = None,
+                 batch_num_nodes: Optional[Tuple[int, ...]] = None,
+                 batch_num_edges: Optional[Tuple[int, ...]] = None,
                  host_cache: Optional[Dict[str, np.ndarray]] = None):
         self._num_src = int(num_src)
         self._num_dst = int(num_dst)
@@ -106,6 +112,8 @@ class Graph:
             node_frames = ({}, {}) if is_block else ({},)
         self._node_frames = node_frames
         self._edge_frame = {} if edge_frame is None else edge_frame
+        self.batch_num_nodes = batch_num_nodes
+        self.batch_num_edges = batch_num_edges
         self._np_cache = {} if host_cache is None else host_cache
         # device tensors derived from the structure, and K1's row plans
         # (tuples of them with a .to); ops/cuda fills it
@@ -136,6 +144,10 @@ class Graph:
         return int(self.src.shape[0])
 
     num_edges = number_of_edges
+
+    @property
+    def num_edges_static(self) -> int:
+        return int(self.src.shape[0])
 
     # -- frames -------------------------------------------------------------
     @property
@@ -189,10 +201,20 @@ class Graph:
             self._np_cache[name] = getattr(self, name).cpu().numpy()
         return self._np_cache[name]
 
+    def host_edges(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(src, dst) in user order, host-side."""
+        s, d = self.host("src"), self.host("dst")
+        if self.int2user is None:
+            return s, d
+        u2i = self.host("user2int")
+        return s[u2i], d[u2i]
+
     def replace(self, **kw) -> "Graph":
         fields = dict(num_src=self._num_src, num_dst=self._num_dst,
                       is_block=self.is_block, node_frames=self._node_frames,
                       edge_frame=self._edge_frame,
+                      batch_num_nodes=self.batch_num_nodes,
+                      batch_num_edges=self.batch_num_edges,
                       host_cache=self._np_cache)
         fields.update({n: getattr(self, n) for n in _STRUCT})
         fields.update(kw)

@@ -2,10 +2,21 @@
 
 A flax params tree, given as nested dicts of numpy arrays (``{"params":
 {"layer0": {"weight": ..., "bias": ...}}}``), becomes the port's
-``state_dict``: keys join the tree path with dots.  Dense ``kernel (in,
-out)`` becomes ``nn.Linear``'s ``weight (out, in)``; every other leaf
-(``GraphConv.weight (in, out)``, ``bias``, ``attn_l``/``attn_r (1, H, D)``)
-keeps its name and layout.
+``state_dict``: keys join the tree path with dots.
+
+* A Dense ``kernel (in, out)`` becomes ``nn.Linear``'s ``weight (out,
+  in)``.  An attention kernel is 3-D: ``query``/``key``/``value`` (in, H,
+  Dh) and ``out`` (H, Dh, out) are first merged to 2-D over the heads,
+  and their (H, Dh) biases flattened.
+* A LayerNorm ``scale`` becomes ``weight``.
+* A flax ``GRUCell`` (``ir``/``iz``/``in`` with biases, ``hr``/``hz``
+  without, ``hn`` with) becomes ``nn.GRUCell``'s stacked ``weight_ih``/
+  ``weight_hh`` in gate order r, z, n, with ``bias_hh = [0, 0, b_hn]``.
+* A flax LSTM cell (``ii``/``if``/``ig``/``io`` without biases,
+  ``hi``/``hf``/``hg``/``ho`` with) becomes ``nn.LSTMCell``'s, in gate
+  order i, f, g, o, with ``bias_ih = 0``.
+* Every other leaf (``GraphConv.weight (in, out)``, ``bias``,
+  ``attn_l``/``attn_r (1, H, D)``, ``eps``) keeps its name and layout.
 """
 from __future__ import annotations
 
@@ -21,19 +32,56 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(tree: Mapping, prefix: str) -> None:
+    def put(key: str, arr) -> None:
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32,
+                                             order="C"))
+
+    def walk(tree: Mapping, prefix: str, owner: str) -> None:
+        if set(tree) in (_GRU, _LSTM):
+            for key, arr in _recurrent(tree).items():
+                put(f"{prefix}{key}", arr)
+            return
         for name, leaf in tree.items():
             if isinstance(leaf, Mapping):
-                walk(leaf, f"{prefix}{name}.")
+                walk(leaf, f"{prefix}{name}.", name)
                 continue
             arr = np.array(leaf, dtype=np.float32)
             if name == "kernel":
-                out[f"{prefix}weight"] = torch.from_numpy(arr.T.copy())
+                if arr.ndim == 3:           # attention: merge the heads
+                    arr = arr.reshape(-1, arr.shape[-1]) if owner == "out" \
+                        else arr.reshape(arr.shape[0], -1)
+                put(f"{prefix}weight", arr.T)
+            elif name == "bias" and arr.ndim == 2:
+                put(f"{prefix}bias", arr.reshape(-1))
+            elif name == "scale":
+                put(f"{prefix}weight", arr)
             else:
-                out[f"{prefix}{name}"] = torch.from_numpy(arr)
+                put(f"{prefix}{name}", arr)
 
-    walk(params, "")
+    walk(params, "", "")
     return out
+
+
+_GRU = {"ir", "iz", "in", "hr", "hz", "hn"}
+_LSTM = {"ii", "if", "ig", "io", "hi", "hf", "hg", "ho"}
+
+
+def _recurrent(cell: Mapping) -> Dict[str, np.ndarray]:
+    """A flax GRU or LSTM cell's gate kernels as the torch cell's stacked
+    weights and biases."""
+    def kernels(names):
+        return np.concatenate([np.asarray(cell[n]["kernel"]) for n in names],
+                              axis=1).T
+
+    def biases(names):
+        return np.concatenate(
+            [np.asarray(cell[n]["bias"]) if "bias" in cell[n]
+             else np.zeros(np.asarray(cell[n]["kernel"]).shape[1])
+             for n in names])
+    ins, hid = (("ir", "iz", "in"), ("hr", "hz", "hn")) if set(cell) == _GRU \
+        else (("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho"))
+    return {"weight_ih": kernels(ins), "weight_hh": kernels(hid),
+            "bias_ih": biases(ins), "bias_hh": biases(hid)}
 
 
 def state_dict_to_flax(state: Mapping[str, torch.Tensor],

@@ -1,10 +1,10 @@
-"""End-to-end models: GCN, GAT and full-graph GraphSAGE, as in
-``dgl_hack_tpu.models``.
+"""End-to-end models: GCN, GAT, full-graph GraphSAGE, GIN and
+MLPPredictor, as in ``dgl_hack_tpu.models``, and the models of the SGC,
+APPNP and TAGCN example CLIs.
 
 Sub-modules carry the JAX package's names (``layer0``, ``gat0``, ``sage0``,
-...), so
-a flax params tree converts to a ``state_dict`` key for key
-(``interop.py``).
+``gin0``, ``Dense_0``, ...), so a flax params tree converts to a
+``state_dict`` key for key (``interop.py``).
 """
 from __future__ import annotations
 
@@ -14,7 +14,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.conv import GATConv, GraphConv, SAGEConv, dropout
+from ..nn.conv import (APPNPConv, GATConv, GINConv, GraphConv, SAGEConv,
+                       SGConv, TAGConv, dropout)
+from ..nn.init import Dense
+from ..ops import readout
 
 Tensor = torch.Tensor
 
@@ -101,3 +104,111 @@ class GraphSAGE(nn.Module):
             if i < self.num_layers - 1:
                 h = dropout(self.activation(h), self.dropout, det, generator)
         return h
+
+
+class _MLP:
+    """GIN's ``Dense, relu, Dense``.  Not a module: flax creates the two
+    Denses in GIN's own scope (``Dense_{2i}``, ``Dense_{2i+1}``), so GIN
+    owns them and GINConv only calls them."""
+
+    def __init__(self, first: nn.Module, second: nn.Module):
+        self.first, self.second = first, second
+
+    def __call__(self, h: Tensor) -> Tensor:
+        return self.second(F.relu(self.first(h)))
+
+
+class GIN(nn.Module):
+    """GIN for graph classification: per layer GINConv (sum, learned eps)
+    with an MLP, LayerNorm (eps 1e-6, flax's) and relu, a sum readout of
+    every layer through its own head ``pred{i}``, the heads summed."""
+
+    def __init__(self, hidden_feats: int, out_feats: int,
+                 num_layers: int = 5):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            first, second = Dense(hidden_feats), Dense(hidden_feats)
+            self.add_module(f"Dense_{2 * i}", first)
+            self.add_module(f"Dense_{2 * i + 1}", second)
+            self.add_module(f"gin{i}", GINConv(apply_func=_MLP(first, second),
+                                               learn_eps=True))
+            self.add_module(f"ln{i}", nn.LayerNorm(hidden_feats, eps=1e-6))
+        for i in range(num_layers):
+            self.add_module(f"pred{i}", Dense(out_feats))
+
+    def forward(self, g, x: Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        h = x
+        score = 0.0
+        for i in range(self.num_layers):
+            h = getattr(self, f"gin{i}")(g, h)
+            h = F.relu(getattr(self, f"ln{i}")(h))
+            score = score + getattr(self, f"pred{i}")(readout.sum_nodes(g, h))
+        return score
+
+
+class MLPPredictor(nn.Module):
+    """Edge-score MLP head for link prediction: Dense, relu, Dense over the
+    concatenated endpoint features."""
+
+    def __init__(self, hidden_feats: int, out_feats: int = 1):
+        super().__init__()
+        self.Dense_0 = Dense(hidden_feats)
+        self.Dense_1 = Dense(out_feats)
+
+    def forward(self, h_src: Tensor, h_dst: Tensor) -> Tensor:
+        h = torch.cat([h_src, h_dst], dim=-1)
+        return self.Dense_1(F.relu(self.Dense_0(h)))
+
+
+class SGC(nn.Module):
+    """The model of ``examples/train_sgc.py``: one SGConv."""
+
+    def __init__(self, out_feats: int, k: int = 2):
+        super().__init__()
+        self.SGConv_0 = SGConv(out_feats, k=k)
+
+    def forward(self, g, x: Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        return self.SGConv_0(g, x)
+
+
+class APPNP(nn.Module):
+    """The model of ``examples/train_appnp.py``: dropout, Dense, relu,
+    dropout, Dense, then APPNPConv."""
+
+    def __init__(self, hidden: int, out_feats: int, k: int = 10,
+                 alpha: float = 0.1, dropout: float = 0.5):
+        super().__init__()
+        self.dropout = dropout
+        self.Dense_0 = Dense(hidden)
+        self.Dense_1 = Dense(out_feats)
+        self.APPNPConv_0 = APPNPConv(k=k, alpha=alpha)
+
+    def forward(self, g, x: Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        det = (not self.training) if deterministic is None else deterministic
+        x = dropout(x, self.dropout, det, generator)
+        x = F.relu(self.Dense_0(x))
+        x = dropout(x, self.dropout, det, generator)
+        x = self.Dense_1(x)
+        return self.APPNPConv_0(g, x, det, generator)
+
+
+class TAGCN(nn.Module):
+    """The model of ``examples/train_tagcn.py``: TAGConv with relu,
+    dropout, TAGConv."""
+
+    def __init__(self, hidden: int, out_feats: int, k: int = 2,
+                 dropout: float = 0.5):
+        super().__init__()
+        self.dropout = dropout
+        self.TAGConv_0 = TAGConv(hidden, k=k, activation=F.relu)
+        self.TAGConv_1 = TAGConv(out_feats, k=k)
+
+    def forward(self, g, x: Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        det = (not self.training) if deterministic is None else deterministic
+        h = dropout(self.TAGConv_0(g, x), self.dropout, det, generator)
+        return self.TAGConv_1(g, h)

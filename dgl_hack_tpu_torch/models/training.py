@@ -1,17 +1,20 @@
 """Full-graph node-classification training, as
 ``dgl_hack_tpu.models.training``: one untimed warm-up step, then
 ``num_epochs - 1`` timed steps of forward, masked cross-entropy and an
-AdamW update.
+AdamW update.  Graph classification over batches of graphs, as the loop
+of ``examples/train_gin.py``: cross-entropy of the log-softmax, Adam.
 
 ``torch.optim.AdamW`` with eps 1e-8 applies the same update as
 ``optax.adamw``: decoupled weight decay lr*wd*p plus the bias-corrected
-Adam step, on every parameter.
+Adam step, on every parameter; ``torch.optim.Adam`` with eps 1e-8 that of
+``optax.adam``.
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -156,3 +159,80 @@ def train_node_classifier(model: torch.nn.Module, g, feats, labels,
             "best_test_acc": best_test if early_stop_patience else te,
             "train_time_s": train_time,
             "epochs_per_s": (num_epochs - 1) / max(train_time, 1e-9)}
+
+
+def graph_batches(ds, lo: int, hi: int, batch_size: int, device="cuda"):
+    """(batched graph, features, labels) of graphs ``lo``..``hi`` of a
+    ``GraphClassificationDataset`` in whole batches (a last partial batch
+    is dropped, as in ``examples/train_gin.py``), on ``device``."""
+    from ..core.batch import batch
+    device = torch.device(device)
+    out = []
+    for i in range(lo, hi - batch_size + 1, batch_size):
+        bg = batch(ds.graphs[i:i + batch_size]).to(device)
+        x = torch.from_numpy(np.concatenate(ds.features[i:i + batch_size]))
+        y = torch.from_numpy(ds.labels[i:i + batch_size]).long()
+        out.append((bg, x.to(device), y.to(device)))
+    return out
+
+
+def graph_classifier_step(model: torch.nn.Module, example_batch, *,
+                          lr: float = 5e-3, device="cuda"):
+    """The training step of ``train_graph_classifier``: moves the model to
+    ``device`` (the card unless the caller asks for the CPU; with no card,
+    "cuda" raises), makes its lazy parameters by one forward over
+    ``example_batch`` (bg, x, y), builds Adam and returns ``(train_step,
+    accuracy)``: ``train_step(bg, x, y)`` takes one step of forward,
+    cross-entropy of the log-softmax, backward and update and returns the
+    loss; ``accuracy(bg, x, y)`` the batch's accuracy."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("graph classification: no CUDA device; pass "
+                           "device='cpu' to train on the CPU")
+    model = model.to(device)
+    model.eval()
+    with torch.no_grad():
+        model(*example_batch[:2])           # materialise lazy parameters
+    opt = torch.optim.Adam(model.parameters(), lr=lr, eps=1e-8)
+
+    def train_step(bg, x, y) -> Tensor:
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        logp = F.log_softmax(model(bg, x), -1)
+        loss = -logp.gather(-1, y[:, None])[:, 0].mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def accuracy(bg, x, y) -> float:
+        model.eval()
+        return float((model(bg, x).argmax(-1) == y).float().mean())
+    return train_step, accuracy
+
+
+def train_graph_classifier(model: torch.nn.Module, ds, *, epochs: int = 40,
+                           batch_size: int = 16, lr: float = 5e-3,
+                           train_frac: float = 0.8,
+                           device="cuda") -> Dict[str, Any]:
+    """Train ``model`` on the first ``train_frac`` of the dataset's graphs
+    in batches, ``epochs`` passes, and test it on the rest: the loop of
+    ``examples/train_gin.py``.  Returns the per-step losses, the mean
+    test-batch accuracy and the training time (every step, the first
+    included, ending in a synchronise)."""
+    device = torch.device(device)
+    n_train = int(train_frac * len(ds.graphs))
+    train_b = graph_batches(ds, 0, n_train, batch_size, device)
+    test_b = graph_batches(ds, n_train, len(ds.graphs), batch_size, device)
+    train_step, accuracy = graph_classifier_step(model, train_b[0], lr=lr,
+                                                 device=device)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        for b in train_b:
+            losses.append(train_step(*b))
+    _sync(device)
+    train_time = time.perf_counter() - t0
+    test_acc = float(np.mean([accuracy(*b) for b in test_b]))
+    return {"model": model, "losses": [float(v) for v in losses],
+            "test_acc": test_acc, "train_time_s": train_time}

@@ -1,4 +1,5 @@
-"""Graph convolution layers (torch.nn), on gspmm and gat_attention.
+"""Graph convolution layers (torch.nn), on gspmm, gsddmm and
+gat_attention.
 
 The math and parameter layouts are those of ``dgl_hack_tpu.nn.conv``, so
 parameters convert one to one (``interop.py``) and outputs compare:
@@ -8,7 +9,12 @@ parameters convert one to one (``interop.py``) and outputs compare:
   ``attn_l``/``attn_r`` are (1, H, D);
 * ``SAGEConv``'s flax ``Dense`` layers are ``nn.Linear`` modules of the
   same names (``fc_pool``, ``fc_self``, ``fc_neigh``); ``GINConv.eps`` is
-  a () parameter when learned.
+  a () parameter when learned;
+* the layers ported from the rest of the JAX ``nn/conv.py`` (SGConv …
+  DenseGraphConv) name their flax ``Dense`` layers as it does (``fc``,
+  ``lin``, ``theta``, ``phi``, ``res_fc``), as ``init.Dense`` modules
+  initialised as flax initialises them; ``GatedGraphConv.gru`` is an
+  ``nn.GRUCell`` (``interop`` converts flax's gate kernels).
 
 The input width is taken from the first call, as flax does: the layers
 are lazy modules, so a model is built from its output widths alone.
@@ -23,12 +29,18 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.lazy import LazyModuleMixin
 from torch.nn.parameter import UninitializedParameter, is_lazy
 
+from ..ops import segment
+from ..ops.edge_softmax import edge_softmax
 from ..ops.gat import gat_attention
+from ..ops.sddmm import gsddmm
 from ..ops.spmm import gspmm
+from .init import (Dense, bias_keep, fans, glorot_uniform_, lecun_normal_,
+                   orthogonal_blocks_)
 
 Tensor = torch.Tensor
 
@@ -301,4 +313,287 @@ class GINConv(nn.Module):
         rst = (1 + self.eps) * feat + agg
         if self.apply_func is not None:
             rst = self.apply_func(rst)
+        return rst
+
+
+# ---------------------------------------------------------------------------
+# Propagation layers: repeated copy_u-sum (K1 on CUDA)
+# ---------------------------------------------------------------------------
+def _sym_norm(g, feat: Tensor) -> Tensor:
+    """(N, 1) rsqrt(clamp(in_degree, 1)), the D^-1/2 of D^-1/2 A D^-1/2."""
+    degs = g.in_degrees().to(feat.dtype).clamp(min=1.0)
+    return torch.rsqrt(degs)[:, None]
+
+
+def _propagate(g, h: Tensor, norm: Tensor,
+               w: Optional[Tensor] = None) -> Tensor:
+    """D^-1/2 A D^-1/2 h, with an optional (E, 1) edge weight."""
+    if w is None:
+        return norm * gspmm(g, "copy_lhs", "sum", h * norm)
+    return norm * gspmm(g, "mul", "sum", h * norm, w, "u", "e")
+
+
+class SGConv(nn.Module):
+    """Simplified GCN: (D^-1/2 A D^-1/2)^k X W, then a dense layer ``fc``
+    (glorot-uniform)."""
+
+    def __init__(self, out_feats: int, k: int = 1, use_bias: bool = True):
+        super().__init__()
+        self.k = k
+        self.fc = Dense(out_feats, bias=use_bias, kernel_init="xavier")
+
+    def forward(self, g, feat: Tensor) -> Tensor:
+        norm = _sym_norm(g, feat)
+        h = feat
+        for _ in range(self.k):
+            h = _propagate(g, h, norm)
+        return self.fc(h)
+
+
+class APPNPConv(nn.Module):
+    """Approximate personalised propagation:
+    h <- (1 - alpha) D^-1/2 A D^-1/2 h + alpha h0, k times.  With
+    ``edge_drop`` each step drops edges through an (E, 1) weight, which K1
+    takes as one scalar per edge; without it the step is a copy_u sum."""
+
+    def __init__(self, k: int, alpha: float, edge_drop: float = 0.0):
+        super().__init__()
+        self.k = k
+        self.alpha = alpha
+        self.edge_drop = edge_drop
+
+    def forward(self, g, feat: Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        det = _is_deterministic(self, deterministic)
+        norm = _sym_norm(g, feat)
+        h = feat
+        for _ in range(self.k):
+            w = None
+            if self.edge_drop > 0.0 and not det:
+                w = dropout(feat.new_ones((g.num_edges(), 1)),
+                            self.edge_drop, det, generator)
+            h = _propagate(g, h, norm, w)
+            h = (1 - self.alpha) * h + self.alpha * feat
+        return h
+
+
+class TAGConv(nn.Module):
+    """Topology-adaptive GCN: the concatenation of the 0..k-hop normalised
+    propagations through one dense layer ``lin`` (glorot-uniform)."""
+
+    def __init__(self, out_feats: int, k: int = 2, use_bias: bool = True,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        self.k = k
+        self.activation = activation
+        self.lin = Dense(out_feats, bias=use_bias, kernel_init="xavier")
+
+    def forward(self, g, feat: Tensor) -> Tensor:
+        norm = _sym_norm(g, feat)
+        fstack = [feat]
+        for _ in range(self.k):
+            fstack.append(_propagate(g, fstack[-1], norm))
+        rst = self.lin(torch.cat(fstack, dim=-1))
+        if self.activation is not None:
+            rst = self.activation(rst)
+        return rst
+
+
+class ChebConv(nn.Module):
+    """Chebyshev spectral GCN of order k with the scaled Laplacian
+    L~ = (2 / lambda_max) (I - D^-1/2 A D^-1/2) - I, then ``fc``."""
+
+    def __init__(self, out_feats: int, k: int, use_bias: bool = True):
+        super().__init__()
+        self.k = k
+        self.fc = Dense(out_feats, bias=use_bias, kernel_init="xavier")
+
+    def forward(self, g, feat: Tensor, lambda_max: float = 2.0) -> Tensor:
+        norm = _sym_norm(g, feat)
+
+        def laplacian(h):
+            return (2.0 / lambda_max) * (h - _propagate(g, h, norm)) - h
+
+        xs = [feat]
+        if self.k > 1:
+            xs.append(laplacian(feat))
+        for _ in range(2, self.k):
+            xs.append(2 * laplacian(xs[-1]) - xs[-2])
+        return self.fc(torch.cat(xs, dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# Edge layers: gsddmm (K6 on CUDA), then a reduction
+# ---------------------------------------------------------------------------
+class AGNNConv(nn.Module):
+    """Attention-based GNN: softmax over in-edges of beta * cos(x_u, x_v)
+    (K6's dot over the normalised features), then u_mul_e sum with that
+    (E, 1) weight (K1)."""
+
+    def __init__(self, init_beta: float = 1.0, learn_beta: bool = True):
+        super().__init__()
+        if learn_beta:
+            self.beta = nn.Parameter(torch.tensor(float(init_beta)))
+        else:
+            self.beta = float(init_beta)
+
+    def forward(self, g, feat: Tensor) -> Tensor:
+        _reject_bipartite(feat)
+        nrm = feat / feat.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        cos = gsddmm(g, "dot", nrm, nrm, "u", "v")            # (E, 1)
+        a = edge_softmax(g, self.beta * cos)
+        return gspmm(g, "mul", "sum", feat, a, "u", "e")
+
+
+class EdgeConv(nn.Module):
+    """EdgeConv (DGCNN): out_v = max over in-edges of theta(x_u - x_v) +
+    phi(x_v).  x_u - x_v is K6's u_sub_v; the max is torch's scatter, as
+    the JAX layer's is XLA's (ties split the cotangent evenly)."""
+
+    def __init__(self, out_feats: int):
+        super().__init__()
+        self.theta = Dense(out_feats, kernel_init="xavier")
+        self.phi = Dense(out_feats, kernel_init="xavier")
+
+    def forward(self, g, feat: Tensor) -> Tensor:
+        _reject_bipartite(feat)
+        diff = gsddmm(g, "sub", feat, feat, "u", "v")
+        msg = self.theta(diff) + self.phi(feat)[g.dst]
+        return segment.segment_reduce("max", msg, g.dst, g.num_dst_nodes,
+                                      mask=g.edge_mask)
+
+
+class GatedGraphConv(nn.Module):
+    """Gated graph conv (GGNN): ``n_steps`` of per-etype linear messages,
+    summed per dst node over the CSC-ordered messages (K1's edge-row mode),
+    then a GRU update with the node state as the carry.  ``etypes`` come
+    in user edge order.  ``gru`` is an ``nn.GRUCell`` initialised as
+    flax's (lecun-normal input kernels, orthogonal recurrent ones, zero
+    biases), whose ``bias_hh`` holds flax's ``hn`` bias in its last third;
+    its first two thirds (flax's ``hr`` and ``hz`` have no bias) are
+    masked out (``bias_keep``); ``weight`` is (n_etypes, out,
+    out), glorot-uniform."""
+
+    def __init__(self, out_feats: int, n_steps: int, n_etypes: int = 1):
+        super().__init__()
+        self.out_feats = out_feats
+        self.n_steps = n_steps
+        self.n_etypes = n_etypes
+        shape = (n_etypes, out_feats, out_feats)
+        self.weight = nn.Parameter(torch.empty(shape))
+        glorot_uniform_(self.weight, *fans(shape))
+        self.gru = nn.GRUCell(out_feats, out_feats)
+        lecun_normal_(self.gru.weight_ih, out_feats)
+        orthogonal_blocks_(self.gru.weight_hh, out_feats)
+        nn.init.zeros_(self.gru.bias_ih)
+        nn.init.zeros_(self.gru.bias_hh)
+        self.register_buffer("hh_bias_keep", bias_keep(
+            3 * out_feats, slice(0, 2 * out_feats)), persistent=False)
+
+    def forward(self, g, feat: Tensor,
+                etypes: Optional[Tensor] = None) -> Tensor:
+        in_feats = feat.shape[1]
+        if in_feats < self.out_feats:
+            feat = F.pad(feat, (0, self.out_feats - in_feats))
+        if etypes is None:
+            etypes = torch.zeros(g.num_edges(), dtype=torch.long,
+                                 device=feat.device)
+        else:
+            etypes = torch.as_tensor(etypes, device=feat.device).long()
+            if g.int2user is not None:
+                etypes = etypes[g.int2user]
+        h = feat
+        for _ in range(self.n_steps):
+            zh = torch.einsum("ni,rio->nro", h, self.weight)
+            msg = zh[g.src, etypes]                        # (E, out)
+            a = gspmm(g, "copy_lhs", "sum", msg, None, "e")
+            gru = self.gru
+            h = torch.gru_cell(a, h, gru.weight_ih, gru.weight_hh,
+                               gru.bias_ih, gru.bias_hh * self.hh_bias_keep)
+        return h
+
+
+_NN_AGGREGATORS = ("sum", "mean", "max")
+
+
+class NNConv(nn.Module):
+    """Edge-network conv (MPNN): ``edge_func`` maps each edge's features
+    (user order) to an (in, out) matrix, the message is x_u times it, and
+    the messages are reduced per dst node: sum and mean by K1's edge-row
+    mode, max by torch's scatter (XLA in the JAX layer)."""
+
+    def __init__(self, out_feats: int, edge_func: Callable,
+                 aggregator_type: str = "mean", residual: bool = False,
+                 use_bias: bool = True):
+        super().__init__()
+        if aggregator_type not in _NN_AGGREGATORS:
+            raise KeyError(f"Aggregator type {aggregator_type} not "
+                           "recognized.")
+        self.out_feats = out_feats
+        self.edge_func = edge_func
+        self.aggregator_type = aggregator_type
+        self.res_fc = Dense(out_feats, bias=False, kernel_init="xavier") \
+            if residual else None
+        self.bias = nn.Parameter(torch.zeros(out_feats)) if use_bias \
+            else None
+
+    def forward(self, g, feat: Tensor, efeat: Tensor) -> Tensor:
+        _reject_bipartite(feat)
+        if g.int2user is not None:
+            efeat = efeat[g.int2user]
+        ew = self.edge_func(efeat).reshape(-1, feat.shape[-1],
+                                           self.out_feats)
+        msg = torch.einsum("ei,eio->eo", feat[g.src], ew)
+        if self.aggregator_type == "max":
+            rst = segment.segment_reduce("max", msg, g.dst, g.num_dst_nodes,
+                                         mask=g.edge_mask)
+        else:
+            rst = gspmm(g, "copy_lhs", self.aggregator_type, msg, None, "e")
+        if self.res_fc is not None:
+            rst = rst + self.res_fc(feat)
+        if self.bias is not None:
+            rst = rst + self.bias
+        return rst
+
+
+class DenseGraphConv(LazyModuleMixin, nn.Module):
+    """GraphConv on a dense (N, N) adjacency (rows dst, columns src), with
+    dense matmuls; ``weight`` (in, out) glorot-uniform, ``bias`` zero."""
+
+    def __init__(self, out_feats: int, norm: str = "both",
+                 use_bias: bool = True,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        self.out_feats = out_feats
+        self.norm = norm
+        self.activation = activation
+        self.weight = UninitializedParameter()
+        self.bias = nn.Parameter(torch.zeros(out_feats)) if use_bias \
+            else None
+
+    def initialize_parameters(self, adj, feat, *args, **kwargs) -> None:
+        if self.has_uninitialized_params():
+            shape = (feat.shape[-1], self.out_feats)
+            self.weight.materialize(shape, device=feat.device,
+                                    dtype=feat.dtype)
+            glorot_uniform_(self.weight, *fans(shape))
+
+    def forward(self, adj: Tensor, feat: Tensor) -> Tensor:
+        in_feats = feat.shape[-1]
+        if self.norm == "both":
+            out_degs = adj.sum(0).clamp(min=1.0)
+            feat = feat * torch.rsqrt(out_degs)[:, None]
+        if in_feats > self.out_feats:
+            rst = adj @ (feat @ self.weight)
+        else:
+            rst = (adj @ feat) @ self.weight
+        if self.norm != "none":
+            in_degs = adj.sum(1).clamp(min=1.0)
+            norm = torch.rsqrt(in_degs) if self.norm == "both" \
+                else 1.0 / in_degs
+            rst = rst * norm[:, None]
+        if self.bias is not None:
+            rst = rst + self.bias
+        if self.activation is not None:
+            rst = self.activation(rst)
         return rst

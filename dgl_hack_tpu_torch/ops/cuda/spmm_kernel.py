@@ -6,6 +6,10 @@
 ``segment_sum_plain`` is its plain PyTorch version.  A CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.
 
+``SegmentSumRows`` runs K1 in edge-row mode over runs of consecutive
+rows (``Segments``): copy_e sums of gspmm and the readouts of a batched
+graph.
+
 ``GspmmSum`` is the counterpart of the JAX package's ``_gspmm_fused``
 custom VJP: the forward reduces over the CSC direction, dx runs the same
 kernel over the CSR direction, and dw = <x[src], g[dst]> stays a plain
@@ -261,8 +265,8 @@ def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
                 site: str = "fwd", plan: Optional[RowPlan] = None) -> Tensor:
     """K1 wrapper.  x (rows, F) float32; indptr, gidx, eid int32; w None,
     (E,) or (E, F).  ``site`` names the call site in the launch count
-    (fwd, rev, edge).  ``plan`` is ``row_plan(indptr)``, built here when
-    None."""
+    (fwd, rev, edge, rows).  ``plan`` is ``row_plan(indptr)``, built here
+    when None."""
     if x.device.type == "cpu":
         return segment_sum_plain(indptr, x, gidx, eid, w)
     if x.device.type != "cuda":
@@ -405,6 +409,93 @@ def gspmm_sum(g, x: Tensor, w: Optional[Tensor] = None) -> Tensor:
     x2 = x.reshape(shape[0], -1)
     out = GspmmSum.apply(x2, flat_weight(w, shape), g)[:, :x2.shape[1]]
     return out.reshape((out.shape[0],) + tuple(shape[1:]))
+
+
+class Segments(NamedTuple):
+    """Runs of consecutive rows that K1's edge-row mode sums: segment r is
+    rows ``[indptr[r], indptr[r + 1])`` of x; ``ids`` is the segment of
+    each row (the backward's gather index) and ``plan`` K1's row plan of
+    indptr.  On the indptr's device."""
+    indptr: Tensor        # (S + 1,) int32
+    ids: Tensor           # (rows,) int32
+    plan: RowPlan
+
+    def to(self, device) -> "Segments":
+        return Segments(self.indptr.to(device), self.ids.to(device),
+                        self.plan.to(device))
+
+
+def segments(counts, device) -> Segments:
+    """The segments of consecutive runs of ``counts[i]`` rows each."""
+    counts = np.asarray(counts, dtype=np.int64)
+    indptr = np.zeros(counts.shape[0] + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    if indptr[-1] > _I32_MAX:
+        raise ValueError("segments: sizes exceed the int32 index range")
+    ids = np.repeat(np.arange(counts.shape[0], dtype=np.int32), counts)
+    indptr = torch.from_numpy(indptr.astype(np.int32)).to(device)
+    return Segments(indptr, torch.from_numpy(ids).to(device),
+                    row_plan(indptr))
+
+
+def graph_segments(g, kind: str) -> Segments:
+    """The graph's row segments, cached on it: ``"csc"`` groups the edges
+    (in internal order) by dst node, ``"nodes"`` the nodes and ``"edges"``
+    the edges (internal order) by the graph of a batch; a graph not made
+    by ``batch()`` is one segment."""
+    if kind == "csc":
+        return Segments(g.csc_indptr, g.dst, graph_row_plan(g, "csc"))
+    key = f"rows_{kind}"
+    seg = g.derived.get(key)
+    if seg is None:
+        if kind == "nodes":
+            counts = g.batch_num_nodes or (g.num_dst_nodes,)
+        elif kind == "edges":
+            counts = g.batch_num_edges or (g.num_edges(),)
+        else:
+            raise ValueError(f"unknown segment kind {kind!r}")
+        seg = segments(counts, g.device)
+        g.derived[key] = seg
+    return seg
+
+
+class SegmentSumRows(torch.autograd.Function):
+    """out[r] = sum of the rows of x in segment r (K1 with gidx None over
+    the segments' row plan).  The backward gathers dout back to each row,
+    the transpose of a sorted segment sum."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, seg: Segments) -> Tensor:
+        ctx.ids = seg.ids
+        return segment_sum(seg.indptr, x, site="rows", plan=seg.plan)
+
+    @staticmethod
+    def backward(ctx, dout: Tensor):
+        return dout[ctx.ids], None
+
+
+def segment_sum_rows(x: Tensor, seg: Segments) -> Tensor:
+    """Sum of each segment's rows of x (rows, ...) -> (S, ...)."""
+    shape = x.shape
+    out = SegmentSumRows.apply(x.reshape(shape[0], -1).contiguous(), seg)
+    return out.reshape((out.shape[0],) + tuple(shape[1:]))
+
+
+def segment_mean_rows(x: Tensor, seg: Segments) -> Tensor:
+    """Sum of each segment's rows divided by clamp(rows, 1)."""
+    out = segment_sum_rows(x, seg)
+    cnt = (seg.indptr[1:] - seg.indptr[:-1]).to(out.dtype).clamp(min=1)
+    return out / cnt.reshape((-1,) + (1,) * (out.dim() - 1))
+
+
+def gspmm_rows(g, data: Tensor, reduce_op: str) -> Tensor:
+    """copy_e sum or mean: the edge data (E, ...) in internal order are
+    each dst row's run of rows, so K1 sums them in edge-row mode."""
+    check_cuda_call(g, data, "gspmm")
+    seg = graph_segments(g, "csc")
+    if reduce_op == "mean":
+        return segment_mean_rows(data, seg)
+    return segment_sum_rows(data, seg)
 
 
 def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,

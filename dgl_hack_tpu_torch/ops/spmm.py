@@ -16,6 +16,10 @@ Dispatch by device:
   device: K4 and K5 (``ops/cuda/segment_max_kernel.py``) on CUDA, their
   plain versions on the CPU, so ties get the kernel's rule (the full
   cotangent to every tied edge) everywhere;
+* copy_e with sum/mean goes through K1's edge-row mode
+  (``SegmentSumRows``): the edge data in internal order are each dst
+  row's run of rows.  On CUDA, or on the CPU on an unmasked graph (its
+  plain version);
 * CUDA tensors: copy_u and u_mul_e with sum/mean go through K1, the
   segment-sum kernel (``ops/cuda/spmm_kernel.py``).  The combinations the
   JAX package also composes without a kernel (an edge-side lhs, u_op_e
@@ -35,7 +39,7 @@ from . import segment
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
 from .cuda.segment_max_kernel import gspmm_max
-from .cuda.spmm_kernel import gspmm_sum
+from .cuda.spmm_kernel import gspmm_rows, gspmm_sum
 
 Tensor = torch.Tensor
 
@@ -141,6 +145,12 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
                                 lhs_target, rhs_target)
         if out is not None:
             return out
+    copied = (lhs_target if op == "copy_lhs" else
+              rhs_target if op == "copy_rhs" else None)
+    if copied == "e" and reduce_op in ("sum", "mean") \
+            and data.is_floating_point() \
+            and (data.is_cuda or g.edge_mask is None):
+        return gspmm_rows(g, data, reduce_op)
     kernel = data.is_floating_point() and _kernel_shaped(
         op, lhs_data, rhs_data, lhs_target, rhs_target)
     w = rhs_data if op == "mul" else None

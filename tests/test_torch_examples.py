@@ -26,7 +26,14 @@ CLI_CASES = [
     ("train_gat_torch.py", ["--epochs", "3", "--dataset", "synth"]),
     ("train_transformer_torch.py", ["--epochs", "3", "--batch", "4",
                                     "--seq-len", "6"]),
+    ("train_gin_torch.py", ["--epochs", "1"]),
+    ("train_sgc_torch.py", ["--epochs", "3"]),
+    ("train_appnp_torch.py", ["--epochs", "3"]),
+    ("train_tagcn_torch.py", ["--epochs", "3"]),
 ]
+# the dataset name each CLI prints (the JAX twin's)
+DATASETS = {"train_gin_torch.py": "SBM-mixture",
+            "train_tagcn_torch.py": "synthetic"}
 SCRIPTS = [script for script, _ in CLI_CASES]
 
 
@@ -72,7 +79,7 @@ def test_example_cli(runs, script, args):
         assert (out["dataset"], out["model"]) == ("copy", "graph-transformer")
         assert 0.0 <= out["token_acc"] <= 1.0 and out["train_time_s"] >= 0
         return
-    assert out["dataset"] == "cora-synth"
+    assert out["dataset"] == DATASETS.get(script, "cora-synth")
     assert 0.0 <= out["test_acc"] <= 1.0 and out["train_time_s"] > 0
 
 

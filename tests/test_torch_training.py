@@ -123,9 +123,15 @@ def test_port_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax')\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 15
+    names = set(res.stdout.split())
+    for mod in ("core.batch", "core.transform", "ops.readout",
+                "data.graph_classification", "nn.glob", "nn.utils",
+                "nn.init"):
+        assert f"dgl_hack_tpu_torch.{mod}" in names, mod
