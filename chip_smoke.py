@@ -70,7 +70,23 @@ Phases, one JSON line each:
      holding a dst hub and a src hub of 700 edges, with each module's
      kernel launches;
  15. a twin of __graft_entry__.entry(): a GAT forward on a 512-node graph,
-     held against the same model on the CPU.
+     held against the same model on the CPU;
+ 16. masked graphs (``masked_kernels``): a block at the shape of the
+     sampled GraphSAGE's layer 0 (524,288 src, 32,768 dst, 327,680 edge
+     slots, 30% padding, every 64th dst row padding alone), K1 forward and
+     dx and K4/K5 at F = 602, K2/K3 at H = 8, D = 8 with attn_w (through
+     gat_attention_fused on the masked block) and K6's u_dot_v over every
+     slot, each against its plain version in float64 over the real-edge
+     view, timed, with the view's and its row plans' build time; and
+     gspmm (u_mul_e sum, copy_lhs mean with gradients, copy_lhs max) on
+     the block against references built on the host from the mask alone;
+ 17. the sampled GraphSAGE example (``sage_sampling_train``,
+     examples/train_sage_sampling_torch.py) on full synthetic Reddit at
+     its widths: 20 minibatches with the mean aggregator and 5 with pool,
+     each evaluated on 4 test batches; per-step host sampling, copy, plan
+     and device times, peak memory, the device's busy share over steps
+     3-7 of a mean run of its own and the launches (K1; K4/K5; nothing
+     plain).
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -1778,6 +1794,390 @@ def phase_gin_train(build, checks, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# masked (padded) graphs and the sampled GraphSAGE example
+# ---------------------------------------------------------------------------
+MASKED_SHAPE = dict(num_src=524_288, num_dst=32_768, fanout=10)
+MASKED_PAD, MASKED_EMPTY_EVERY = 0.3, 64
+
+
+def _masked_block(dt, dev, rng):
+    """A block at the shape of the sampled GraphSAGE's layer 0 (524,288
+    src, 32,768 dst, 10 edge slots a dst: 327,680): src ids uniform over
+    the src set, 30% of the slots padding and every 64th dst row padding
+    alone.  Built on the host, as to_block builds blocks."""
+    Ns, Nd, fan = (MASKED_SHAPE[k] for k in ("num_src", "num_dst",
+                                              "fanout"))
+    dst = np.repeat(np.arange(Nd, dtype=np.int32), fan)
+    src = rng.integers(0, Ns, dst.shape[0]).astype(np.int32)
+    mask = rng.random(dst.shape[0]) >= MASKED_PAD
+    mask[dst % MASKED_EMPTY_EVERY == 0] = False
+    return dt.block((src, dst), Ns, Nd, edge_mask=mask).to(dev)
+
+
+def _view_build_ms(sk, g, reps=5):
+    """Milliseconds to build the real-edge view (one host sync) and its row
+    plans of both directions, each from nothing, median of ``reps``."""
+    view_ms, plan_ms = [], []
+    for _ in range(reps):
+        g.derived.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        view = sk.real_edges(g).graph
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sk.graph_row_plan(view, "csc")
+        sk.graph_row_plan(view, "csr")
+        sk.rev_gidx(view)
+        torch.cuda.synchronize()
+        view_ms.append(1e3 * (t1 - t0))
+        plan_ms.append(1e3 * (time.perf_counter() - t1))
+    return {"view_ms": float(np.median(view_ms)),
+            "row_plans_ms": float(np.median(plan_ms))}
+
+
+def _masked_gspmm_vs_mask(dt, g, rng, checks):
+    """gspmm on the card through the real-edge view against references
+    built on the host from ``edge_mask`` alone, in float64 over the slots
+    the mask keeps, so that a view built wrong on the card shows: u_mul_e
+    sum with dx and dw (dw 0 at padded slots), copy_lhs mean with dx, and
+    copy_lhs max (exact; rows of no real edge 0).  F = 16, w (E, 1), edge
+    data in internal order as gspmm takes it.  Returns each relative error."""
+    F = 16
+    Ns, Nd = g.num_src_nodes, g.num_dst_nodes
+    x = torch.from_numpy(rng.normal(size=(Ns, F)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(g.num_edges(), 1)).astype(
+        np.float32))
+    dout = torch.from_numpy(rng.normal(size=(Nd, F)).astype(np.float32))
+    keep = g.edge_mask.cpu()
+    src, dst = g.src.cpu().long()[keep], g.dst.cpu().long()[keep]
+    deg = torch.bincount(dst, minlength=Nd)
+    x64 = x.double().requires_grad_(True)
+    w64 = w.double().requires_grad_(True)
+    zeros = torch.zeros(Nd, F, dtype=torch.float64)
+    refs = {"sum": zeros.index_add(0, dst, x64[src] * w64[keep]),
+            "mean": zeros.index_add(0, dst, x64[src])
+            / deg.clamp(min=1)[:, None]}
+    errs = {}
+    for red, args in (("sum", ("mul", x, w)), ("mean", ("copy_lhs", x))):
+        ins = [a.detach().to(g.device).requires_grad_(True)
+               for a in args[1:]]
+        out = dt.gspmm(g, args[0], red, *ins)
+        grads = torch.autograd.grad(out, ins, dout.to(g.device))
+        rgrads = torch.autograd.grad(refs[red], [x64, w64][:len(ins)],
+                                     dout.double())
+        errs[red] = {"fwd": rel_err(out.detach().cpu().double(),
+                                    refs[red].detach())}
+        for name, a, r in zip(("dx", "dw"), grads, rgrads):
+            errs[red][name] = rel_err(a.cpu().double(), r)
+        if red == "sum" and float(grads[1][~g.edge_mask].abs().max()) != 0:
+            checks.failures.append("gspmm masked sum: dw at padded slots "
+                                   "is not 0")
+    ref_max = torch.full((Nd, F), -np.inf).scatter_reduce(
+        0, dst[:, None].expand(-1, F), x[src], "amax")
+    ref_max[deg == 0] = 0.0
+    out_max = dt.gspmm(g, "copy_lhs", "max", x.to(g.device)).cpu()
+    errs["max"] = {"fwd": rel_err(out_max, ref_max)}
+    for red, e in errs.items():
+        tol = 0.0 if red == "max" else K1_TOL
+        if not all(v <= tol for v in e.values()):
+            checks.failures.append(f"gspmm masked {red} against the "
+                                   f"mask's own reference: {e} > {tol}")
+    return errs
+
+
+def phase_masked_kernels(dt, sk, sm, gk, k6, checks, dev):
+    """Every kernel on a masked block at layer 0's shape of the sampled
+    GraphSAGE (``_masked_block``), through the real-edge view as gspmm,
+    gat_attention and gsddmm run them: K1's forward and dx and K4/K5 at
+    F = 602, at the width gspmm runs them (``run_width``: x of 524,288
+    rows takes no slice, so no padding), against their plain versions run
+    in float64 (K4 exactly) over the same view; K2/K3
+    at H = 8, D = 8 with attn_w through ``gat_attention_fused`` on the
+    masked block, against the composed GAT over the real edges in float64,
+    attn_w's gradient 0 at the padded slots; K6's u_dot_v (H = 8, D = 8)
+    over every slot, padding included, against its plain version in
+    float64; gspmm end to end against a host reference built from the
+    mask without the view (``_masked_gspmm_vs_mask``).  Timed beside the
+    plain versions, K1 also beside torch.sparse.mm over the real edges,
+    with the view's and the row plans' build time.  Each bound counts the real edges and the rows of
+    x they read."""
+    rng = np.random.default_rng(21)
+    g = _masked_block(dt, dev, rng)
+    build = _view_build_ms(sk, g)
+    view = sk.real_edges(g)
+    kg = view.graph
+    Ns, Nd, F = g.num_src_nodes, g.num_dst_nodes, 602
+    R = kg.num_edges()
+    rows_read = int(torch.unique(kg.src).numel())
+    res = {"num_src": Ns, "num_dst": Nd, "slots": g.num_edges(),
+           "real_edges": R, "src_rows_read": rows_read,
+           "all_padding_rows": int(((sk.real_in_degrees(g) == 0)
+                                    & (g.in_degrees() > 0)).sum()),
+           **build}
+    timings = {}
+    # K1 forward and dx, at gspmm's run width
+    x = torch.relu(torch.from_numpy(rng.normal(size=(Ns, F)).astype(
+        np.float32)).to(dev))
+    Fp = sk.run_width(x, None)
+    xp = sk.pad_columns(x, Fp)
+    p_fwd, p_rev = sk.graph_row_plan(kg, "csc"), sk.graph_row_plan(kg, "csr")
+    fwd = (kg.csc_indptr, xp, kg.src)
+    out = sk.segment_sum(*fwd, plan=p_fwd)
+    res["k1_fwd_rel_err"] = checks.compare(
+        "segment_sum", f"masked F={F} padded to {Fp} fwd", out,
+        k1_ref(sk, *fwd), K1_TOL, sk.segment_sum(*fwd, plan=p_fwd))
+    A = csr_matrix(kg)
+    dst_rows = int((sk.real_in_degrees(g) > 0).sum())
+    timings["k1_fwd"] = timing(
+        both_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
+        cuda_ms(lambda: sk.segment_sum_plain(*fwd), reps=3),
+        nbytes(kg.csc_indptr, kg.src) + 4 * F * (rows_read + Nd), R * F,
+        f"masked block {Ns} x {Nd}, {R} real of {g.num_edges()} slots, "
+        f"F={F} padded to {Fp}, forward",
+        library_ms=cuda_ms(lambda: torch.sparse.mm(A, xp), reps=3))
+    del out, A
+    dout = torch.from_numpy(rng.normal(size=(Nd, Fp)).astype(np.float32)
+                            ).to(dev)
+    rev = (kg.csr_indptr, dout, sk.rev_gidx(kg), kg.csr_eids)
+    dx = sk.segment_sum(*rev, plan=p_rev)
+    ref = k1_ref(sk, *rev)
+    res["k1_dx_rel_err"] = checks.compare(
+        "segment_sum", f"masked F={Fp} dx", dx, ref, K1_TOL,
+        sk.segment_sum(*rev, plan=p_rev))
+    # dx walks 524,288 CSR rows, most of them empty, once per slice of
+    # the gathered cotangent: the widths side by side
+    res["k1_dx_slice_rule"] = sk.slice_width(Nd, Fp, False)
+    res["k1_dx_slice_sweep"] = k1_slice_sweep(sk, checks, "masked dx", rev,
+                                              p_rev, ref)
+    At = csr_matrix(kg, reverse=True)
+    timings["k1_dx"] = timing(
+        both_ms(lambda: sk.segment_sum(*rev, plan=p_rev)),
+        cuda_ms(lambda: sk.segment_sum_plain(*rev), reps=3),
+        nbytes(kg.csr_indptr, rev[2]) + 4 * F * (dst_rows + Ns), R * F,
+        f"masked block, F={Fp}, dx",
+        library_ms=cuda_ms(lambda: torch.sparse.mm(At, dout), reps=3))
+    del dx, At, rev, ref
+    # K4/K5 at 602 as GspmmMax runs them
+    raw, res["k4k5_rel_err"], ref_dx = _k4k5_case(
+        sm, sk, kg, xp, None, dout, checks, f"masked F={F} padded to {Fp}",
+        x_bwd=x)
+    res["k5_slice_rule"] = sm.max_bwd_slice_width(Nd, Fp, 0, False)
+    res["k4k5_slice_sweep"] = _k4k5_slice_sweeps(
+        sm, sk, kg, xp, dout, raw, ref_dx, checks, "masked", x_bwd=x)
+    del ref_dx
+    k4, k5 = _k4k5_timings(sm, sk, kg, xp, dout, raw,
+                           f"masked block, F={F} padded to {Fp}", x_bwd=x)
+    # the bound over what this block's data needs: the real edges' indices,
+    # the x rows they read, raw and the cotangent at the dst rows they
+    # reach, the outputs whole
+    k4["bound_ms"], k4["bound_by"] = bound(
+        nbytes(kg.csc_indptr, kg.src) + 4 * F * (rows_read + Nd), R * F)
+    k5["bound_ms"], k5["bound_by"] = bound(
+        nbytes(kg.csr_indptr, sk.rev_gidx(kg))
+        + 4 * F * (rows_read + 2 * dst_rows + Ns), 2 * R * F)
+    timings["k4"], timings["k5"] = k4, k5
+    del raw, xp, dout, x
+    torch.cuda.empty_cache()
+    # K2/K3 through gat_attention_fused on the masked block
+    H, D = 8, 8
+
+    def t(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev)
+    w = torch.from_numpy((rng.random((g.num_edges(), H)) > 0.6).astype(
+        np.float32) / 0.4).to(dev)
+    ins, gout = [t((Ns, H, D)), t((Ns, H)), t((Nd, H)), w], t((Nd, H, D))
+    runs = []
+    for _ in range(2):
+        kin = [v.clone().requires_grad_(True) for v in ins]
+        out = gk.gat_attention_fused(g, *kin[:3], 0.2, kin[3])
+        runs.append((out, torch.autograd.grad(out, kin, gout)))
+    ins64 = [v.double().requires_grad_(True) for v in ins]
+    ref = composed_gat(kg, *ins64[:3], ins64[3][view.eid], 0.2)
+    grefs = torch.autograd.grad(ref, ins64, gout.double())
+    (out, grads), (out2, grads2) = runs
+    res["gat_rel_err"] = {"fwd": checks.compare(
+        "gat_fwd", "masked H=8 D=8", out, ref.float(), GAT_TOL, out2)}
+    for name, a, b, r in zip(("dfsrc", "del", "der", "dattn_w"), grads,
+                             grads2, grefs):
+        res["gat_rel_err"][name] = checks.compare(
+            "gat_bwd", f"masked H=8 D=8 {name}", a, r.float(), GAT_TOL, b)
+    pad = ~g.edge_mask
+    if float(grads[3][pad].abs().max()) != 0.0:
+        checks.failures.append("gat_bwd masked: attn_w gradient at padded "
+                               "slots is not 0")
+    del runs, ref, grefs, ins64, out, out2, grads, grads2
+    wh, el, er = ins[0].reshape(Ns, H * D), ins[1], ins[2]
+    w_r = w[view.eid].contiguous()
+    shift = gk.shift_bound(el, er, 0.2).contiguous()
+    fwd_args = (kg.csc_indptr, kg.src, wh, el, er, w_r, shift, 0.2, False)
+    rst, den, _ = gk.gat_fwd(*fwd_args, plan=p_fwd)
+    timings["gat_fwd"] = timing(
+        both_ms(lambda: gk.gat_fwd(*fwd_args, plan=p_fwd)),
+        cuda_ms(lambda: gk.gat_fwd_plain(*fwd_args), reps=3),
+        nbytes(kg.csc_indptr, kg.src, er, w_r, shift, rst, den)
+        + rows_read * 4 * H * (D + 1), R * H * (8 + 2 * D),
+        "masked block, H=8, D=8, attn_w, shift mode")
+    sds = (rst.view(Nd, H, D) * gout).sum(-1).contiguous()
+    bwd_args = (kg.csr_indptr, kg.csr_eids, sk.rev_gidx(kg), wh, el, er,
+                shift, den, sds, gout.reshape(Nd, H * D), w_r, 0.2)
+    # read: indices, wh and el at the rows read, the dst operands and
+    # dout, attn_w; written: dwh and del whole, draw per real edge
+    timings["gat_bwd"] = timing(
+        both_ms(lambda: gk.gat_bwd(*bwd_args, False, plan=p_rev)),
+        cuda_ms(lambda: gk.gat_bwd_plain(*bwd_args, False), reps=3),
+        nbytes(*bwd_args[:3], *bwd_args[5:11])
+        + 4 * H * (D + 1) * (rows_read + Ns) + R * H * 4,
+        R * H * (12 + 4 * D), "masked block, H=8, D=8, no dw")
+    del fwd_args, bwd_args, rst, den, sds, ins, gout, w, w_r, wh
+    torch.cuda.empty_cache()
+    # K6 u_dot_v over every slot, the mask unread
+    lhs, rhs = t((Ns, H * D)), t((Nd, H * D))
+    dot = k6.sddmm("dot", g.dst, rhs, lhs, g.src, D)
+    res["k6_rel_err"] = checks.compare(
+        "sddmm", "masked u_dot_v H=8 D=8", dot,
+        k6.sddmm_plain("dot", g.dst, rhs.double(), lhs.double(), g.src,
+                       D).float(), K6_DOT_TOL,
+        k6.sddmm("dot", g.dst, rhs, lhs, g.src, D))
+    dot_api = dt.gsddmm(g, "dot", lhs.view(Ns, H, D), rhs.view(Nd, H, D))
+    if not bool((dot_api.reshape(dot.shape) == dot).all()):
+        checks.failures.append("sddmm masked: gsddmm differs from K6 over "
+                               "every slot")
+    timings["k6_u_dot_v"] = timing(
+        both_ms(lambda: k6.sddmm("dot", g.dst, rhs, lhs, g.src, D)),
+        cuda_ms(lambda: k6.sddmm_plain("dot", g.dst, rhs, lhs, g.src, D),
+                reps=3),
+        nbytes(g.dst, g.src, rhs, dot) + int(torch.unique(g.src).numel())
+        * 4 * H * D, g.num_edges() * H * D * 2,
+        "masked block, every slot, H=8, D=8")
+    # edge_softmax on the masked block (torch ops): padded slots get 0,
+    # the rest agree with the CPU
+    logits = t((g.num_edges(), H, 1))
+    soft = dt.edge_softmax(g, logits)
+    res["edge_softmax_rel_err"] = rel_err(
+        soft.cpu(), dt.edge_softmax(g.to("cpu"), logits.cpu()))
+    if not res["edge_softmax_rel_err"] <= LAYER_TOL \
+            or float(soft[~g.edge_mask].abs().max()) != 0.0:
+        checks.failures.append("edge_softmax masked: "
+                               f"{res['edge_softmax_rel_err']} vs the CPU, "
+                               "or padded slots not 0")
+    res["gspmm_vs_mask_rel_err"] = _masked_gspmm_vs_mask(dt, g, rng, checks)
+    del lhs, rhs, dot, dot_api, g, kg, view, logits, soft
+    torch.cuda.empty_cache()
+    emit({"phase": "masked_kernels", **res, "timings": timings})
+    checks.raise_if_failed("masked_kernels")
+    return timings
+
+
+def _load_twin():
+    """examples/train_sage_sampling_torch.py, imported by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "train_sage_sampling_torch",
+        os.path.join(REPO, "examples", "train_sage_sampling_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _busy_share(twin, ds, dev, warm=2, steps=5):
+    """The device's busy share over training steps ``warm + 1`` to
+    ``warm + steps`` of the twin's loop (mean aggregator): torch.profiler
+    runs from the sync that ends step ``warm`` to the one that ends step
+    ``warm + steps``, and the kernels' summed device time (one stream, so
+    the sum is the busy time) is taken over that window's wall time.  The
+    dataset's upload, the model's set-up, the warm steps and evaluation
+    lie outside the window; the profiler's own cost lies inside it, so
+    ``window_ms_per_step`` beside the unprofiled step shows that cost."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(n):
+        if n == warm:
+            prof.start()
+            marks["t0"] = time.perf_counter()
+        elif n == warm + steps:
+            marks["t1"] = time.perf_counter()
+            prof.stop()
+    twin.train(ds, aggregator="mean", max_steps=warm + steps,
+               eval_batches=0, device=dev, log=None, on_step=on_step)
+    wall = 1e3 * (marks["t1"] - marks["t0"])
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA")) / 1e3
+    if dev_ms <= 0:
+        raise SystemExit("sage_sampling_train failed: torch.profiler "
+                         "recorded no device time")
+    top = sorted(((e.key[:80], e.self_device_time_total / 1e3)
+                  for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return {"window": f"steps {warm + 1}-{warm + steps}", "wall_ms": wall,
+            "window_ms_per_step": wall / steps, "device_ms": dev_ms,
+            "device_ms_per_step": dev_ms / steps, "busy_share": dev_ms / wall,
+            "top": [{"name": n, "ms": ms} for n, ms in top[:8]]}
+
+
+def phase_sage_sampling_train(build, ds, dev):
+    """The sampled GraphSAGE twin's loop (examples/
+    train_sage_sampling_torch.py) on full synthetic Reddit at the JAX
+    example's widths (602 features, hidden 16, 41 classes, fanouts 10,25,
+    batch 1,024, Adam at 3e-3, dropout 0.5): 20 minibatches with the mean
+    aggregator and 5 with pool, each then evaluated on 4 test batches.
+    Per step the host's sampling and block build, the copy to the card,
+    the blocks' plans (real-edge view, row plans) and the device step are
+    timed apart; peak memory; the device's busy share over mean steps 3-7
+    of a run of its own under torch.profiler (``_busy_share``); the
+    launches (K1 for mean, K4/K5 for pool, no
+    plain path)."""
+    twin = _load_twin()
+    counts = {}
+    for agg, steps, need in (("mean", 20, ("segment_sum.fwd",)),
+                             ("pool", 5, ("segment_max.fwd",
+                                          "segment_max.bwd"))):
+        torch.manual_seed(0)
+        reset_peak_memory()
+        build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        res = twin.train(ds, aggregator=agg, max_steps=steps,
+                         eval_batches=4, device=dev, log=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = dict(build.LAUNCHES.counts)
+        losses = res["losses"]
+        steady = {k: float(np.median(v[1:])) for k, v in
+                  res["times"].items()}
+        rec = {"phase": f"sage_sampling_{agg}", "steps": res["steps"],
+               "losses": losses, "test_acc": res["test_acc"],
+               "test_nodes": res["test_nodes"], "wall_s": wall,
+               "median_ms_after_first": steady,
+               "step_total_ms": sum(steady.values()),
+               "first_step_ms": {k: v[0] for k, v in res["times"].items()},
+               "launches": c,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        problems = []
+        if res["steps"] != steps or not all(np.isfinite(losses)):
+            problems.append(f"{res['steps']} steps, losses {losses}")
+        elif not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            problems.append(f"loss did not fall: {losses}")
+        for k in need:
+            if c.get(k, 0) <= 0:
+                problems.append(f"kernel {k} never launched")
+        plain = {k: v for k, v in c.items() if k.startswith("plain.")}
+        if plain:
+            problems.append(f"plain path ran on CUDA: {plain}")
+        if agg == "mean":
+            rec["profile"] = _busy_share(twin, ds, dev)
+        emit(rec)
+        if problems:
+            raise SystemExit(f"sage_sampling_{agg} failed: "
+                             + "; ".join(problems))
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def _layer_graph(dt):
     """A batch of a 2,048-node graph whose node 0 has 700 in-edges (a dst
     hub: 3 pieces of K1's CSC plan) and node 1 700 out-edges (a src hub:
@@ -1981,6 +2381,7 @@ def main() -> int:
     phase_k6_small(k6, g_small, checks)
     del g_small
     phase_gat(dt, gk, sk, checks, dev)
+    phase_masked_kernels(dt, sk, sm, gk, k6, checks, dev)
     ds, g, data_s = _reddit(dt, dev)
     emit({"phase": "reddit_data", "nodes": g.num_src_nodes,
           "edges": g.num_edges(), "seconds": data_s,
@@ -1991,6 +2392,7 @@ def main() -> int:
                             timings)
     phase_sage_kernels(sm, sk, g, checks, dev, timings)
     c_sage = phase_sage_train(build, ds, g, dev)
+    c_sampled = phase_sage_sampling_train(build, ds, dev)
     c_prop = phase_propagation_train(build, ds, g, dev)
     phase_k1_rows(sk, g, ds, checks, dev, timings)
     del ds, g
@@ -2000,14 +2402,16 @@ def main() -> int:
     phase_layers(dt, build, checks, dev)
     phase_entry(dt, dev)
 
-    runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin)
+    runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
                            if k.startswith("segment_sum.")),
         "gat_fwd": c_gat.get("gat_fwd", 0),
         "gat_bwd": c_gat.get("gat_bwd", 0),
-        "segment_max": c_sage.get("segment_max.fwd", 0),
-        "segment_max_bwd": c_sage.get("segment_max.bwd", 0),
+        "segment_max": sum(c.get("segment_max.fwd", 0)
+                           for c in (c_sage, c_sampled)),
+        "segment_max_bwd": sum(c.get("segment_max.bwd", 0)
+                               for c in (c_sage, c_sampled)),
         "sddmm": sum(v for k, v in c_tf.items() if k.startswith("sddmm."))}
     tpu = "dgl_hack_tpu/ops/pallas/"
     meta = {

@@ -3,6 +3,7 @@ NVIDIA H100.
 
 The public API mirrors the JAX package's: ``graph()``, ``block()``,
 ``batch()``/``unbatch()``, ``add_self_loop()``/``remove_self_loop()``,
+``to_block()`` and the samplers of ``sampling``,
 ``gspmm()``, ``gsddmm()``, ``edge_softmax()``, ``gat_attention()``,
 ``prepare_spmm()``, ``update_all()``/``apply_edges()``/``apply_nodes()``
 with the builtin functions of ``fn``, the readouts (``sum_nodes`` …
@@ -11,12 +12,12 @@ the same tensor layouts.  CUDA tensors run the hand-written kernels under
 ``csrc/`` (built at first use); CPU tensors run their plain PyTorch
 versions.  This package never imports JAX.
 """
-from . import function
+from . import function, sampling
 from .core.batch import batch, batch_hetero, unbatch, unbatch_hetero
 from .core.graph import Graph, block, graph
 from .core.message import (EdgeBatch, NodeBatch, apply_edges, apply_nodes,
                            update_all)
-from .core.transform import add_self_loop, remove_self_loop
+from .core.transform import add_self_loop, remove_self_loop, to_block
 from .ops import readout, segment
 from .ops.cuda.spmm_kernel import prepare_spmm
 from .ops.edge_softmax import edge_softmax
@@ -31,7 +32,8 @@ from .ops.spmm import copy_u_sum, gspmm, u_mul_e_sum
 fn = function  # DGL-style alias: dgl.function
 
 __all__ = ["Graph", "graph", "block", "batch", "unbatch", "batch_hetero",
-           "unbatch_hetero", "add_self_loop", "remove_self_loop",
+           "unbatch_hetero", "add_self_loop", "remove_self_loop", "to_block",
+           "sampling",
            "edge_softmax", "gat_attention", "gsddmm", "gspmm", "copy_u_sum",
            "u_mul_e_sum", "prepare_spmm", "update_all", "apply_edges",
            "apply_nodes", "EdgeBatch", "NodeBatch", "function", "fn",

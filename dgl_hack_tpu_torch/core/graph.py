@@ -246,9 +246,12 @@ class Graph:
 # ---------------------------------------------------------------------------
 def _build(src: np.ndarray, dst: np.ndarray, num_src: int, num_dst: int,
            *, is_block: bool, build_csr: bool = True,
-           edge_mask: Optional[np.ndarray] = None) -> Graph:
+           edge_mask: Optional[np.ndarray] = None,
+           force_perm: bool = False) -> Graph:
     """Same edge order as the JAX package's builder: a stable argsort on
-    dst, then a stable CSR permutation over the sorted src."""
+    dst, then a stable CSR permutation over the sorted src.
+    ``force_perm`` keeps ``int2user``/``user2int`` even where the input was
+    already dst-sorted, as that builder does for padded blocks."""
     E = src.shape[0]
     i32_max = np.iinfo(np.int32).max
     if E > i32_max or num_src > i32_max or num_dst > i32_max:
@@ -264,7 +267,8 @@ def _build(src: np.ndarray, dst: np.ndarray, num_src: int, num_dst: int,
         raise ValueError("dst ids out of range")
 
     perm = np.argsort(dst, kind="stable").astype(np.int32)
-    already_sorted = bool(np.all(perm == np.arange(E, dtype=np.int32)))
+    already_sorted = (not force_perm) and \
+        bool(np.all(perm == np.arange(E, dtype=np.int32)))
     s_src, s_dst = src[perm], dst[perm]
     csc_indptr = np.zeros(num_dst + 1, dtype=np.int32)
     np.cumsum(np.bincount(s_dst, minlength=num_dst), out=csc_indptr[1:])

@@ -17,6 +17,11 @@ A flax params tree, given as nested dicts of numpy arrays (``{"params":
   order i, f, g, o, with ``bias_ih = 0``.
 * Every other leaf (``GraphConv.weight (in, out)``, ``bias``,
   ``attn_l``/``attn_r (1, H, D)``, ``eps``) keeps its name and layout.
+
+A bipartite ``GATConv``'s ``fc_src`` and ``fc_dst`` are Denses like any
+other, both ways; the port's ``GATConv`` takes that layout when it loads a
+state dict holding ``fc_src`` (``nn/conv.py``).  A block-list
+``GraphSAGE`` has the parameters of the full-graph one.
 """
 from __future__ import annotations
 

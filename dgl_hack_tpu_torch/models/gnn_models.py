@@ -77,8 +77,11 @@ class GAT(nn.Module):
 
 
 class GraphSAGE(nn.Module):
-    """Full-graph GraphSAGE: ``num_layers`` SAGEConv layers, with the
-    activation and dropout between layers and nothing after the last."""
+    """GraphSAGE: ``num_layers`` SAGEConv layers, with the activation and
+    dropout between layers and nothing after the last.  ``g`` is one graph
+    for every layer (full-graph training) or a list of sampled blocks,
+    outermost first: layer i then runs on block i with the pair (h,
+    h[:num_dst]), whose dst nodes are the first of its src nodes."""
 
     def __init__(self, hidden_feats: int, out_feats: int, num_layers: int = 2,
                  aggregator_type: str = "mean", dropout: float = 0.5,
@@ -93,14 +96,13 @@ class GraphSAGE(nn.Module):
 
     def forward(self, g, x: Tensor, deterministic: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> Tensor:
-        if isinstance(g, (list, tuple)):
-            raise NotImplementedError(
-                "GraphSAGE over a list of sampled blocks is not ported yet "
-                "(ROADMAP: 'sampling')")
+        blocks = g if isinstance(g, (list, tuple)) else [g] * self.num_layers
         det = (not self.training) if deterministic is None else deterministic
         h = x
         for i in range(self.num_layers):
-            h = getattr(self, f"sage{i}")(g, h, det, generator)
+            block = blocks[i]
+            feat = (h, h[:block.num_dst_nodes]) if block.is_block else h
+            h = getattr(self, f"sage{i}")(block, feat, det, generator)
             if i < self.num_layers - 1:
                 h = dropout(self.activation(h), self.dropout, det, generator)
         return h

@@ -19,6 +19,13 @@ parameters convert one to one (``interop.py``) and outputs compare:
 The input width is taken from the first call, as flax does: the layers
 are lazy modules, so a model is built from its output widths alone.
 
+Every layer that the JAX package feeds through ``_split_feat`` takes a
+``(feat_src, feat_dst)`` pair on a bipartite block as well as one
+tensor: ``GraphConv``, ``GATConv``, ``SAGEConv``, ``GINConv``,
+``AGNNConv``, ``EdgeConv`` and ``NNConv``.  On a pair ``GATConv`` projects
+the two sides with separate ``fc_src`` and ``fc_dst`` layers, as the JAX
+layer does.
+
 Dropout draws come from an explicit ``torch.Generator`` passed to
 ``forward`` (None: torch's default generator).  ``deterministic`` defaults
 to ``not self.training``.
@@ -70,11 +77,11 @@ def _has_lazy(module: nn.Module) -> bool:
     return any(is_lazy(p) for p in module.parameters())
 
 
-def _reject_bipartite(feat) -> None:
+def _split_feat(feat):
+    """(feat_src, feat_dst) of a pair, or the one tensor twice."""
     if isinstance(feat, (tuple, list)):
-        raise NotImplementedError(
-            "bipartite (src, dst) features are not ported yet "
-            "(ROADMAP: 'sampling')")
+        return feat[0], feat[1]
+    return feat, feat
 
 
 class GraphConv(LazyModuleMixin, nn.Module):
@@ -96,14 +103,14 @@ class GraphConv(LazyModuleMixin, nn.Module):
 
     def initialize_parameters(self, g, feat, *args, **kwargs) -> None:
         if self.has_uninitialized_params():
+            feat, _ = _split_feat(feat)
             in_feats = feat.shape[-1]
             self.weight.materialize((in_feats, self.out_feats),
                                     device=feat.device, dtype=feat.dtype)
             nn.init.xavier_uniform_(self.weight)
 
-    def forward(self, g, feat: Tensor,
-                weight: Optional[Tensor] = None) -> Tensor:
-        feat_src = feat
+    def forward(self, g, feat, weight: Optional[Tensor] = None) -> Tensor:
+        feat_src, _ = _split_feat(feat)
         in_feats = feat_src.shape[-1]
         if self.norm == "both":
             degs = g.out_degrees().to(feat_src.dtype).clamp(min=1.0)
@@ -138,7 +145,14 @@ class GATConv(LazyModuleMixin, nn.Module):
     reductions, then the fused edge phase (gat_attention).  Like the JAX
     layer, feature dropout takes two separate draws for the src and the
     dst side of the same features (DGL draws once; ROADMAP Queue 3).
-    Attention dropout is an explicit (E, H) post-softmax multiplier."""
+    Attention dropout is an explicit (E, H) post-softmax multiplier.
+
+    On a ``(feat_src, feat_dst)`` pair the layer projects the sides with
+    ``fc_src`` and ``fc_dst`` in place of ``fc`` (the JAX layer's names).
+    It takes that layout at its first call on a pair, or when it loads a
+    state dict that holds ``fc_src``; a call whose input does not match
+    the layout (a pair to ``fc``, one tensor to ``fc_src``/``fc_dst``)
+    raises."""
 
     def __init__(self, out_feats: int, num_heads: int, feat_drop: float = 0.0,
                  attn_drop: float = 0.0, negative_slope: float = 0.2,
@@ -154,45 +168,71 @@ class GATConv(LazyModuleMixin, nn.Module):
         self.activation = activation
         H, D = num_heads, out_feats
         self.fc = nn.LazyLinear(H * D, bias=False)
+        self.fc_src = self.fc_dst = None
         self.attn_l = nn.Parameter(torch.empty(1, H, D))
         self.attn_r = nn.Parameter(torch.empty(1, H, D))
         _glorot_normal_(self.attn_l, H, D)
         _glorot_normal_(self.attn_r, H, D)
         self.res_fc = nn.LazyLinear(H * D, bias=False) if residual else None
+        self._register_load_state_dict_pre_hook(self._layout_of_state)
+
+    def _bipartite_layout(self) -> None:
+        """Take ``fc_src`` and ``fc_dst`` (lazy) in place of ``fc``."""
+        if self.fc_src is None:
+            HD = self.num_heads * self.out_feats
+            self.fc = None
+            self.fc_src = nn.LazyLinear(HD, bias=False)
+            self.fc_dst = nn.LazyLinear(HD, bias=False)
+
+    def _layout_of_state(self, state_dict, prefix, *args) -> None:
+        if prefix + "fc_src.weight" in state_dict:
+            self._bipartite_layout()
 
     def initialize_parameters(self, g, feat, *args, **kwargs) -> None:
-        _reject_bipartite(feat)
+        if isinstance(feat, (tuple, list)):
+            self._bipartite_layout()
         if not _has_lazy(self):
             return
+        feat_src, feat_dst = _split_feat(feat)
         HD = self.num_heads * self.out_feats
-        in_feats = feat.shape[-1]
-        lins = [self.fc]
+        lins = [(self.fc_src, feat_src), (self.fc_dst, feat_dst)] \
+            if self.fc is None else [(self.fc, feat_src)]
         if self.res_fc is not None:
-            if in_feats == HD:
+            if feat_dst.shape[-1] == HD:
                 self.res_fc = None          # identity residual
             else:
-                lins.append(self.res_fc)
-        for lin in lins:
-            lin.weight.materialize((HD, in_feats), device=feat.device,
-                                   dtype=feat.dtype)
+                lins.append((self.res_fc, feat_dst))
+        for lin, f in lins:
+            in_feats = f.shape[-1]
+            lin.weight.materialize((HD, in_feats), device=f.device,
+                                   dtype=f.dtype)
             lin.in_features = in_feats
             _glorot_normal_(lin.weight, in_feats, HD)
 
-    def forward(self, g, feat: Tensor, deterministic: Optional[bool] = None,
+    def forward(self, g, feat, deterministic: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> Tensor:
-        _reject_bipartite(feat)
         det = _is_deterministic(self, deterministic)
         H, D = self.num_heads, self.out_feats
-        h_src = dropout(feat, self.feat_drop, det, generator)
-        h_dst = dropout(feat, self.feat_drop, det, generator)
-        fsrc = self.fc(h_src).view(-1, H, D)
-        fdst = fsrc if h_dst is h_src else self.fc(h_dst).view(-1, H, D)
+        if isinstance(feat, (tuple, list)) != (self.fc is None):
+            have = "fc" if self.fc is not None else "fc_src/fc_dst"
+            raise ValueError(f"GATConv: the layer holds {have}, which does "
+                             "not take this input; a layer takes either "
+                             "one feature tensor or (src, dst) pairs")
+        feat_src, feat_dst = _split_feat(feat)
+        h_src = dropout(feat_src, self.feat_drop, det, generator)
+        h_dst = dropout(feat_dst, self.feat_drop, det, generator)
+        if self.fc is None:
+            fsrc = self.fc_src(h_src).view(-1, H, D)
+            fdst = self.fc_dst(h_dst).view(-1, H, D)
+        else:
+            fsrc = self.fc(h_src).view(-1, H, D)
+            fdst = fsrc if h_dst is h_src else self.fc(h_dst).view(-1, H, D)
         el = (fsrc * self.attn_l).sum(-1)                 # (N_src, H)
         er = (fdst * self.attn_r).sum(-1)                 # (N_dst, H)
         attn_w = None
         if self.attn_drop > 0.0 and not det:
             keep = torch.rand((g.num_edges(), H), generator=generator,
-                              device=feat.device) < 1.0 - self.attn_drop
+                              device=fsrc.device) < 1.0 - self.attn_drop
             attn_w = keep.to(fsrc.dtype) / (1.0 - self.attn_drop)
         rst = gat_attention(g, fsrc, el, er, self.negative_slope, attn_w)
         if self.residual:
@@ -231,7 +271,10 @@ class SAGEConv(LazyModuleMixin, nn.Module):
     in-neighbours (K4, with K5 in the backward, on CUDA).  For mean and
     pool the output is ``fc_self(h_dst) + fc_neigh(h_neigh)``.  Like the
     JAX layer, feature dropout takes two separate draws for the src and
-    the dst side of the same features."""
+    the dst side of the same features.  On a block the dst side is the
+    pair's second tensor, and mean and pool count the block's real edges
+    (gspmm), gcn its in-degree, padding included (``Graph.in_degrees``),
+    as the JAX layer does."""
 
     def __init__(self, out_feats: int, aggregator_type: str = "mean",
                  feat_drop: float = 0.0, use_bias: bool = True,
@@ -255,23 +298,23 @@ class SAGEConv(LazyModuleMixin, nn.Module):
         self.fc_neigh = nn.LazyLinear(out_feats, bias=use_bias)
 
     def initialize_parameters(self, g, feat, *args, **kwargs) -> None:
-        _reject_bipartite(feat)
         if not _has_lazy(self):
             return
-        in_feats = feat.shape[-1]
+        feat_src, feat_dst = _split_feat(feat)
+        in_feats = feat_src.shape[-1]
         if self.fc_pool is not None:
             self.fc_pool.out_features = in_feats
-            _init_linear(self.fc_pool, in_feats, feat)
-        for lin in (self.fc_self, self.fc_neigh):
-            if lin is not None:
-                _init_linear(lin, in_feats, feat)
+            _init_linear(self.fc_pool, in_feats, feat_src)
+        if self.fc_self is not None:
+            _init_linear(self.fc_self, feat_dst.shape[-1], feat_dst)
+        _init_linear(self.fc_neigh, in_feats, feat_src)
 
-    def forward(self, g, feat: Tensor, deterministic: Optional[bool] = None,
+    def forward(self, g, feat, deterministic: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> Tensor:
-        _reject_bipartite(feat)
         det = _is_deterministic(self, deterministic)
-        h_src = dropout(feat, self.feat_drop, det, generator)
-        h_dst = dropout(feat, self.feat_drop, det, generator)
+        feat_src, feat_dst = _split_feat(feat)
+        h_src = dropout(feat_src, self.feat_drop, det, generator)
+        h_dst = dropout(feat_dst, self.feat_drop, det, generator)
         if self.aggregator_type == "mean":
             h_neigh = gspmm(g, "copy_lhs", "mean", h_src)
         elif self.aggregator_type == "gcn":
@@ -307,10 +350,10 @@ class GINConv(nn.Module):
         else:
             self.eps = float(init_eps)
 
-    def forward(self, g, feat: Tensor) -> Tensor:
-        _reject_bipartite(feat)
-        agg = gspmm(g, "copy_lhs", self.aggregator_type, feat)
-        rst = (1 + self.eps) * feat + agg
+    def forward(self, g, feat) -> Tensor:
+        feat_src, feat_dst = _split_feat(feat)
+        agg = gspmm(g, "copy_lhs", self.aggregator_type, feat_src)
+        rst = (1 + self.eps) * feat_dst + agg
         if self.apply_func is not None:
             rst = self.apply_func(rst)
         return rst
@@ -437,12 +480,15 @@ class AGNNConv(nn.Module):
         else:
             self.beta = float(init_beta)
 
-    def forward(self, g, feat: Tensor) -> Tensor:
-        _reject_bipartite(feat)
-        nrm = feat / feat.norm(dim=-1, keepdim=True).clamp(min=1e-12)
-        cos = gsddmm(g, "dot", nrm, nrm, "u", "v")            # (E, 1)
+    def forward(self, g, feat) -> Tensor:
+        feat_src, feat_dst = _split_feat(feat)
+        nsrc = feat_src / feat_src.norm(dim=-1, keepdim=True).clamp(
+            min=1e-12)
+        ndst = nsrc if feat_dst is feat_src else feat_dst / feat_dst.norm(
+            dim=-1, keepdim=True).clamp(min=1e-12)
+        cos = gsddmm(g, "dot", nsrc, ndst, "u", "v")          # (E, 1)
         a = edge_softmax(g, self.beta * cos)
-        return gspmm(g, "mul", "sum", feat, a, "u", "e")
+        return gspmm(g, "mul", "sum", feat_src, a, "u", "e")
 
 
 class EdgeConv(nn.Module):
@@ -455,10 +501,10 @@ class EdgeConv(nn.Module):
         self.theta = Dense(out_feats, kernel_init="xavier")
         self.phi = Dense(out_feats, kernel_init="xavier")
 
-    def forward(self, g, feat: Tensor) -> Tensor:
-        _reject_bipartite(feat)
-        diff = gsddmm(g, "sub", feat, feat, "u", "v")
-        msg = self.theta(diff) + self.phi(feat)[g.dst]
+    def forward(self, g, feat) -> Tensor:
+        feat_src, feat_dst = _split_feat(feat)
+        diff = gsddmm(g, "sub", feat_src, feat_dst, "u", "v")
+        msg = self.theta(diff) + self.phi(feat_dst)[g.dst]
         return segment.segment_reduce("max", msg, g.dst, g.num_dst_nodes,
                                       mask=g.edge_mask)
 
@@ -537,20 +583,20 @@ class NNConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_feats)) if use_bias \
             else None
 
-    def forward(self, g, feat: Tensor, efeat: Tensor) -> Tensor:
-        _reject_bipartite(feat)
+    def forward(self, g, feat, efeat: Tensor) -> Tensor:
+        feat_src, feat_dst = _split_feat(feat)
         if g.int2user is not None:
             efeat = efeat[g.int2user]
-        ew = self.edge_func(efeat).reshape(-1, feat.shape[-1],
+        ew = self.edge_func(efeat).reshape(-1, feat_src.shape[-1],
                                            self.out_feats)
-        msg = torch.einsum("ei,eio->eo", feat[g.src], ew)
+        msg = torch.einsum("ei,eio->eo", feat_src[g.src], ew)
         if self.aggregator_type == "max":
             rst = segment.segment_reduce("max", msg, g.dst, g.num_dst_nodes,
                                          mask=g.edge_mask)
         else:
             rst = gspmm(g, "copy_lhs", self.aggregator_type, msg, None, "e")
         if self.res_fc is not None:
-            rst = rst + self.res_fc(feat)
+            rst = rst + self.res_fc(feat_dst)
         if self.bias is not None:
             rst = rst + self.bias
         return rst

@@ -34,8 +34,10 @@ not).  No feature slices: slices of whole heads lost on the card at every
 width (PERF.md).  Any H * D that K2 takes, K3 takes: a head wider than one pass goes in
 passes, and no shared memory is used.  'exact' mode takes the per-dst max
 first with K4 over el (``exact_shift``), so its pieces need no rescaling.
-Left for later: bf16 storage and masked graphs (ROADMAP: 'bf16', 'masked
-graphs').
+A masked graph runs both kernels over its real-edge view
+(``on_real_edges``), attn_w gathered into the view's order: the padded
+edges are left out of the softmax and the sum, and attn_w's gradient is
+0 there.  Left for later: bf16 storage (ROADMAP: 'bf16').
 """
 from __future__ import annotations
 
@@ -47,8 +49,8 @@ import torch.nn.functional as F
 from .build import LAUNCHES, check, library, ptr, require, stream_ptr
 from .segment_max_kernel import MINMAX_NEG, segment_max
 from .spmm_kernel import (_I32_MAX, RowPlan, _unsupported, checked_plan,
-                          graph_row_plan, plan_args, rev_gidx, segment_sum,
-                          vector_width)
+                          graph_row_plan, on_real_edges, plan_args, rev_gidx,
+                          segment_sum, vector_width)
 
 Tensor = torch.Tensor
 
@@ -339,13 +341,11 @@ def gat_attention_fused(g, fsrc: Tensor, el: Tensor, er: Tensor,
                         softmax: str = "shift") -> Tensor:
     """Fused GAT edge phase.  fsrc (N_src, H, D), el (N_src, H), er (N_dst,
     H), attn_w (E, H) in internal edge order or None.  Returns (N_dst, H,
-    D).  On CUDA: float32 and unmasked graphs only."""
-    if fsrc.is_cuda:
-        if g.edge_mask is not None:
-            raise _unsupported("gat_attention on a masked (padded) graph",
-                               "masked graphs")
-        if fsrc.dtype != torch.float32:
-            raise _unsupported(f"gat_attention in {fsrc.dtype}", "bf16")
+    D).  On CUDA: float32 only.  A masked graph runs over its real-edge
+    view."""
+    if fsrc.is_cuda and fsrc.dtype != torch.float32:
+        raise _unsupported(f"gat_attention in {fsrc.dtype}", "bf16")
+    g, attn_w = on_real_edges(g, attn_w)
     if attn_w is not None:
         attn_w = attn_w.contiguous()
     return GatFused.apply(fsrc, el, er, attn_w, g, float(negative_slope),

@@ -47,9 +47,10 @@ import torch
 
 from .build import LAUNCHES, check, library, ptr, require, stream_ptr
 from .spmm_kernel import (_I32_MAX, RowPlan, check_cuda_call, checked_plan,
-                          flat_weight, graph_row_plan, local_rows, pad_columns,
-                          plan_args, plan_scratch, rev_gidx, row_chunks,
-                          run_width, slice_width, vector_width)
+                          flat_weight, graph_row_plan, local_rows,
+                          on_real_edges, pad_columns, plan_args, plan_scratch,
+                          rev_gidx, row_chunks, run_width, slice_width,
+                          vector_width)
 
 Tensor = torch.Tensor
 
@@ -325,15 +326,18 @@ def gspmm_max(g, x: Tensor, w: Optional[Tensor] = None,
     ...) and w (E,), (E, 1...) or (E, ...) broadcastable to x's feature
     shape.  Zero in-degree rows, and rows whose every message is at or
     below MINMAX_NEG / 2, give 0.  Returns (N_dst, ...).  On the card K4
-    and K5 run over a wide x at ``run_width``'s padded width."""
+    and K5 run over a wide x at ``run_width``'s padded width.  A masked
+    graph runs over its real-edge view, so a row whose edges are all
+    padding is empty and gives 0."""
     if reduce_op not in ("max", "min"):
         raise ValueError(f"gspmm_max takes max or min, got {reduce_op!r}")
-    check_cuda_call(g, x, f"gspmm {reduce_op}")
+    check_cuda_call(x, f"gspmm {reduce_op}")
     shape = x.shape
     x2 = x.reshape(shape[0], -1)
     if reduce_op == "min":
         x2 = -x2
-    raw = GspmmMax.apply(x2, flat_weight(w, shape), g)[:, :x2.shape[1]]
+    g, w = on_real_edges(g, flat_weight(w, shape))
+    raw = GspmmMax.apply(x2, w, g)[:, :x2.shape[1]]
     val = -raw if reduce_op == "min" else raw
     out = torch.where(raw > MINMAX_NEG * 0.5, val, torch.zeros_like(val))
     return out.reshape((out.shape[0],) + tuple(shape[1:]))

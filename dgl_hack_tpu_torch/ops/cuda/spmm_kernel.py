@@ -22,6 +22,18 @@ an indptr with torch ops on its device and cached per graph and
 direction (``graph_row_plan``).  On the card ``GspmmSum`` runs K1 over a
 copy of x whose columns are padded to whole 128-byte L2 lines where K1
 will slice them (``run_width``); the copy lives through the forward only.
+
+A masked (padded) graph reaches every kernel through its real-edge view
+(``real_edges``), the counterpart of the JAX package's mask-aware plans
+(``_prepare_spmm_masked``): an unmasked graph over the real edges alone,
+with its own CSC and CSR arrays and row plans, built on the device with
+torch ops and cached on the masked graph.  Of the JAX plan's two ways to
+reach the caller's edge operands, the view takes the gather: an edge
+operand (a weight, ``attn_w``, copy_e's data) is gathered into the view's
+order (``on_real_edges``), so that autograd's scatter writes zeros at the
+padded edges, and no kernel takes an argument more.  A mask with no
+padding (the sampled blocks drawn with replacement) gives a view over
+the masked graph's own arrays, with nothing to gather.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ...core.graph import Graph
 from .build import LAUNCHES, check, library, ptr, require, stream_ptr
 
 Tensor = torch.Tensor
@@ -374,15 +387,86 @@ class GspmmSum(torch.autograd.Function):
         return dx, dw, None
 
 
-def check_cuda_call(g, x: Tensor, what: str) -> None:
+def check_cuda_call(x: Tensor, what: str) -> None:
     """What the gspmm kernels do not take on CUDA raises, naming the
     ROADMAP item that will port it."""
-    if x.is_cuda:
-        if g.edge_mask is not None:
-            raise _unsupported(f"{what} on a masked (padded) graph",
-                               "masked graphs")
-        if x.dtype != torch.float32:
-            raise _unsupported(f"{what} in {x.dtype}", "bf16")
+    if x.is_cuda and x.dtype != torch.float32:
+        raise _unsupported(f"{what} in {x.dtype}", "bf16")
+
+
+class RealEdges(NamedTuple):
+    """The real edges of a masked graph: ``graph`` is an unmasked graph
+    over them alone (same nodes, edges in the masked graph's internal
+    order with the padding left out), and ``eid`` (R,) int64 the masked
+    graph's internal position of each, None where no edge is padding
+    (``graph`` then shares the masked graph's arrays)."""
+    graph: Graph
+    eid: Optional[Tensor]
+
+    def to(self, device) -> "RealEdges":
+        return RealEdges(self.graph.to(device),
+                         None if self.eid is None else self.eid.to(device))
+
+
+def _running_count(mask: Tensor) -> Tensor:
+    """(E + 1,) int32: entry i counts the True entries of mask before i."""
+    return torch.cat([torch.zeros(1, dtype=torch.int32, device=mask.device),
+                      torch.cumsum(mask, 0, dtype=torch.int32)])
+
+
+def real_edges(g) -> RealEdges:
+    """The real-edge view of the masked graph ``g``, cached on it.  Built
+    with torch ops on g's device and one host sync (``nonzero``, for the
+    count of real edges): each indptr is the running count of real edges
+    read at the masked graph's own row starts, and the CSR order a stable
+    sort of the view's src, which is the masked graph's CSR order with the
+    padding left out.  Where no edge is padding the view is the masked
+    graph's own arrays without the mask."""
+    view = g.derived.get("real_edges")
+    if view is None:
+        mask = g.edge_mask
+        eid = torch.nonzero(mask).squeeze(1)
+        if eid.numel() == mask.numel():
+            view = RealEdges(Graph(
+                num_src=g.num_src_nodes, num_dst=g.num_dst_nodes, src=g.src,
+                dst=g.dst, csc_indptr=g.csc_indptr, csr_indptr=g.csr_indptr,
+                csr_eids=g.csr_eids, is_block=g.is_block), None)
+            g.derived["real_edges"] = view
+            return view
+        src, dst = g.src[eid].contiguous(), g.dst[eid].contiguous()
+        csc_indptr = _running_count(mask)[g.csc_indptr.long()]
+        csr = {}
+        if g.csr_indptr is not None:
+            before = _running_count(mask[g.csr_eids.long()])
+            csr = {"csr_indptr": before[g.csr_indptr.long()].contiguous(),
+                   "csr_eids": torch.sort(src, stable=True).indices.to(
+                       torch.int32)}
+        view = RealEdges(Graph(
+            num_src=g.num_src_nodes, num_dst=g.num_dst_nodes, src=src,
+            dst=dst, csc_indptr=csc_indptr.contiguous(),
+            is_block=g.is_block, **csr), eid)
+        g.derived["real_edges"] = view
+    return view
+
+
+def on_real_edges(g, *edge_data: Optional[Tensor]):
+    """(graph, *edge_data) for a kernel: g and the data as they are on an
+    unmasked graph; on a masked one its real-edge view and each (E, ...)
+    tensor (in g's internal order) gathered into the view's order, None
+    staying None."""
+    if g.edge_mask is None:
+        return (g, *edge_data)
+    view = real_edges(g)
+    if view.eid is None:
+        return (view.graph, *edge_data)
+    return (view.graph, *(None if t is None else t[view.eid]
+                          for t in edge_data))
+
+
+def real_in_degrees(g) -> Tensor:
+    """In-degree counting real edges only (gspmm mean's divisor); on an
+    unmasked graph ``g.in_degrees()``."""
+    return on_real_edges(g)[0].in_degrees()
 
 
 def flat_weight(w: Optional[Tensor], shape) -> Optional[Tensor]:
@@ -403,11 +487,12 @@ def gspmm_sum(g, x: Tensor, w: Optional[Tensor] = None) -> Tensor:
     """copy_u / u_mul_e sum through K1.  x (N, ...) and w (E,), (E, 1...)
     or (E, ...) broadcastable to x's feature shape.  Returns (N_dst, ...).
     A wide x that K1 will slice is first padded to whole L2 lines
-    (``padded_width``)."""
-    check_cuda_call(g, x, "gspmm")
+    (``padded_width``).  A masked graph runs over its real-edge view."""
+    check_cuda_call(x, "gspmm")
     shape = x.shape
     x2 = x.reshape(shape[0], -1)
-    out = GspmmSum.apply(x2, flat_weight(w, shape), g)[:, :x2.shape[1]]
+    g, w = on_real_edges(g, flat_weight(w, shape))
+    out = GspmmSum.apply(x2, w, g)[:, :x2.shape[1]]
     return out.reshape((out.shape[0],) + tuple(shape[1:]))
 
 
@@ -490,8 +575,10 @@ def segment_mean_rows(x: Tensor, seg: Segments) -> Tensor:
 
 def gspmm_rows(g, data: Tensor, reduce_op: str) -> Tensor:
     """copy_e sum or mean: the edge data (E, ...) in internal order are
-    each dst row's run of rows, so K1 sums them in edge-row mode."""
-    check_cuda_call(g, data, "gspmm")
+    each dst row's run of rows, so K1 sums them in edge-row mode.  A
+    masked graph sums its real edges' rows (``on_real_edges``)."""
+    check_cuda_call(data, "gspmm")
+    g, data = on_real_edges(g, data)
     seg = graph_segments(g, "csc")
     if reduce_op == "mean":
         return segment_mean_rows(data, seg)
@@ -513,16 +600,15 @@ def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
     dense_hub, dense_threshold, dense_budget, flat, flat_width, sddmm,
     bucket_rows, bucket_rows_rev) are accepted for signature parity with
     the JAX package and ignored: the port's kernels read the graph's own
-    index arrays.  A graph does not need this call to run the kernels:
+    index arrays.  A masked graph gets the same over its real-edge view
+    (``real_edges``).  A graph does not need this call to run the kernels:
     what it builds is otherwise built at first use."""
-    if g.edge_mask is not None:
-        raise _unsupported("prepare_spmm on a masked (padded) graph",
-                           "masked graphs")
     if g.csr_indptr is None or g.csr_eids is None:
         raise ValueError("prepare_spmm requires the graph's CSR format")
     if device is not None:
         g = g.to(device)
-    rev_gidx(g)
-    graph_row_plan(g, "csc")
-    graph_row_plan(g, "csr")
+    kg = on_real_edges(g)[0]
+    rev_gidx(kg)
+    graph_row_plan(kg, "csc")
+    graph_row_plan(kg, "csr")
     return g

@@ -10,8 +10,10 @@ Dispatch as in ``dgl_hack_tpu.ops.sddmm.gsddmm``:
   D) operands) goes through ``GsddmmFn``: K6 (``ops/cuda/sddmm_kernel.py``)
   on CUDA, its plain version on the CPU;
 * everything else composes (gather both operands per edge and combine);
-  on CUDA it counts ``plain.gsddmm_composed``.  A masked graph on CUDA
-  raises (ROADMAP: 'masked graphs'); on the CPU it composes.
+  on CUDA it counts ``plain.gsddmm_composed``.
+* a masked graph takes the same dispatch over **every** edge, the padded
+  ones included, and never reads the mask: the function the JAX package
+  computes, whose gsddmm composes on masked graphs without the mask.
 
 Per-edge values come back in internal (CSC) order by default, ready for
 gspmm / edge_softmax; ``out_order='eid'`` gives user insertion order.
@@ -25,7 +27,6 @@ import torch
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
 from .cuda.sddmm_kernel import gsddmm_kernel
-from .cuda.spmm_kernel import _unsupported
 
 Tensor = torch.Tensor
 
@@ -35,7 +36,7 @@ _KERNEL_OPS = ("add", "sub", "mul", "div", "dot", "copy_rhs")
 def _kernel_eligible(g, op, lhs_data, rhs_data, lhs_target) -> bool:
     """The combinations K6 computes (``_pallas_sddmm_eligible`` without
     the TPU's env switch and message-buffer budget)."""
-    if g.edge_mask is not None or op not in _KERNEL_OPS:
+    if op not in _KERNEL_OPS:
         return False
     if not rhs_data.is_floating_point():
         return False
@@ -57,9 +58,6 @@ def gsddmm(g, op: str, lhs_data: Optional[Tensor] = None,
     ...) for 'u', (num_dst, ...) for 'v', (num_edges, ...) in internal
     order for 'e'.  dot contracts the last dim keeping a trailing 1."""
     data = lhs_data if lhs_data is not None else rhs_data
-    if data.is_cuda and g.edge_mask is not None:
-        raise _unsupported("gsddmm on a masked (padded) graph",
-                           "masked graphs")
     swap_sign = False
     if lhs_target == "v" and rhs_target != "v" and op in (
             "add", "mul", "dot", "sub", "copy_lhs"):

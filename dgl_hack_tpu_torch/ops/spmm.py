@@ -11,11 +11,12 @@ Dispatch by device:
 
 * a dst-side ('v') operand with sum/mean/max/min decomposes into a
   copy-reduce of the other operand plus a per-node combine
-  (``_v_side_decompose``), on either device, as in the JAX package;
+  (``_v_side_decompose``), on either device, as in the JAX package (not
+  on a masked graph, as there);
 * copy_u and u_mul_e with max/min go through ``GspmmMax`` on either
   device: K4 and K5 (``ops/cuda/segment_max_kernel.py``) on CUDA, their
   plain versions on the CPU, so ties get the kernel's rule (the full
-  cotangent to every tied edge) everywhere;
+  cotangent to every tied edge) everywhere, masked graphs included;
 * copy_e with sum/mean goes through K1's edge-row mode
   (``SegmentSumRows``): the edge data in internal order are each dst
   row's run of rows.  On CUDA, or on the CPU on an unmasked graph (its
@@ -28,6 +29,11 @@ Dispatch by device:
   composed path;
 * CPU tensors: otherwise the composed path (gather, combine, segment
   reduce).
+
+A masked graph reaches K1 and K4/K5 through its real-edge view
+(``ops/cuda/spmm_kernel.py:real_edges``), and mean divides by the count
+of real in-edges (``real_in_degrees``), as the JAX package's masked
+reduction does.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ from . import segment
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
 from .cuda.segment_max_kernel import gspmm_max
-from .cuda.spmm_kernel import gspmm_rows, gspmm_sum
+from .cuda.spmm_kernel import gspmm_rows, gspmm_sum, real_in_degrees
 
 Tensor = torch.Tensor
 
@@ -154,13 +160,12 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
     kernel = data.is_floating_point() and _kernel_shaped(
         op, lhs_data, rhs_data, lhs_target, rhs_target)
     w = rhs_data if op == "mul" else None
-    if kernel and reduce_op in ("max", "min") and (
-            data.is_cuda or g.edge_mask is None):
+    if kernel and reduce_op in ("max", "min"):
         return gspmm_max(g, lhs_data, w, reduce_op)
     if kernel and data.is_cuda and reduce_op in ("sum", "mean"):
         out = gspmm_sum(g, lhs_data, w)
         if reduce_op == "mean":
-            deg = g.in_degrees().to(out.dtype).clamp(min=1)
+            deg = real_in_degrees(g).to(out.dtype).clamp(min=1)
             out = out / deg.reshape((-1,) + (1,) * (out.dim() - 1))
         return out
     if data.is_cuda:

@@ -134,21 +134,13 @@ def test_graphsage_pool_forward_and_step():
         assert_close(p.detach().numpy(), after[name].numpy(), TOL, name)
 
 
-@pytest.mark.parametrize("case", ["lstm", "blocks", "bipartite"])
+@pytest.mark.parametrize("case", ["lstm"])
 def test_unported_sage_paths_raise(case):
-    """The lstm aggregator (its mailbox) and sampled blocks / (src, dst)
-    features are not ported: they raise, naming the ROADMAP item."""
-    gt = dt.graph((np.arange(10), np.arange(10)), num_nodes=10)
-    x = torch.ones(10, 4)
-    if case == "lstm":
-        with pytest.raises(NotImplementedError, match="core/message.py"):
-            SAGEConv(4, "lstm")
-    elif case == "blocks":
-        with pytest.raises(NotImplementedError, match="sampling"):
-            GraphSAGE(4, 2, aggregator_type="pool")([gt, gt], x)
-    else:
-        with pytest.raises(NotImplementedError, match="sampling"):
-            SAGEConv(4, "pool")(gt, (x, x))
+    """The lstm aggregator (its mailbox) is not ported: it raises, naming
+    the ROADMAP item.  Sampled blocks and (src, dst) features are held
+    against the JAX package in test_torch_sampling.py."""
+    with pytest.raises(NotImplementedError, match="core/message.py"):
+        SAGEConv(4, case)
 
 
 def test_train_graphsage_pool_on_cpu():

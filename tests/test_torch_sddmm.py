@@ -14,7 +14,8 @@ the 30-node graphs have no in-edges.
 
 On CUDA data the eligible combinations must reach K6's wrapper and launch
 nothing plain; the rest compose and count ``plain.gsddmm_composed``; a
-masked graph raises.  The dst-side swap, multi-head dot, blocks and
+masked graph reaches K6 over every edge, as the JAX package computes it
+without the mask.  The dst-side swap, multi-head dot, blocks and
 ``out_order='eid'`` are in test_torch_sddmm_heads.py.
 """
 import jax
@@ -281,15 +282,33 @@ def test_integer_data_composes_on_cuda():
     assert out.dtype == torch.int64
 
 
-def test_masked_graph_raises_on_cuda():
+def test_masked_graph_reaches_kernel_on_cuda(monkeypatch):
+    """A masked graph on CUDA data runs K6 over every edge, the padded ones
+    included (the mask is not read), and launches nothing plain; the
+    result is the CPU's, which is the JAX package's composed path."""
+    calls = []
+    real = k6.sddmm
+
+    def recorder(op_, dst, rhs, lhs=None, src=None, dot_d=0, *, site="fwd"):
+        calls.append((op_, site, dst))
+        return real(op_, dst, _untag(rhs), _untag(lhs), src, dot_d,
+                    site=site)
+    monkeypatch.setattr(k6, "sddmm", recorder)
     rng = np.random.default_rng(12)
     src, dst = _edges(rng)
     mask = np.ones(src.shape[0], bool)
     mask[::7] = False
     gt = dt.graph((src, dst), num_nodes=N, edge_mask=mask)
-    x = _tagged(_operand(rng, gt, "u", (4,)))
-    with pytest.raises(NotImplementedError, match="masked graphs"):
-        dt.gsddmm(gt, "dot", x, x, "u", "v")
-    # on the CPU a masked graph composes, as in the JAX package
-    assert dt.gsddmm(gt, "dot", _untag(x), _untag(x)).shape == (
-        gt.num_edges(), 1)
+    x = _operand(rng, gt, "u", (4,))
+    ref = dt.gsddmm(gt, "dot", torch.from_numpy(x), torch.from_numpy(x))
+    gj = dgl.graph((src, dst), num_nodes=N, edge_mask=mask)
+    assert_close(ref.numpy(), np.asarray(dgl.gsddmm(
+        gj, "dot", jnp.asarray(x), jnp.asarray(x))), DOT_TOL)
+    calls.clear()
+    k6.LAUNCHES.reset()
+    out = dt.gsddmm(gt, "dot", _tagged(x), _tagged(x), "u", "v")
+    assert [c[:2] for c in calls] == [("dot", "fwd")]
+    assert calls[0][2] is gt.dst
+    assert not [k for k in k6.LAUNCHES.counts if k.startswith("plain.")]
+    assert out.shape == (gt.num_edges(), 1)
+    assert_close(_untag(out).detach().numpy(), ref.numpy(), 0.0)
