@@ -86,7 +86,23 @@ Phases, one JSON line each:
      each evaluated on 4 test batches; per-step host sampling, copy, plan
      and device times, peak memory, the device's busy share over steps
      3-7 of a mean run of its own and the launches (K1; K4/K5; nothing
-     plain).
+     plain);
+ 18. R-GCN entity classification (``rgcn_train``, the model and trainer
+     of examples/train_rgcn_torch.py) on synthetic AM at full stats
+     (1,666,764 nodes, 11,976,642 edges, 266 relations) with the AM
+     hyper-parameters of the R-GCN paper (hidden 10, 40 bases, l2 5e-4,
+     two layers, self-loop, lr 1e-2): K1 at the (dst, etype)-pair path's
+     shapes (the pair graph's forward with no weight and with an (E,)
+     norm, its dx over the CSR rows, the edge-row pair sum) against its
+     plain version, timed beside torch.sparse.mm / torch.segment_reduce;
+     a small RelGraphConv (basis with and without w_comp, with and
+     without the plan, bdd, a norm) against the CPU; a warm-up step and 5
+     epochs with peak memory, prepare_rgcn's seconds and one profiled
+     step; then synthetic AIFB at full size, 50 epochs, test accuracy;
+ 19. the heterograph R-GCN twin (``rgcn_hetero_train``,
+     examples/train_rgcn_hetero_torch.py at its defaults): 20 epochs on
+     the card, the first 5 losses against the same twin on the CPU, and a
+     multi_update_all with max builtins (K4/K5) against the CPU.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -2070,12 +2086,11 @@ def phase_masked_kernels(dt, sk, sm, gk, k6, checks, dev):
     return timings
 
 
-def _load_twin():
-    """examples/train_sage_sampling_torch.py, imported by path."""
+def _load_twin(name="train_sage_sampling_torch"):
+    """examples/<name>.py, imported by path."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "train_sage_sampling_torch",
-        os.path.join(REPO, "examples", "train_sage_sampling_torch.py"))
+        name, os.path.join(REPO, "examples", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2325,6 +2340,307 @@ def phase_layers(dt, build, checks, dev):
     checks.raise_if_failed("layers")
 
 
+# ---------------------------------------------------------------------------
+# R-GCN entity classification and heterographs
+# ---------------------------------------------------------------------------
+AM_HPARAMS = dict(hidden=10, num_bases=40, l2norm=5e-4, lr=1e-2, layers=2)
+
+
+def _rgcn_k1(sk, plan, x, checks):
+    """K1 at the shapes the R-GCN path gives it on this phase's graph,
+    each against its plain version in float64, repeated bitwise, timed
+    with its plain version, its bound and the library call: the pair
+    graph's forward (CSC rows) with no weight and with an (E,) norm
+    (``torch.sparse.mm``), its dx over the CSR rows (the first layer's
+    embedding gradient; ``torch.sparse.mm`` of the transpose) and the
+    second level's edge-row sum over each dst's run of pairs
+    (``torch.segment_reduce``)."""
+    pg = plan.pair_graph
+    E, M, N, F = pg.num_edges(), plan.num_pairs, pg.num_src_nodes, \
+        x.shape[1]
+    rng = np.random.default_rng(30)
+    w = torch.from_numpy(rng.random(E).astype(np.float32)).to(x.device)
+    dout = torch.from_numpy(rng.normal(size=(M, F)).astype(np.float32)) \
+        .to(x.device)
+    seg = plan.dst_segments
+    p_csc, p_csr = sk.graph_row_plan(pg, "csc"), sk.graph_row_plan(pg, "csr")
+    rev = sk.rev_gidx(pg)
+    a_fwd, a_rev = csr_matrix(pg), csr_matrix(pg, reverse=True)
+    a_w = torch.sparse_csr_tensor(a_fwd.crow_indices(), a_fwd.col_indices(),
+                                  w, size=a_fwd.shape)
+    lengths = (seg.indptr[1:] - seg.indptr[:-1]).long()
+    cases = {
+        "pair_fwd": (dict(indptr=pg.csc_indptr, x=x, gidx=pg.src), p_csc,
+                     "fwd", lambda: torch.sparse.mm(a_fwd, x),
+                     nbytes(pg.csc_indptr, pg.src, x) + M * F * 4),
+        "pair_fwd_norm": (dict(indptr=pg.csc_indptr, x=x, gidx=pg.src, w=w),
+                          p_csc, "fwd", lambda: torch.sparse.mm(a_w, x),
+                          nbytes(pg.csc_indptr, pg.src, x, w) + M * F * 4),
+        "pair_dx": (dict(indptr=pg.csr_indptr, x=dout, gidx=rev,
+                         eid=pg.csr_eids), p_csr, "rev",
+                    lambda: torch.sparse.mm(a_rev, dout),
+                    nbytes(pg.csr_indptr, rev, dout) + N * F * 4),
+        "pair_rows": (dict(indptr=seg.indptr, x=dout), seg.plan, "rows",
+                      lambda: torch.segment_reduce(dout, "sum",
+                                                   lengths=lengths),
+                      nbytes(seg.indptr, dout)
+                      + (seg.indptr.numel() - 1) * F * 4),
+    }
+    res = {}
+    for name, (args, plan_, site, library, num_bytes) in cases.items():
+        out = sk.segment_sum(**args, site=site, plan=plan_)
+        again = sk.segment_sum(**args, site=site, plan=plan_)
+        rows = args["x"].shape[0] if "gidx" not in args else E
+        rel = checks.compare("segment_sum", f"rgcn {name}", out,
+                             k1_ref(sk, **args), K1_TOL, again)
+        res[name] = timing(
+            both_ms(lambda: sk.segment_sum(**args, site=site, plan=plan_)),
+            cuda_ms(lambda: sk.segment_sum_plain(**args), reps=3),
+            num_bytes, rows * F, f"{name}, F={F}",
+            library_ms=cuda_ms(library))
+        res[name].update(rel_err=rel, rows=args["indptr"].numel() - 1,
+                         pieces=plan_.pieces.shape[0])
+        del out, again
+    return res
+
+
+def _relgraphconv_cases(dt, dev, checks):
+    """A small RelGraphConv (basis with and without w_comp, each with the
+    pair plan and without, bdd; a per-edge norm, self-loop) forward and
+    gradients on the card against the same module on the CPU, on a graph
+    whose node 0 has 700 in-edges and node 1 700 out-edges, and basis on
+    the same graph with every fifth edge padding (the plan over the real
+    edges, the composed path through the real-edge view); with the
+    launches of each (K1's forward, dx and rows with the plan, its rows
+    without, nothing plain)."""
+    from dgl_hack_tpu_torch.nn import RelGraphConv
+    from dgl_hack_tpu_torch.ops.cuda import build
+    rng = np.random.default_rng(31)
+    n, e, R = 2048, 12_000, 7
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    dst[:700], src[700:1400] = 0, 1
+    et = torch.from_numpy(rng.integers(0, R, e))
+    norm = torch.from_numpy(rng.random((e, 1)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
+    graphs = {}
+    for masked in (False, True):
+        g_c = dt.graph((src, dst), num_nodes=n,
+                       edge_mask=(np.arange(e) % 5 != 4) if masked else None)
+        g_d = g_c.to(dev)
+        graphs[masked] = (g_c, g_d, dt.prepare_rgcn(g_c, et, R),
+                          dt.prepare_rgcn(g_d, et, R))
+    res = {}
+    for name, reg, nb, use_plan, masked in (
+            ("basis B=3 plan", "basis", 3, True, False),
+            ("basis B=3", "basis", 3, False, False),
+            ("basis B=R plan", "basis", None, True, False),
+            ("basis B=R", "basis", None, False, False),
+            ("bdd B=4", "bdd", 4, False, False),
+            ("masked basis B=3 plan", "basis", 3, True, True),
+            ("masked basis B=3", "basis", 3, False, True)):
+        g_c, g_d, plan_c, plan_d = graphs[masked]
+        torch.manual_seed(0)
+        mod_c = RelGraphConv(8, R, reg, nb, self_loop=True)
+        x_c = x.clone().requires_grad_()
+        out_c = mod_c(g_c, x_c, et, norm, plan=plan_c if use_plan else None)
+        mod_d = copy.deepcopy(mod_c).to(dev)
+        x_d = x.clone().to(dev).requires_grad_()
+        build.LAUNCHES.reset()
+        out_d = mod_d(g_d, x_d, et.to(dev), norm.to(dev),
+                      plan=plan_d if use_plan else None)
+        cot = torch.from_numpy(rng.normal(size=tuple(out_c.shape)).astype(
+            np.float32))
+        (out_c * cot).sum().backward()
+        (out_d * cot.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES.counts)
+        fwd = rel_err(out_d.detach().cpu(), out_c.detach())
+        if not fwd <= LAYER_TOL:
+            checks.failures.append(f"RelGraphConv {name} forward: {fwd:.3g}")
+        grad, worst = _grads_close(checks, f"RelGraphConv {name}", mod_d,
+                                   mod_c, x_d, x_c)
+        need = ("segment_sum.fwd", "segment_sum.rev", "segment_sum.rows") \
+            if use_plan else ("segment_sum.rows",)
+        if any(counts.get(k, 0) <= 0 for k in need) or any(
+                k.startswith("plain.") for k in counts):
+            checks.failures.append(f"RelGraphConv {name}: launches {counts}")
+        res[name] = {"fwd_rel_err": fwd, "grad_rel_err": grad,
+                     "worst_grad": worst, "launches": counts}
+    return res
+
+
+def _rgcn_train(dt, build, ds, g, plan, epochs, hp, dev, profile=False):
+    """RGCN (the twin's model and trainer, every layer on the pair plan)
+    on ``ds``: a warm-up step and ``epochs - 1`` timed ones; with
+    ``profile``, one more step under torch.profiler.  Returns the
+    trainer's result, the launches and the peak memory."""
+    from dgl_hack_tpu_torch.models import RGCN
+    from dgl_hack_tpu_torch.models.training import (node_classifier_step,
+                                                    train_node_classifier)
+    torch.manual_seed(0)
+    model = RGCN(num_nodes=g.num_nodes(), hidden_feats=hp["hidden"],
+                 out_feats=ds.num_classes, num_rels=ds.num_rels,
+                 num_bases=hp["num_bases"], num_layers=hp["layers"])
+    etypes = torch.from_numpy(ds.etypes).to(dev)
+    reset_peak_memory()
+    build.LAUNCHES.reset()
+    res = train_node_classifier(
+        model, g, None, ds.labels, ds.train_mask, ds.test_mask, ds.test_mask,
+        num_epochs=epochs, lr=hp["lr"], weight_decay=hp["l2norm"],
+        model_args=(etypes,), model_kwargs={"plan": plan}, device=dev)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    peak = torch.cuda.max_memory_allocated()
+    prof = None
+    if profile:
+        step, _ = node_classifier_step(
+            model, g, None, ds.labels, ds.train_mask, lr=hp["lr"],
+            weight_decay=hp["l2norm"], model_args=(etypes,),
+            model_kwargs={"plan": plan}, device=dev)
+        step()
+        prof = _profile_step(step, "rgcn_train")
+        prof["k1_ms"] = sum(r["ms"] for r in prof["top"]
+                            if "segment_sum" in r["name"]
+                            or "row_fixup" in r["name"])
+    return res, counts, peak, prof
+
+
+def phase_rgcn_train(dt, build, sk, checks, dev):
+    """R-GCN entity classification (examples/train_rgcn_torch.py's model
+    and trainer) on synthetic AM at full stats (1,666,764 nodes,
+    11,976,642 edges with the inverse relations, 266 relations, 11
+    classes) with the AM hyper-parameters of the R-GCN paper (hidden 10,
+    40 bases, l2 5e-4; two layers, self-loop, lr 1e-2): the data build and
+    prepare_rgcn's seconds, K1 at the path's shapes (``_rgcn_k1``), a
+    small RelGraphConv against the CPU (``_relgraphconv_cases``), a
+    warm-up step and 5 epochs with peak memory and one profiled step (K1's
+    share); then synthetic AIFB at full size (hidden 16, bases -1), 50
+    epochs, and its test accuracy."""
+    from dgl_hack_tpu_torch.data.rdf import load_rdf_dataset
+    t0 = time.perf_counter()
+    ds = load_rdf_dataset("am-synth", scale=1.0)
+    data_s = time.perf_counter() - t0
+    g = ds.graph.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = dt.prepare_rgcn(g, ds.etypes, ds.num_rels)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    hp = AM_HPARAMS
+    x = torch.from_numpy(np.random.default_rng(32).normal(
+        size=(g.num_nodes(), hp["hidden"])).astype(np.float32)).to(dev)
+    k1 = _rgcn_k1(sk, plan, x, checks)
+    del x
+    layer = _relgraphconv_cases(dt, dev, checks)
+    checks.raise_if_failed("rgcn_train (kernels and layer)")
+    res, counts, peak, prof = _rgcn_train(dt, build, ds, g, plan, 6, hp, dev,
+                                          profile=True)
+    epoch_ms = 1e3 * res["train_time_s"] / 5
+    am = {"nodes": g.num_nodes(), "edges": g.num_edges(),
+          "relations": ds.num_rels, "classes": ds.num_classes,
+          "pairs": plan.num_pairs, "data_build_s": data_s,
+          "prepare_rgcn_s": plan_s, **hp, "epochs": 6,
+          "losses": res["losses"], "epoch_ms": epoch_ms,
+          "test_acc": res["test_acc"], "peak_memory_bytes": peak,
+          "launches": counts, "profile": prof,
+          "k1_share_of_step": prof["k1_ms"] / prof["device_ms"]}
+    emit({"phase": "rgcn_train", "k1": k1, "relgraphconv": layer,
+          "am": am})
+    need = ("segment_sum.fwd", "segment_sum.rev", "segment_sum.rows")
+    _check_training("rgcn_train", res, counts, need)
+    del plan, g, ds
+    torch.cuda.empty_cache()
+
+    ds = load_rdf_dataset("aifb-synth")
+    g = ds.graph.to(dev)
+    plan = dt.prepare_rgcn(g, ds.etypes, ds.num_rels)
+    hp_aifb = dict(hidden=16, num_bases=-1, l2norm=5e-4, lr=1e-2, layers=2)
+    res_a, counts_a, peak_a, _ = _rgcn_train(dt, build, ds, g, plan, 50,
+                                             hp_aifb, dev)
+    aifb = {"nodes": g.num_nodes(), "edges": g.num_edges(),
+            "relations": ds.num_rels, "pairs": plan.num_pairs, **hp_aifb,
+            "epochs": 50, "first_loss": res_a["losses"][0],
+            "last_loss": res_a["losses"][-1],
+            "epoch_ms": 1e3 * res_a["train_time_s"] / 49,
+            "test_acc": res_a["test_acc"], "peak_memory_bytes": peak_a,
+            "launches": counts_a}
+    emit({"phase": "rgcn_train_aifb", **aifb})
+    _check_training("rgcn_train_aifb", res_a, counts_a, need)
+    for k, v in counts_a.items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def phase_rgcn_hetero_train(dt, build, checks, dev):
+    """The heterograph R-GCN twin (examples/train_rgcn_hetero_torch.py) at
+    its defaults (400 papers, embed 16, hidden 24, 4 bases, Adam 1e-2):
+    20 epochs on the card, the first 5 losses held against the same twin
+    (same seed, same weights) on the CPU; and one multi_update_all with a
+    max builtin per relation (K4, with K5 in the backward) and a
+    cross-type max, forward and gradients against the CPU."""
+    from dgl_hack_tpu_torch import fn
+    twin = _load_twin("train_rgcn_hetero_torch")
+    hg, labels, tr, te = twin.synthetic_academic()
+    build.LAUNCHES.reset()
+    res = twin.train(hg, labels, tr, te, epochs=20, device=dev)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    res_c = twin.train(hg, labels, tr, te, epochs=5, device="cpu")
+    loss_err = float(np.max(np.abs(np.subtract(res["losses"][:5],
+                                               res_c["losses"]))
+                            / np.abs(res_c["losses"])))
+    if not loss_err <= LAYER_TOL:
+        checks.failures.append(f"hetero twin losses vs CPU: {loss_err:.3g}")
+
+    rng = np.random.default_rng(33)
+    feats = {nt: torch.from_numpy(rng.normal(size=(hg.num_nodes(nt), 16))
+                                  .astype(np.float32))
+             for nt in hg.ntypes}
+    outs, grads = {}, {}
+    for where, h in (("cpu", hg), ("cuda", hg.to(dev))):
+        leaves = {nt: f.clone().to(h.device).requires_grad_()
+                  for nt, f in feats.items()}
+        local = h.local_var()
+        for nt, f in leaves.items():
+            local.nodes_data(nt)["h"] = f
+        if where == "cuda":
+            build.LAUNCHES.reset()
+        local.multi_update_all(
+            {c: (fn.copy_u("h", "m"), fn.max("m", "agg"))
+             for c in local.canonical_etypes}, "max")
+        out = torch.cat([local.nodes_data(nt)["agg"] for nt in hg.ntypes])
+        out.backward(torch.ones_like(out))
+        outs[where] = out.detach().cpu()
+        grads[where] = torch.cat([leaves[nt].grad.cpu() for nt in hg.ntypes])
+    torch.cuda.synchronize()
+    max_counts = dict(build.LAUNCHES.counts)
+    max_err = {"fwd": rel_err(outs["cuda"], outs["cpu"]),
+               "grad": rel_err(grads["cuda"], grads["cpu"])}
+    if not all(v <= LAYER_TOL for v in max_err.values()):
+        checks.failures.append(f"multi_update_all max vs CPU: {max_err}")
+    emit({"phase": "rgcn_hetero_train",
+          "nodes": {nt: hg.num_nodes(nt) for nt in hg.ntypes},
+          "edges": hg.num_edges(), "relations": len(hg.canonical_etypes),
+          "epochs": 20, "losses": res["losses"],
+          "losses_cpu": res_c["losses"], "loss_rel_err_vs_cpu": loss_err,
+          "train_time_s": res["train_time_s"],
+          "epoch_ms": 1e3 * res["train_time_s"] / 20,
+          "test_acc": res["test_acc"], "launches": counts,
+          "multi_update_all_max": {"rel_err_vs_cpu": max_err,
+                                   "launches": max_counts}})
+    for what, c, need in (
+            ("training", counts, ("segment_sum.fwd", "segment_sum.rev")),
+            ("max", max_counts, ("segment_max.fwd", "segment_max.bwd"))):
+        if any(c.get(k, 0) <= 0 for k in need) or any(
+                k.startswith("plain.") for k in c):
+            checks.failures.append(f"rgcn_hetero {what}: launches {c}")
+    checks.raise_if_failed("rgcn_hetero_train")
+    _check_training("rgcn_hetero_train", res, counts, ())
+    for k, v in max_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -2400,18 +2716,21 @@ def main() -> int:
     c_tf = phase_transformer(build, k6, checks, dev, timings)
     c_gin = phase_gin_train(build, checks, dev)
     phase_layers(dt, build, checks, dev)
+    c_rgcn = phase_rgcn_train(dt, build, sk, checks, dev)
+    c_hetero = phase_rgcn_hetero_train(dt, build, checks, dev)
     phase_entry(dt, dev)
 
-    runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled)
+    runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled, c_rgcn,
+            c_hetero)
+    max_runs = (c_sage, c_sampled, c_hetero)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
                            if k.startswith("segment_sum.")),
         "gat_fwd": c_gat.get("gat_fwd", 0),
         "gat_bwd": c_gat.get("gat_bwd", 0),
-        "segment_max": sum(c.get("segment_max.fwd", 0)
-                           for c in (c_sage, c_sampled)),
+        "segment_max": sum(c.get("segment_max.fwd", 0) for c in max_runs),
         "segment_max_bwd": sum(c.get("segment_max.bwd", 0)
-                               for c in (c_sage, c_sampled)),
+                               for c in max_runs),
         "sddmm": sum(v for k, v in c_tf.items() if k.startswith("sddmm."))}
     tpu = "dgl_hack_tpu/ops/pallas/"
     meta = {

@@ -7,7 +7,8 @@ internal (CSC) order the edges of graph i come before those of graph
 i + 1, since its dst ids do, so a graph's edges are one run of rows.
 
 The structure is built on the host with numpy and placed on the device of
-the first graph.
+the first graph.  ``batch_hetero``/``unbatch_hetero`` do the same for
+heterographs, relation by relation.
 """
 from __future__ import annotations
 
@@ -97,17 +98,86 @@ def num_graphs(bg: Graph) -> int:
     return 1 if bg.batch_num_nodes is None else len(bg.batch_num_nodes)
 
 
-def _hetero_not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported yet (ROADMAP: Queue 1 item 5, "
-        "'core/heterograph.py')")
-
-
 def batch_hetero(graphs):
-    """Heterograph batching needs ``core/heterograph.py``, not ported."""
-    raise _hetero_not_ported("batch_hetero")
+    """Disjoint union of heterographs sharing one metagraph; per-ntype
+    node frames and per-relation edge frames (user order) present in
+    every graph are concatenated.  Placed on the first graph's device."""
+    from .heterograph import HeteroGraph
+    if not graphs:
+        raise ValueError("batch_hetero needs at least one graph")
+    cets = graphs[0].canonical_etypes
+    ntypes = graphs[0].ntypes
+    for g in graphs[1:]:
+        if g.canonical_etypes != cets or g.ntypes != ntypes:
+            raise ValueError("heterographs must share one metagraph")
+    device = graphs[0].device
+
+    bnn = {nt: tuple(g.num_nodes(nt) for g in graphs) for nt in ntypes}
+    bne = {c: tuple(g.num_edges(c) for g in graphs) for c in cets}
+    node_off = {nt: np.concatenate([[0], np.cumsum(bnn[nt])])
+                for nt in ntypes}
+    num_nodes = {nt: int(node_off[nt][-1]) for nt in ntypes}
+
+    relations = {}
+    for c in cets:
+        st, _, dt = c
+        srcs, dsts = [], []
+        for i, g in enumerate(graphs):
+            s, d = g.relations[c].host_edges()
+            srcs.append(s + node_off[st][i])
+            dsts.append(d + node_off[dt][i])
+        rel = _build(np.concatenate(srcs).astype(np.int32),
+                     np.concatenate(dsts).astype(np.int32), num_nodes[st],
+                     num_nodes[dt], is_block=(st != dt)).to(device)
+        common_e = set(graphs[0].relations[c].edata.keys())
+        for g in graphs[1:]:
+            common_e &= set(g.relations[c].edata.keys())
+        for k in sorted(common_e):
+            rel.edata[k] = torch.cat([g.relations[c].edata[k]
+                                      for g in graphs])
+        relations[c] = rel
+
+    node_frames = {}
+    for nt in ntypes:
+        common_n = set(graphs[0].nodes_data(nt).keys())
+        for g in graphs[1:]:
+            common_n &= set(g.nodes_data(nt).keys())
+        node_frames[nt] = {k: torch.cat([g.nodes_data(nt)[k]
+                                         for g in graphs])
+                           for k in sorted(common_n)}
+    return HeteroGraph(relations, num_nodes, node_frames,
+                       batch_info=(bnn, bne))
 
 
 def unbatch_hetero(bg):
-    """Heterograph unbatching needs ``core/heterograph.py``, not ported."""
-    raise _hetero_not_ported("unbatch_hetero")
+    """Split a batched heterograph back into its components, features
+    too."""
+    from .heterograph import HeteroGraph
+    if bg._batch_info is None:
+        raise ValueError("graph was not produced by batch_hetero()")
+    bnn, bne = bg._batch_info
+    node_off = {nt: np.concatenate([[0], np.cumsum(cnt)])
+                for nt, cnt in bnn.items()}
+    edge_off = {c: np.concatenate([[0], np.cumsum(cnt)])
+                for c, cnt in bne.items()}
+    out = []
+    for i in range(bg.batch_size):
+        rels, frames = {}, {}
+        for c, rel in bg.relations.items():
+            st, _, dt = c
+            s, d = rel.host_edges()
+            e0, e1 = edge_off[c][i], edge_off[c][i + 1]
+            rg = _build((s[e0:e1] - node_off[st][i]).astype(np.int32),
+                        (d[e0:e1] - node_off[dt][i]).astype(np.int32),
+                        int(bnn[st][i]), int(bnn[dt][i]),
+                        is_block=(st != dt)).to(rel.device)
+            for k in rel.edata.keys():
+                rg.edata[k] = rel.edata[k][e0:e1]
+            rels[c] = rg
+        for nt in bnn:
+            n0, n1 = node_off[nt][i], node_off[nt][i + 1]
+            view = bg.nodes_data(nt)
+            frames[nt] = {k: view[k][n0:n1] for k in view.keys()}
+        out.append(HeteroGraph(rels, {nt: int(c[i]) for nt, c in bnn.items()},
+                               frames))
+    return out

@@ -135,23 +135,30 @@ def update_all(g: Graph, message_func: MessageFunc, reduce_func: ReduceFunc,
     if not isinstance(reduce_func, BuiltinReduce):
         raise _not_ported("update_all with a reduce UDF (the padded "
                           "mailbox)")
+    g._node_frames[-1][reduce_func.out_field] = reduce_messages(
+        g, message_func, reduce_func)
+    if apply_node_func is not None:
+        apply_nodes(g, apply_node_func)
+
+
+def reduce_messages(g: Graph, message_func: MessageFunc,
+                    reduce_func: BuiltinReduce) -> Tensor:
+    """The builtin reducer's (num_dst, ...) result over all edges: a
+    builtin (message, reduce) pair is one ``gspmm``; a UDF message's
+    messages are reduced as edge data (``copy_e``)."""
     r = reduce_func
     if isinstance(message_func, BuiltinMessage):
         m = message_func
-        out = gspmm(
+        return gspmm(
             g, m.op, r.reducer,
             None if m.op == "copy_rhs" else _lookup(g, m.lhs_target,
                                                     m.lhs_field),
             None if m.op == "copy_lhs" else _lookup(g, m.rhs_target,
                                                     m.rhs_field),
             m.lhs_target or "u", m.rhs_target or "e")
-    else:
-        msgs = compute_messages(g, message_func)
-        out = gspmm(g, "copy_lhs", r.reducer, msgs[r.msg_field], None,
-                    "e", "e")
-    g._node_frames[-1][r.out_field] = out
-    if apply_node_func is not None:
-        apply_nodes(g, apply_node_func)
+    msgs = compute_messages(g, message_func)
+    return gspmm(g, "copy_lhs", r.reducer, msgs[r.msg_field], None, "e",
+                 "e")
 
 
 def apply_edges(g: Graph, func: MessageFunc) -> None:

@@ -8,7 +8,9 @@ A flax params tree, given as nested dicts of numpy arrays (``{"params":
   in)``.  An attention kernel is 3-D: ``query``/``key``/``value`` (in, H,
   Dh) and ``out`` (H, Dh, out) are first merged to 2-D over the heads,
   and their (H, Dh) biases flattened.
-* A LayerNorm ``scale`` becomes ``weight``.
+* A LayerNorm ``scale`` becomes ``weight``; an ``Embed``'s ``embedding``
+  (num_embeddings, features) becomes ``nn.Embedding``'s ``weight``, same
+  layout.
 * A flax ``GRUCell`` (``ir``/``iz``/``in`` with biases, ``hr``/``hz``
   without, ``hn`` with) becomes ``nn.GRUCell``'s stacked ``weight_ih``/
   ``weight_hh`` in gate order r, z, n, with ``bias_hh = [0, 0, b_hn]``.
@@ -16,7 +18,8 @@ A flax params tree, given as nested dicts of numpy arrays (``{"params":
   ``hi``/``hf``/``hg``/``ho`` with) becomes ``nn.LSTMCell``'s, in gate
   order i, f, g, o, with ``bias_ih = 0``.
 * Every other leaf (``GraphConv.weight (in, out)``, ``bias``,
-  ``attn_l``/``attn_r (1, H, D)``, ``eps``) keeps its name and layout.
+  ``attn_l``/``attn_r (1, H, D)``, ``eps``, ``RelGraphConv``'s ``weight``,
+  ``w_comp``, ``h_bias`` and ``loop_weight``) keeps its name and layout.
 
 A bipartite ``GATConv``'s ``fc_src`` and ``fc_dst`` are Denses like any
 other, both ways; the port's ``GATConv`` takes that layout when it loads a
@@ -58,7 +61,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 put(f"{prefix}weight", arr.T)
             elif name == "bias" and arr.ndim == 2:
                 put(f"{prefix}bias", arr.reshape(-1))
-            elif name == "scale":
+            elif name in ("scale", "embedding"):
                 put(f"{prefix}weight", arr)
             else:
                 put(f"{prefix}{name}", arr)
@@ -90,17 +93,22 @@ def _recurrent(cell: Mapping) -> Dict[str, np.ndarray]:
 
 
 def state_dict_to_flax(state: Mapping[str, torch.Tensor],
-                       dense_modules=()) -> Dict:
+                       dense_modules=(), embed_modules=()) -> Dict:
     """Inverse of ``flax_to_state_dict``.  ``dense_modules`` names the
     sub-modules that are flax ``Dense`` layers (``nn.Linear`` here, e.g.
-    ``"gat0.fc"``): their ``weight`` goes back to ``kernel (in, out)``."""
+    ``"gat0.fc"``): their ``weight`` goes back to ``kernel (in, out)``;
+    ``embed_modules`` those that are flax ``Embed`` layers
+    (``nn.Embedding``): their ``weight`` goes back to ``embedding``."""
     tree: Dict = {}
     dense = set(dense_modules)
+    embed = set(embed_modules)
     for key, val in state.items():
         *path, leaf = key.split(".")
         arr = val.detach().cpu().numpy()
         if leaf == "weight" and ".".join(path) in dense:
             leaf, arr = "kernel", arr.T.copy()
+        elif leaf == "weight" and ".".join(path) in embed:
+            leaf = "embedding"
         node = tree
         for p in path:
             node = node.setdefault(p, {})
@@ -112,3 +120,9 @@ def dense_module_names(model: torch.nn.Module):
     """Names of a model's ``nn.Linear`` sub-modules (flax ``Dense``)."""
     return [n for n, m in model.named_modules()
             if isinstance(m, torch.nn.Linear)]
+
+
+def embed_module_names(model: torch.nn.Module):
+    """Names of a model's ``nn.Embedding`` sub-modules (flax ``Embed``)."""
+    return [n for n, m in model.named_modules()
+            if isinstance(m, torch.nn.Embedding)]

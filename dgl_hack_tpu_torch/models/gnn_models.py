@@ -1,10 +1,10 @@
-"""End-to-end models: GCN, GAT, full-graph GraphSAGE, GIN and
+"""End-to-end models: GCN, GAT, full-graph GraphSAGE, RGCN, GIN and
 MLPPredictor, as in ``dgl_hack_tpu.models``, and the models of the SGC,
 APPNP and TAGCN example CLIs.
 
 Sub-modules carry the JAX package's names (``layer0``, ``gat0``, ``sage0``,
-``gin0``, ``Dense_0``, ...), so a flax params tree converts to a
-``state_dict`` key for key (``interop.py``).
+``embed``, ``rgcn0``, ``gin0``, ``Dense_0``, ...), so a flax params tree
+converts to a ``state_dict`` key for key (``interop.py``).
 """
 from __future__ import annotations
 
@@ -14,9 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.conv import (APPNPConv, GATConv, GINConv, GraphConv, SAGEConv,
-                       SGConv, TAGConv, dropout)
-from ..nn.init import Dense
+from ..nn.conv import (APPNPConv, GATConv, GINConv, GraphConv, RelGraphConv,
+                       SAGEConv, SGConv, TAGConv, dropout)
+from ..nn.init import Dense, lecun_normal_
 from ..ops import readout
 
 Tensor = torch.Tensor
@@ -105,6 +105,43 @@ class GraphSAGE(nn.Module):
             h = getattr(self, f"sage{i}")(block, feat, det, generator)
             if i < self.num_layers - 1:
                 h = dropout(self.activation(h), self.dropout, det, generator)
+        return h
+
+
+class RGCN(nn.Module):
+    """Entity-classification R-GCN: a learned embedding of every node as
+    the input (``embed``, flax's ``Embed``: an ``nn.Embedding`` whose
+    weight is flax's ``embedding``, drawn as flax draws it) unless
+    ``feats`` are given, then ``num_layers`` basis ``RelGraphConv``s
+    (``rgcn0``, ...), relu and dropout on all but the last.  ``plan``
+    (``prepare_rgcn``) routes every layer through the (dst, etype)-pair
+    path.  ``embed`` exists whether or not ``feats`` are given (the flax
+    model makes it only without them)."""
+
+    def __init__(self, num_nodes: int, hidden_feats: int, out_feats: int,
+                 num_rels: int, num_bases: int = -1, num_layers: int = 2,
+                 dropout: float = 0.0, self_loop: bool = True):
+        super().__init__()
+        self.num_layers = num_layers
+        nb = None if num_bases <= 0 else num_bases
+        self.embed = nn.Embedding(num_nodes, hidden_feats)
+        lecun_normal_(self.embed.weight, hidden_feats)
+        for i in range(num_layers - 1):
+            self.add_module(f"rgcn{i}", RelGraphConv(
+                hidden_feats, num_rels, "basis", nb, activation=F.relu,
+                self_loop=self_loop, dropout=dropout))
+        self.add_module(f"rgcn{num_layers - 1}", RelGraphConv(
+            out_feats, num_rels, "basis", nb, self_loop=self_loop))
+
+    def forward(self, g, etypes, norm: Optional[Tensor] = None,
+                feats: Optional[Tensor] = None,
+                deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None,
+                plan=None) -> Tensor:
+        h = self.embed.weight if feats is None else feats
+        for i in range(self.num_layers):
+            h = getattr(self, f"rgcn{i}")(g, h, etypes, norm, deterministic,
+                                          generator, plan=plan)
         return h
 
 

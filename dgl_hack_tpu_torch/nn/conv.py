@@ -44,6 +44,8 @@ from torch.nn.parameter import UninitializedParameter, is_lazy
 from ..ops import segment
 from ..ops.edge_softmax import edge_softmax
 from ..ops.gat import gat_attention
+from ..ops.rgcn import (rgcn_aggregate_pairs, rgcn_basis_message,
+                        rgcn_reduce_pairs)
 from ..ops.sddmm import gsddmm
 from ..ops.spmm import gspmm
 from .init import (Dense, bias_keep, fans, glorot_uniform_, lecun_normal_,
@@ -331,6 +333,118 @@ class SAGEConv(LazyModuleMixin, nn.Module):
         if self.activation is not None:
             rst = self.activation(rst)
         return rst
+
+
+_REGULARIZERS = ("basis", "bdd")
+
+
+class RelGraphConv(LazyModuleMixin, nn.Module):
+    """Relational GCN layer with the 'basis' or 'bdd' (block-diagonal)
+    regularizer; ``etypes`` and ``norm`` come per edge in user order and
+    are permuted to internal order once.
+
+    Given a pair plan (``ops.rgcn.prepare_rgcn``), 'basis' runs the
+    two-level (dst, etype)-pair aggregation: K1 over the pair graph, each
+    pair's projection by its relation's weight, K1's edge-row mode per
+    dst node.  Without
+    one, and for 'bdd' always, it composes the per-edge messages in torch
+    and sums them per dst node over the CSC rows (``gspmm`` copy_e: K1's
+    edge-row mode on the card, a masked graph through its real-edge view).
+
+    Parameters keep the flax layer's names and layouts, glorot-uniform
+    with flax's fans: ``weight`` (B, in, out) for 'basis' and (R,
+    B * in/B * out/B) for 'bdd', ``w_comp`` (R, B) where B < R, ``h_bias``
+    (zero) and ``loop_weight`` (in, out), used as ``x @ loop_weight``.
+    ``low_mem`` is accepted and unused, as in the JAX layer."""
+
+    def __init__(self, out_feats: int, num_rels: int,
+                 regularizer: str = "basis", num_bases: Optional[int] = None,
+                 use_bias: bool = True,
+                 activation: Optional[Callable] = None,
+                 self_loop: bool = False, dropout: float = 0.0,
+                 low_mem: bool = False):
+        super().__init__()
+        if regularizer not in _REGULARIZERS:
+            raise ValueError("Regularizer must be either 'basis' or 'bdd'")
+        self.out_feats = out_feats
+        self.num_rels = num_rels
+        self.regularizer = regularizer
+        B = num_bases
+        if B is None or B > num_rels or B <= 0:
+            B = num_rels
+        self.num_bases = B
+        self.activation = activation
+        self.dropout = dropout
+        self.low_mem = low_mem
+        self.weight = UninitializedParameter()
+        self.w_comp = None
+        if regularizer == "basis" and B < num_rels:
+            self.w_comp = nn.Parameter(torch.empty(num_rels, B))
+            glorot_uniform_(self.w_comp, num_rels, B)
+        self.h_bias = nn.Parameter(torch.zeros(out_feats)) if use_bias \
+            else None
+        self.loop_weight = UninitializedParameter() if self_loop else None
+
+    def initialize_parameters(self, g, x, *args, **kwargs) -> None:
+        if not self.has_uninitialized_params():
+            return
+        in_feats, out, B = x.shape[-1], self.out_feats, self.num_bases
+        if self.regularizer == "basis":
+            shape = (B, in_feats, out)
+        else:
+            if in_feats % B or out % B:
+                raise ValueError("Feature size must be a multiplier of "
+                                 f"num_bases ({B}).")
+            shape = (self.num_rels, B * (in_feats // B) * (out // B))
+        for p, sh in ((self.weight, shape),
+                      (self.loop_weight, (in_feats, out))):
+            if p is not None:
+                p.materialize(sh, device=x.device, dtype=x.dtype)
+                glorot_uniform_(p, *fans(sh))
+
+    def _edge_messages(self, g, x: Tensor, etypes: Tensor) -> Tensor:
+        """(E, out) per-edge messages in internal order, composed."""
+        if self.regularizer == "basis":
+            z = torch.einsum("ni,bio->nbo", x, self.weight)
+            if self.w_comp is not None:
+                coef = self.w_comp[etypes]                    # (E, B)
+                return torch.einsum("eb,ebo->eo", coef, z[g.src])
+            return z[g.src, etypes]                           # (E, out)
+        B = self.num_bases
+        si, so = x.shape[-1] // B, self.out_feats // B
+        w = self.weight[etypes].reshape(-1, B, si, so)        # (E, B, si, so)
+        node = x[g.src].reshape(-1, B, 1, si)
+        return torch.einsum("ebki,ebio->ebko", node, w).reshape(
+            -1, self.out_feats)
+
+    def forward(self, g, x: Tensor, etypes, norm: Optional[Tensor] = None,
+                deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None,
+                plan=None) -> Tensor:
+        det = _is_deterministic(self, deterministic)
+        if norm is not None:
+            norm = torch.as_tensor(norm, device=x.device)
+            if g.int2user is not None:
+                norm = norm[g.int2user]
+        if plan is not None and self.regularizer == "basis":
+            agg = rgcn_aggregate_pairs(plan, x, norm)
+            msg = rgcn_basis_message(plan, agg, self.weight, self.w_comp)
+            h = rgcn_reduce_pairs(plan, msg, g.num_dst_nodes)
+        else:
+            etypes = torch.as_tensor(etypes, device=x.device).long()
+            if g.int2user is not None:
+                etypes = etypes[g.int2user]
+            msg = self._edge_messages(g, x, etypes)
+            if norm is not None:
+                msg = msg * norm
+            h = gspmm(g, "copy_lhs", "sum", msg, None, "e")
+        if self.h_bias is not None:
+            h = h + self.h_bias
+        if self.loop_weight is not None:
+            h = h + x @ self.loop_weight
+        if self.activation is not None:
+            h = self.activation(h)
+        return dropout(h, self.dropout, det, generator)
 
 
 class GINConv(nn.Module):

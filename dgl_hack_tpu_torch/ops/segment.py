@@ -108,10 +108,14 @@ def apply_identity_mask(reducer: str, data: Tensor, mask: Tensor) -> Tensor:
 
 
 def segment_reduce(reducer: str, data: Tensor, segment_ids: Tensor,
-                   num_segments: int, mask: Optional[Tensor] = None) -> Tensor:
+                   num_segments: int, indices_are_sorted: bool = False,
+                   mask: Optional[Tensor] = None) -> Tensor:
     """Dispatch a named reducer; ``mask`` (E,) bool drops padded entries,
     which contribute the reducer's identity (and are not counted by
-    ``mean``)."""
+    ``mean``).  ``indices_are_sorted`` is the JAX package's hint that
+    ``segment_ids`` are non-decreasing; it is accepted and changes no
+    result (sums over sorted runs on the card go through K1's edge-row
+    mode, ``ops/cuda/spmm_kernel.py:segment_sum_rows``)."""
     if reducer not in _SEGMENT_FNS:
         raise ValueError(
             f"unknown reducer {reducer!r}; expected one of {_REDUCERS}")

@@ -103,10 +103,13 @@ def test_batch_carries_counts_through_to_and_replace():
 
 
 def test_batch_hetero_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """Ported since: batch_hetero refuses an empty list and unbatch_hetero
+    a heterograph that batch_hetero did not make, as the JAX package's
+    do (the round trip is in test_torch_heterograph.py)."""
+    with pytest.raises(ValueError, match="at least one graph"):
         dt.batch_hetero([])
-    with pytest.raises(NotImplementedError, match="core/heterograph.py"):
-        dt.unbatch_hetero(None)
+    with pytest.raises(ValueError, match="batch_hetero"):
+        dt.unbatch_hetero(dt.heterograph({("a", "r", "b"): ([0], [0])}))
 
 
 def _setup(batched, seed=0, ties=False):

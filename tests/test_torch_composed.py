@@ -63,10 +63,42 @@ def test_segment_reduce_int32_vs_jax(reducer, masked):
                      mask=None if mask is None else jnp.asarray(mask))
     out = segment_reduce(reducer, torch.from_numpy(data),
                          torch.from_numpy(ids).long(), 5,
-                         None if mask is None else torch.from_numpy(mask))
+                         mask=None if mask is None else torch.from_numpy(mask))
     assert out.dtype == torch.int32
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     limit = np.iinfo(np.int32).min if reducer == "max" \
         else np.iinfo(np.int32).max
     assert (out[1] == limit).all()
     assert bool((out[3] == limit).all()) == masked
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("reducer", ["sum", "mean", "max"])
+def test_segment_reduce_indices_are_sorted(reducer, masked):
+    """segment_reduce takes the JAX package's ``indices_are_sorted`` in its
+    position, before ``mask`` (as RelGraphConv and multi_update_all call
+    it), positionally and by keyword; the hint changes no result, and both
+    packages agree to 1e-6 of max|ref|."""
+    from dgl_hack_tpu.ops.segment import segment_reduce as jax_reduce
+    from dgl_hack_tpu_torch.ops.segment import segment_reduce
+    rng = np.random.default_rng(41)
+    data = rng.normal(size=(12, 3)).astype(np.float32)
+    ids = np.array([0, 0, 0, 2, 2, 3, 3, 3, 3, 4, 4, 4], np.int32)
+    mask = (np.arange(12) % 3 != 1) if masked else None
+    mj = None if mask is None else jnp.asarray(mask)
+    mt = None if mask is None else torch.from_numpy(mask)
+    ref = np.asarray(jax_reduce(reducer, jnp.asarray(data), jnp.asarray(ids),
+                                5, True, mask=mj))
+    np.testing.assert_array_equal(
+        ref, np.asarray(jax_reduce(reducer, jnp.asarray(data),
+                                   jnp.asarray(ids), 5,
+                                   indices_are_sorted=True, mask=mj)))
+    d, i = torch.from_numpy(data), torch.from_numpy(ids)
+    outs = [segment_reduce(reducer, d, i, 5, True, mt),
+            segment_reduce(reducer, d, i, 5, True, mask=mt),
+            segment_reduce(reducer, d, i, 5, indices_are_sorted=True,
+                           mask=mt)]
+    unsorted = segment_reduce(reducer, d, i, 5, mask=mt)
+    for out in outs:
+        np.testing.assert_array_equal(out.numpy(), unsorted.numpy())
+        assert_close(out.numpy(), ref, 1e-6, reducer)

@@ -30,10 +30,14 @@ CLI_CASES = [
     ("train_sgc_torch.py", ["--epochs", "3"]),
     ("train_appnp_torch.py", ["--epochs", "3"]),
     ("train_tagcn_torch.py", ["--epochs", "3"]),
+    ("train_rgcn_torch.py", ["--epochs", "3"]),
+    ("train_rgcn_hetero_torch.py", ["--epochs", "3"]),
 ]
 # the dataset name each CLI prints (the JAX twin's)
 DATASETS = {"train_gin_torch.py": "SBM-mixture",
-            "train_tagcn_torch.py": "synthetic"}
+            "train_tagcn_torch.py": "synthetic",
+            "train_rgcn_torch.py": "aifb",
+            "train_rgcn_hetero_torch.py": "academic-synth"}
 SCRIPTS = [script for script, _ in CLI_CASES]
 
 
