@@ -102,7 +102,27 @@ Phases, one JSON line each:
  19. the heterograph R-GCN twin (``rgcn_hetero_train``,
      examples/train_rgcn_hetero_torch.py at its defaults): 20 epochs on
      the card, the first 5 losses against the same twin on the CPU, and a
-     multi_update_all with max builtins (K4/K5) against the CPU.
+     multi_update_all with max builtins (K4/K5) against the CPU;
+ 20. PageRank (``pagerank``) at bench.py's graph, 20 iterations through
+     each form of the message-passing API (the twin's loop,
+     update_all, pull, push, send_and_recv, send then recv), each against
+     a float64 plain version on the card and, over 2 iterations, the same
+     form on the CPU,
+      one iteration of each timed, and K1 at F = 1 beside its bound,
+     plain version and torch.sparse.mm;
+ 21. ``message_subsets``: send_and_recv over half of that graph's edges
+     and push from a tenth of its nodes (sum, F = 1 and 16), each call's
+     masked graph's real-edge view and row plans timed apart from K1 over
+     the view, and the cost of one prop_edges frontier;
+ 22. ``sage_lstm_train``: the sampled GraphSAGE twin with the lstm
+     aggregator on full synthetic Reddit, 8 steps, and SAGEConv('lstm') at
+     the layer-0 block against the CPU; ``reddit_max_subset``:
+     send_and_recv with fn.max over half of synthetic Reddit's edges at F
+     = 602 (K4/K5 through the view), against the chosen edges' own graph;
+ 23. ``prop_nodes_topo`` on a 131,072-node DAG of 32 levels against the
+     CPU (K1's edge-row mode once a level);
+ 24. the Tree-LSTM twin (``tree_lstm``) at hidden 150, its first losses
+     against the CPU's (no kernel on this path).
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -2096,9 +2116,9 @@ def _load_twin(name="train_sage_sampling_torch"):
     return mod
 
 
-def _busy_share(twin, ds, dev, warm=2, steps=5):
+def _busy_share(twin, ds, dev, warm=2, steps=5, aggregator="mean"):
     """The device's busy share over training steps ``warm + 1`` to
-    ``warm + steps`` of the twin's loop (mean aggregator): torch.profiler
+    ``warm + steps`` of the twin's loop: torch.profiler
     runs from the sync that ends step ``warm`` to the one that ends step
     ``warm + steps``, and the kernels' summed device time (one stream, so
     the sum is the busy time) is taken over that window's wall time.  The
@@ -2116,7 +2136,7 @@ def _busy_share(twin, ds, dev, warm=2, steps=5):
         elif n == warm + steps:
             marks["t1"] = time.perf_counter()
             prof.stop()
-    twin.train(ds, aggregator="mean", max_steps=warm + steps,
+    twin.train(ds, aggregator=aggregator, max_steps=warm + steps,
                eval_batches=0, device=dev, log=None, on_step=on_step)
     wall = 1e3 * (marks["t1"] - marks["t0"])
     dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
@@ -2641,6 +2661,544 @@ def phase_rgcn_hetero_train(dt, build, checks, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# DGL's message-passing API: PageRank, subsets, propagation, Tree-LSTM and
+# the sampled GraphSAGE-LSTM
+# ---------------------------------------------------------------------------
+PR_ITERS, PR_CPU_ITERS, PR_DAMP = 20, 2, 0.85
+PR_FORMS = ("twin", "update_all", "pull", "push", "send_and_recv",
+            "send_recv")
+
+
+def _pagerank_step(dt, form, g, deg):
+    """One PageRank iteration through one form of the message-passing API
+    (``twin``: examples/pagerank_torch.py's own gspmm): pv -> pv'."""
+    from dgl_hack_tpu_torch import fn
+    n = g.num_nodes()
+    nodes = torch.arange(n, device=g.device)
+    edges = torch.arange(g.num_edges(), device=g.device)
+    msg, red = fn.copy_u("pv", "m"), fn.sum("m", "agg")
+
+    def step(pv):
+        if form == "twin":
+            agg = dt.gspmm(g, "copy_lhs", "sum", pv / deg)
+        else:
+            g.ndata["pv"] = pv / deg
+            if form == "update_all":
+                g.update_all(msg, red)
+            elif form == "pull":
+                g.pull(nodes, msg, red)
+            elif form == "push":
+                g.push(nodes, msg, red)
+            elif form == "send_and_recv":
+                g.send_and_recv(edges, msg, red)
+            else:
+                g.send(msg)
+                g.recv(nodes, red)
+            agg = g.ndata["agg"]
+        return (1 - PR_DAMP) / n + PR_DAMP * agg
+    return step
+
+
+def _pagerank(dt, form, g, iters=PR_ITERS):
+    """(N,) PageRank after ``iters`` iterations of ``form`` on g (on a
+    local copy of its frames); the twin's form is its own loop."""
+    if form == "twin":
+        return _load_twin("pagerank_torch").pagerank(g, iters, PR_DAMP)
+    g = g.local_var()
+    deg = g.out_degrees().float().clamp(min=1.0)[:, None]
+    step = _pagerank_step(dt, form, g, deg)
+    pv = torch.full((g.num_nodes(), 1), 1.0 / g.num_nodes(), device=g.device)
+    for _ in range(iters):
+        pv = step(pv)
+    return pv[:, 0]
+
+
+def _pagerank_plain(g, iters=PR_ITERS):
+    """PageRank in float64 by index_add over the graph's edges: the plain
+    version every form is held against."""
+    n = g.num_nodes()
+    src, dst = g.src.long(), g.dst.long()
+    deg = g.out_degrees().double().clamp(min=1.0)
+    pv = torch.full((n,), 1.0 / n, dtype=torch.float64, device=g.device)
+    for _ in range(iters):
+        agg = torch.zeros_like(pv).index_add_(0, dst, (pv / deg)[src])
+        pv = (1 - PR_DAMP) / n + PR_DAMP * agg
+    return pv.float()
+
+
+def _host_ms(fn, reps=5):
+    """Median host milliseconds of fn() ended by a sync, after a warm-up:
+    for calls that sync inside (a real-edge view's count)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(out))
+
+
+def phase_pagerank(dt, build, sk, gb, checks, dev, timings):
+    """PageRank at bench.py's graph (power-law, N = 1,000,000, in-degree
+    16, F = 1), 20 iterations through each form of the message-passing
+    API: the twin's loop (examples/pagerank_torch.py), update_all, pull
+    and push of all nodes, send_and_recv over all edges, send then recv.
+    Each result is held against the float64 index_add version on the card
+    (K1_TOL); each form launches K1 and nothing plain.  The same form on
+    the CPU runs PR_CPU_ITERS iterations (a CPU iteration takes about a
+    second here) and is held against the card's to the CPU's own error
+    against the float64 version (its float32 sum over the 173,324-edge
+    hub row) plus K1_TOL.  One iteration of each form is timed (CUDA
+    events, one call per pair: the masked forms sync inside), and K1 at F
+    = 1 over the whole graph beside its bound, its plain version and
+    torch.sparse.mm."""
+    g_cpu = gb.to("cpu")
+    ref = _pagerank_plain(gb)
+    ref_short = _pagerank_plain(gb, PR_CPU_ITERS).cpu()
+    rec, counts = {}, {}
+    t_cpu = 0.0
+    deg = gb.out_degrees().float().clamp(min=1.0)[:, None]
+    pv0 = torch.full((gb.num_nodes(), 1), 1.0 / gb.num_nodes(), device=dev)
+    for form in PR_FORMS:
+        build.LAUNCHES.reset()
+        pv = _pagerank(dt, form, gb)
+        torch.cuda.synchronize()
+        c = dict(build.LAUNCHES.counts)
+        t0 = time.perf_counter()
+        pv_cpu = _pagerank(dt, form, g_cpu, PR_CPU_ITERS)
+        t_cpu += time.perf_counter() - t0
+        cpu_err = rel_err(pv_cpu, ref_short)
+        vs_cpu = rel_err(_pagerank(dt, form, gb, PR_CPU_ITERS).cpu(), pv_cpu)
+        step = _pagerank_step(dt, form, gb.local_var(), deg)
+        rec[form] = {
+            "rel_err_vs_plain": checks.compare(
+                "segment_sum", f"pagerank {form} vs plain", pv, ref,
+                K1_TOL),
+            "rel_err_vs_cpu": vs_cpu, "cpu_rel_err_vs_plain": cpu_err,
+            "sum": float(pv.sum()), "iteration_ms": cuda_ms(
+                lambda: step(pv0), reps=5, one_launch=True),
+            "launches": c}
+        if not vs_cpu <= cpu_err + K1_TOL:
+            checks.failures.append(f"pagerank {form} vs CPU: {vs_cpu:.3g} "
+                                   f"> {cpu_err:.3g} + {K1_TOL}")
+        if not any(k.startswith("segment_sum.") and v > 0
+                   for k, v in c.items()) or any(
+                k.startswith("plain.") for k in c):
+            checks.failures.append(f"pagerank {form}: launches {c}")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    x1 = (1.0 / deg).contiguous()
+    fwd = (gb.csc_indptr, x1, gb.src)
+    p_fwd = sk.graph_row_plan(gb, "csc")
+    out = sk.segment_sum(*fwd, plan=p_fwd)
+    checks.compare("segment_sum", "bench F=1 fwd", out, k1_ref(sk, *fwd),
+                   K1_TOL, sk.segment_sum(*fwd, plan=p_fwd))
+    A = csr_matrix(gb)
+    timings["k1_bench_F1"] = timing(
+        both_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
+        cuda_ms(lambda: sk.segment_sum_plain(*fwd), reps=3),
+        nbytes(gb.csc_indptr, gb.src, x1, out), gb.num_edges(),
+        "bench.py graph, F=1, fwd (PageRank's gspmm)",
+        library_ms=cuda_ms(lambda: torch.sparse.mm(A, x1), reps=3))
+    del A, out
+    emit({"phase": "pagerank", "nodes": gb.num_nodes(),
+          "edges": gb.num_edges(), "iters": PR_ITERS,
+          "cpu_iters": PR_CPU_ITERS, "forms": rec, "cpu_seconds": t_cpu,
+          "k1_F1": timings["k1_bench_F1"]})
+    checks.raise_if_failed("pagerank")
+    return counts
+
+
+def _subset_case(dt, build, sk, g, what, call, ref_fn, F, rng, checks,
+                 counts):
+    """One subset call (send_and_recv or push) of copy_u sum at width F on
+    g: its result against ``ref_fn`` (float64 index_add over the chosen
+    edges), the end-to-end host time of a call (the calls' launches added
+    to ``counts``), and the masked graph's real-edge view and row plans
+    built from nothing (host clock), apart from K1's time over that
+    view."""
+    from dgl_hack_tpu_torch import fn
+    x = torch.from_numpy(rng.normal(size=(g.num_src_nodes, F)).astype(
+        np.float32)).to(g.device)
+    local = g.local_var()
+    local.ndata["h"] = x
+
+    def run():
+        call(local, fn.copy_u("h", "m"), fn.sum("m", "o"))
+        return local.ndata["o"]
+    build.LAUNCHES.reset()
+    out = run()
+    call_ms = _host_ms(run)
+    for k, v in build.LAUNCHES.counts.items():
+        counts[k] = counts.get(k, 0) + v
+    err = checks.compare("segment_sum", f"{what} F={F}", out,
+                         ref_fn(x.double()).float(), K1_TOL)
+    masked = call.masked(g)
+    view_ms = _view_build_ms(sk, masked)
+    kg = sk.real_edges(masked).graph
+    plan = sk.graph_row_plan(kg, "csc")
+    fwd = (kg.csc_indptr, x, kg.src)
+    rows_read = int(torch.unique(kg.src).numel())
+    kout = sk.segment_sum(*fwd, plan=plan)
+    A = csr_matrix(kg)
+    t = timing(both_ms(lambda: sk.segment_sum(*fwd, plan=plan)),
+               cuda_ms(lambda: sk.segment_sum_plain(*fwd), reps=3),
+               nbytes(kg.csc_indptr, kg.src, kout) + 4 * F * rows_read,
+               kg.num_edges() * F,
+               f"bench.py graph, {what}, {kg.num_edges()} of "
+               f"{g.num_edges()} edges through the real-edge view, F={F}",
+               library_ms=cuda_ms(lambda: torch.sparse.mm(A, x), reps=3))
+    return {"rel_err": err, "edges": kg.num_edges(), "call_ms": call_ms,
+            **view_ms, "k1": t}
+
+
+class _Call:
+    """A subset call and the masked graph it builds, for timing the view
+    apart."""
+
+    def __init__(self, kind, ids):
+        self.kind, self.ids = kind, ids
+
+    def __call__(self, g, mf, rf):
+        if self.kind == "send_and_recv":
+            g.send_and_recv(self.ids, mf, rf)
+        else:
+            g.push(self.ids, mf, rf)
+
+    def masked(self, g):
+        from dgl_hack_tpu_torch.core.message import _masked_to, _node_mask
+        if self.kind == "push":
+            sel = _node_mask(g.num_src_nodes, self.ids, g.device)[
+                g.src.long()]
+        else:
+            ids = self.ids if g.int2user is None else g.user2int[self.ids]
+            sel = torch.zeros(g.num_edges(), dtype=torch.bool,
+                              device=g.device)
+            sel[ids.long()] = True
+        return _masked_to(g, sel)
+
+
+def phase_message_subsets(dt, build, sk, gb, checks, dev, timings):
+    """send_and_recv over a seeded half of bench.py's graph's edges and
+    push from a tenth of its nodes (copy_u sum, F = 1 and 16), each call
+    building a masked graph and, on the card, its real-edge view and row
+    plans anew: results against float64 references built from the chosen
+    edges alone, the host time of a call, the view's and the row plans'
+    build time, K1 over the view; and the host time of send_and_recv over
+    a frontier of 1,024 edges, what a prop_edges loop pays per frontier
+    at this graph's size."""
+    rng = np.random.default_rng(41)
+    E, N = gb.num_edges(), gb.num_nodes()
+    s_user, d_user = (torch.from_numpy(a).to(dev).long()
+                      for a in gb.host_edges())
+    half = torch.from_numpy(np.sort(rng.choice(E, E // 2, replace=False))
+                            ).to(dev)
+    tenth = torch.from_numpy(np.sort(rng.choice(N, N // 10, replace=False))
+                             ).to(dev)
+    src_sel = torch.zeros(N, dtype=torch.bool, device=dev)
+    src_sel[tenth] = True
+    pushed = torch.nonzero(src_sel[s_user]).squeeze(1)
+
+    def ref_over(eids):
+        def ref(x):
+            return torch.zeros((N, x.shape[1]), dtype=x.dtype,
+                               device=dev).index_add_(
+                0, d_user[eids], x[s_user[eids]])
+        return ref
+    res, counts = {}, {}
+    for kind, call, ref in (
+            ("send_and_recv_half", _Call("send_and_recv", half),
+             ref_over(half)),
+            ("push_tenth", _Call("push", tenth), ref_over(pushed))):
+        for F in (1, 16):
+            res[f"{kind}_F{F}"] = _subset_case(
+                dt, build, sk, gb, kind, call, ref, F, rng, checks, counts)
+    small = _Call("send_and_recv", half[:1024])
+    x = torch.ones((N, 1), device=dev)
+    local = gb.local_var()
+    local.ndata["h"] = x
+    from dgl_hack_tpu_torch import fn
+    build.LAUNCHES.reset()
+    res["frontier_1024_call_ms"] = _host_ms(
+        lambda: small(local, fn.copy_u("h", "m"), fn.sum("m", "o")))
+    for k, v in build.LAUNCHES.counts.items():
+        counts[k] = counts.get(k, 0) + v
+    timings["k1_view_half"] = res["send_and_recv_half_F16"]["k1"]
+    emit({"phase": "message_subsets", "nodes": N, "edges": E, **res,
+          "launches": counts})
+    if any(k.startswith("plain.") for k in counts) or \
+            counts.get("segment_sum.fwd", 0) <= 0:
+        checks.failures.append(f"message_subsets: launches {counts}")
+    checks.raise_if_failed("message_subsets")
+    return counts
+
+
+def phase_reddit_max_subset(dt, build, sm, sk, g, checks, dev, timings):
+    """send_and_recv with fn.max over a seeded half of synthetic Reddit's
+    edges at F = 602, forward and backward (K4, K5 through the masked
+    graph's real-edge view): the output equal to, and dx within K5_TOL
+    of, gspmm max on a graph built on the host from the chosen edges
+    alone; K4/K5 over the view against their plain versions (exact;
+    float64), timed beside them with the view's build time."""
+    from dgl_hack_tpu_torch import fn
+    rng = np.random.default_rng(51)
+    E, N, F = g.num_edges(), g.num_nodes(), 602
+    eids = np.sort(rng.choice(E, E // 2, replace=False))
+    x = torch.from_numpy(rng.normal(size=(N, F)).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.normal(size=(N, F)).astype(np.float32)
+                            ).to(dev)
+    local = g.local_var()
+    xg = x.clone().requires_grad_()
+    local.ndata["h"] = xg
+    build.LAUNCHES.reset()
+    local.send_and_recv(torch.from_numpy(eids).to(dev),
+                        fn.copy_u("h", "m"), fn.max("m", "o"))
+    out = local.ndata["o"]
+    out.backward(dout)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    s, d = g.host_edges()
+    g_sel = dt.graph((s[eids], d[eids]), num_nodes=N, device=dev)
+    xr = x.clone().requires_grad_()
+    ref = dt.gspmm(g_sel, "copy_lhs", "max", xr)
+    ref.backward(dout)
+    res = {"edges": len(eids), "launches": counts,
+           "fwd_equal": bool((out == ref).all()),
+           "dx_rel_err": rel_err(xg.grad, xr.grad)}
+    if not res["fwd_equal"] or not res["dx_rel_err"] <= K5_TOL:
+        checks.failures.append(f"reddit max subset vs the chosen edges: {res}")
+    del out, ref, xg, xr, local, g_sel
+    masked = _Call("send_and_recv", torch.from_numpy(eids).to(dev)).masked(g)
+    res.update(_view_build_ms(sk, masked, reps=3))
+    kg = sk.real_edges(masked).graph
+    Fp = sk.run_width(x, None)
+    xp = sk.pad_columns(x, Fp)
+    doutp = sk.pad_columns(dout, Fp)
+    raw, res["k4k5_rel_err"], _ = _k4k5_case(
+        sm, sk, kg, xp, None, doutp, checks,
+        f"reddit half F={F} padded to {Fp}", x_bwd=x)
+    k4, k5 = _k4k5_timings(sm, sk, kg, xp, doutp, raw,
+                           f"synthetic Reddit, send_and_recv over half of "
+                           f"the edges ({kg.num_edges()}), F={F} padded to "
+                           f"{Fp}", x_bwd=x)
+    timings["k4_reddit_half"], timings["k5_reddit_half"] = k4, k5
+    del raw, xp, doutp, x, dout, kg, masked
+    torch.cuda.empty_cache()
+    emit({"phase": "reddit_max_subset", **res, "k4": k4, "k5": k5})
+    for k in ("segment_max.fwd", "segment_max.bwd"):
+        if counts.get(k, 0) <= 0:
+            checks.failures.append(f"reddit max subset: {k} not launched")
+    if any(k.startswith("plain.") for k in counts):
+        checks.failures.append(f"reddit max subset: launches {counts}")
+    checks.raise_if_failed("reddit_max_subset")
+    return counts
+
+
+TOPO_LEVELS, TOPO_WIDTH = 32, 4096
+
+
+def _topo_dag(dt, rng):
+    """A DAG of TOPO_LEVELS levels of TOPO_WIDTH nodes (131,072): each node
+    past the first level has an in-edge from the level before and one
+    from any earlier level, so its topological frontier is its level;
+    edges listed in a shuffled order, with a weight each."""
+    W, L = TOPO_WIDTH, TOPO_LEVELS
+    v = np.arange(W, L * W)
+    lv = v // W
+    near = (lv - 1) * W + rng.integers(0, W, v.shape[0])
+    far = rng.integers(0, lv * W)
+    src, dst = np.concatenate([near, far]), np.concatenate([v, v])
+    perm = rng.permutation(src.shape[0])
+    g = dt.graph((src[perm], dst[perm]), num_nodes=L * W)
+    g.edata["w"] = torch.from_numpy(rng.random(src.shape[0]).astype(
+        np.float32))
+    return g
+
+
+def phase_prop_topo(dt, build, checks, dev):
+    """prop_nodes_topo on a seeded DAG of 131,072 nodes in 32 levels
+    (``_topo_dag``): a UDF message h_u / 2 + w_e and the builtin sum into
+    h, one pull a frontier, each a full update_all, whose sum runs K1's
+    edge-row mode over the whole graph: against the CPU, with the time
+    per level."""
+    from dgl_hack_tpu_torch import fn
+    from dgl_hack_tpu_torch.core import propagate, traversal
+    rng = np.random.default_rng(61)
+    g_c = _topo_dag(dt, rng)
+    t0 = time.perf_counter()
+    fronts = traversal.topological_nodes_generator(g_c)
+    gen_s = time.perf_counter() - t0
+
+    def run(g):
+        g.ndata["h"] = torch.zeros(g.num_nodes(), 1, device=g.device)
+        propagate.prop_nodes(g, fronts, lambda e: {
+            "m": e.src["h"] * 0.5 + e.data["w"][:, None]}, fn.sum("m", "h"))
+        return g.ndata["h"]
+    g_d = g_c.to(dev)
+    run(g_d.local_var())                        # warm-up
+    build.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(g_d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES.counts)
+    ref = run(g_c)
+    err = rel_err(out.cpu(), ref)
+    emit({"phase": "prop_nodes_topo", "nodes": g_c.num_nodes(),
+          "edges": g_c.num_edges(), "levels": len(fronts),
+          "generator_s": gen_s, "ms_per_level": 1e3 * wall / len(fronts),
+          "rel_err_vs_cpu": err, "max_h": float(ref.max()),
+          "launches": counts})
+    if len(fronts) != TOPO_LEVELS or not err <= K1_TOL \
+            or counts.get("segment_sum.rows", 0) < TOPO_LEVELS \
+            or any(k.startswith("plain.") for k in counts):
+        raise SystemExit(f"prop_nodes_topo failed: levels {len(fronts)}, "
+                         f"rel err {err}, launches {counts}")
+    return counts
+
+
+def phase_tree_lstm(build, checks, dev):
+    """The Tree-LSTM twin (examples/train_tree_lstm_torch.py) at hidden
+    150, the h_size of DGL's examples/pytorch/tree_lstm, on the JAX
+    example's synthetic trees: 3 epochs on the card, the first 5 losses
+    against the CPU's from the same parameters (1e-5, relative).  Its
+    mailbox and gates are torch: it launches none of the kernels."""
+    twin = _load_twin("train_tree_lstm_torch")
+    trees = twin.make_trees(60, 6, 3)
+    params = twin.init_params(6, 150, 3, seed=0)
+    build.LAUNCHES.reset()
+    res = twin.train(trees, params, epochs=3, lr=1e-2, device=dev)
+    counts = dict(build.LAUNCHES.counts)
+    res_c = twin.train(trees, params, epochs=1, lr=1e-2, device="cpu",
+                       max_steps=5)
+    err = float(np.max(np.abs(np.subtract(res["losses"][:5],
+                                          res_c["losses"]))
+                       / np.abs(res_c["losses"])))
+    steps = res["steps"]
+    emit({"phase": "tree_lstm", "hidden": 150, "trees": len(trees),
+          "steps": steps, "epoch_losses": res["epoch_losses"],
+          "first_losses": res["losses"][:5],
+          "first_losses_cpu": res_c["losses"], "loss_rel_err_vs_cpu": err,
+          "train_time_s": res["train_time_s"],
+          "ms_per_step": 1e3 * res["train_time_s"] / steps,
+          "test_acc": res["test_acc"], "launches": counts,
+          "note": "mailbox and LSTM gates in torch: no kernel of the "
+                  "port is on this path"})
+    if not err <= 1e-5 or counts or not \
+            res["epoch_losses"][-1] < res["epoch_losses"][0]:
+        raise SystemExit(f"tree_lstm failed: loss err {err}, launches "
+                         f"{counts}, epoch losses {res['epoch_losses']}")
+
+
+def _layer0_block(ds, fanouts=(10, 25), batch_size=1024):
+    """The first training batch's layer-0 block and input rows, drawn as
+    the sampled twin draws them (seed 0)."""
+    from dgl_hack_tpu_torch.sampling import (MultiLayerNeighborSampler,
+                                             NodeDataLoader)
+    loader = NodeDataLoader(
+        ds.graph, np.nonzero(ds.train_mask)[0],
+        MultiLayerNeighborSampler(fanouts, replace=True, seed=0),
+        batch_size, drop_last=True, seed=0)
+    input_nodes, _, blocks = next(iter(loader))
+    return blocks[0], input_nodes
+
+
+def phase_sage_lstm_train(build, ds, checks, dev):
+    """The sampled GraphSAGE twin with the lstm aggregator on full
+    synthetic Reddit at the JAX example's widths (602 features, hidden 16,
+    41 classes, fanouts 10,25, batch 1,024): 8 steps, evaluated on 2 test
+    batches, with the per-step host sampling / copy / plans / device
+    times, peak memory, the device's busy share over steps 3-5 of a run
+    of its own (``_busy_share``) and the launches (the mailbox and the LSTM are
+    torch: no kernel, nothing plain); then SAGEConv('lstm') at the layer-0
+    block of the first batch, forward and gradients on the card against
+    the CPU (LAYER_TOL), but for the rows of more in-edges than mailbox
+    slots, whose last slot holds an edge the scatter picks."""
+    from dgl_hack_tpu_torch.nn import SAGEConv
+    twin = _load_twin()
+    torch.manual_seed(0)
+    reset_peak_memory()
+    build.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = twin.train(ds, aggregator="lstm", max_steps=8, eval_batches=2,
+                     device=dev, log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES.counts)
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    steady = {k: float(np.median(v[1:])) for k, v in res["times"].items()}
+    profile = _busy_share(twin, ds, dev, steps=3, aggregator="lstm")
+    blk, input_nodes = _layer0_block(ds)
+    deg = blk.in_degrees()
+    lens = deg.clamp(max=32)
+    # a row of more than 32 in-edges (the padded copies of the last seed
+    # in the dst set all map to one row) has several edges in its last
+    # mailbox slot, and which one is left there is the scatter's choice
+    # (build_mailbox): its row is left out of the comparison (its
+    # cotangent 0, so it reaches no gradient either)
+    over = deg > 32
+    x_c = torch.from_numpy(ds.features[input_nodes]).requires_grad_()
+    mod_c = SAGEConv(16, "lstm")
+    torch.manual_seed(1)
+    t1 = time.perf_counter()
+    out_c = mod_c(blk, (x_c, x_c[:blk.num_dst_nodes]))
+    cot = torch.from_numpy(np.random.default_rng(71).normal(
+        size=tuple(out_c.shape)).astype(np.float32))
+    cot[over] = 0.0
+    (out_c * cot).sum().backward()
+    cpu_s = time.perf_counter() - t1
+    mod_d = copy.deepcopy(mod_c).to(dev)
+    for p in mod_d.parameters():
+        p.grad = None
+    blk_d = blk.to(dev)
+    x_d = x_c.detach().to(dev).requires_grad_()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out_d = mod_d(blk_d, (x_d, x_d[:blk.num_dst_nodes]))
+    (out_d * cot.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    layer_ms = 1e3 * (time.perf_counter() - t1)
+    fwd = rel_err(out_d.detach().cpu()[~over], out_c.detach()[~over])
+    if not fwd <= LAYER_TOL:
+        checks.failures.append(f"SAGEConv(lstm) layer 0 forward: {fwd:.3g}")
+    grad, worst = _grads_close(checks, "SAGEConv(lstm) layer 0", mod_d,
+                               mod_c, x_d, x_c)
+    emit({"phase": "sage_lstm_train", "steps": res["steps"],
+          "losses": losses, "test_acc": res["test_acc"],
+          "test_nodes": res["test_nodes"], "wall_s": wall,
+          "median_ms_after_first": steady,
+          "step_total_ms": sum(steady.values()),
+          "first_step_ms": {k: v[0] for k, v in res["times"].items()},
+          "peak_memory_bytes": peak, "launches": counts,
+          "profile": profile,
+          "layer0": {"num_src": blk.num_src_nodes,
+                     "num_dst": blk.num_dst_nodes, "slots": blk.num_edges(),
+                     "longest": int(lens.max()),
+                     "empty_rows": int((lens == 0).sum()),
+                     "live_slots": int(lens.sum()),
+                     "overflow_rows": int(over.sum()),
+                     "overflow_row_in_degrees": deg[over].tolist()[:4],
+                     "fwd_rel_err_vs_cpu": fwd, "grad_rel_err_vs_cpu": grad,
+                     "worst_grad": worst, "cpu_fwd_bwd_s": cpu_s,
+                     "card_fwd_bwd_ms": layer_ms}})
+    problems = []
+    if res["steps"] != 8 or not all(np.isfinite(losses)):
+        problems.append(f"{res['steps']} steps, losses {losses}")
+    elif not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        problems.append(f"loss did not fall: {losses}")
+    if any(k.startswith("plain.") for k in counts):
+        problems.append(f"plain path ran on CUDA: {counts}")
+    if problems:
+        raise SystemExit("sage_lstm_train failed: " + "; ".join(problems))
+    checks.raise_if_failed("sage_lstm_train")
+    return counts
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -2686,7 +3244,11 @@ def main() -> int:
 
     card = phase_build(build)
     checks = Checks()
+    timings = {}
     g_small, g_bench, plan_edges = phase_k1(dt, sk, checks, dev)
+    c_pr = phase_pagerank(dt, build, sk, g_bench, checks, dev, timings)
+    c_sub = phase_message_subsets(dt, build, sk, g_bench, checks, dev,
+                                  timings)
     phase_k6_bench(k6, g_bench, checks)
     phase_k4k5_bench(sm, sk, g_bench, checks)
     phase_gat_bench(gk, sk, g_bench, checks)
@@ -2702,13 +3264,15 @@ def main() -> int:
     emit({"phase": "reddit_data", "nodes": g.num_src_nodes,
           "edges": g.num_edges(), "seconds": data_s,
           "plan_build_ms": plan_build_ms(sk, g)})
-    timings = {}
     c_gcn = phase_gcn(dt, build, sk, ds, g, checks, dev, timings)
     c_gat = phase_gat_train(dt, build, gk, sk, ds, g, checks, dev,
                             timings)
     phase_sage_kernels(sm, sk, g, checks, dev, timings)
     c_sage = phase_sage_train(build, ds, g, dev)
     c_sampled = phase_sage_sampling_train(build, ds, dev)
+    c_lstm = phase_sage_lstm_train(build, ds, checks, dev)
+    c_rmax = phase_reddit_max_subset(dt, build, sm, sk, g, checks, dev,
+                                     timings)
     c_prop = phase_propagation_train(build, ds, g, dev)
     phase_k1_rows(sk, g, ds, checks, dev, timings)
     del ds, g
@@ -2718,11 +3282,13 @@ def main() -> int:
     phase_layers(dt, build, checks, dev)
     c_rgcn = phase_rgcn_train(dt, build, sk, checks, dev)
     c_hetero = phase_rgcn_hetero_train(dt, build, checks, dev)
+    c_topo = phase_prop_topo(dt, build, checks, dev)
+    phase_tree_lstm(build, checks, dev)
     phase_entry(dt, dev)
 
     runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled, c_rgcn,
-            c_hetero)
-    max_runs = (c_sage, c_sampled, c_hetero)
+            c_hetero, c_pr, c_sub, c_lstm, c_rmax, c_topo)
+    max_runs = (c_sage, c_sampled, c_hetero, c_rmax)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
                            if k.startswith("segment_sum.")),

@@ -10,9 +10,8 @@ with a cross-type reducer.
 On the card a builtin (message, reduce) pair is one ``gspmm`` per
 relation (K1 for sum/mean, K4/K5 for max/min), and a UDF message with a
 builtin sum or mean reducer sums its messages over the relation's CSC
-rows (K1's edge-row mode); the cross-type reducers are torch.  A reduce
-UDF needs the padded mailbox of ``core/message.py``, not ported, and
-raises.  The JAX class is a pytree; this one moves with ``to(device)``.
+rows (K1's edge-row mode); a reduce UDF runs over each relation's padded
+mailbox in torch; the cross-type reducers are torch.  The JAX class is a pytree; this one moves with ``to(device)``.
 """
 from __future__ import annotations
 
@@ -183,20 +182,25 @@ class HeteroGraph:
         (sum, mean, max, min or stack) per dst node type, written into its
         frame.  A builtin pair is one ``gspmm``; a UDF message with a
         builtin reducer reduces its messages as edge data (``gspmm``
-        copy_e).  A reduce UDF (the padded mailbox, which ``max_degree``
-        sizes) raises: ``core/message.py`` is not ported."""
-        from .message import NodeBatch, _not_ported, reduce_messages
+        copy_e); a reduce UDF runs per relation over the padded mailbox
+        (``core/message.py:build_mailbox``, sized by ``max_degree``, the
+        largest in-degree over the relations, when given), and each field
+        it returns joins the cross-type reduction."""
+        from .message import (NodeBatch, _reduce_udf, compute_messages,
+                              reduce_messages)
 
         partials: Dict[str, Dict[str, list]] = {}
         for etype, spec in etype_dict.items():
             mf, rf = spec[0], spec[1]
             st, et, dt = self.to_canonical_etype(etype)
-            if not isinstance(rf, BuiltinReduce):
-                raise _not_ported("multi_update_all with a reduce UDF (the "
-                                  "padded mailbox)")
-            out = reduce_messages(self[(st, et, dt)], mf, rf)
-            partials.setdefault(dt, {}).setdefault(rf.out_field,
-                                                   []).append(out)
+            rel = self[(st, et, dt)]
+            if isinstance(rf, BuiltinReduce):
+                outs = {rf.out_field: reduce_messages(rel, mf, rf)}
+            else:
+                outs = _reduce_udf(rel, compute_messages(rel, mf), rf,
+                                   max_degree, self._node_frames[dt])
+            for field, out in outs.items():
+                partials.setdefault(dt, {}).setdefault(field, []).append(out)
 
         for dt, fields in partials.items():
             for field, outs in fields.items():

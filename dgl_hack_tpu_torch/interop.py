@@ -92,19 +92,50 @@ def _recurrent(cell: Mapping) -> Dict[str, np.ndarray]:
             "bias_ih": biases(ins), "bias_hh": biases(hid)}
 
 
+_CELL_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+
+
+def _recurrent_to_flax(cell: Mapping[str, np.ndarray]) -> Dict:
+    """Inverse of ``_recurrent``: a torch GRU or LSTM cell's stacked
+    weights as flax's gate kernels (and the biases flax keeps)."""
+    H = cell["weight_hh"].shape[1]
+    if cell["weight_ih"].shape[0] == 4 * H:
+        ins, hid = ("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho")
+        in_bias, hid_bias = False, (True,) * 4
+    else:
+        ins, hid = ("ir", "iz", "in"), ("hr", "hz", "hn")
+        in_bias, hid_bias = True, (False, False, True)
+    out: Dict = {}
+    for names, w, b, biased in ((ins, "weight_ih", "bias_ih",
+                                 (in_bias,) * len(ins)),
+                                (hid, "weight_hh", "bias_hh", hid_bias)):
+        for k, (name, keep) in enumerate(zip(names, biased)):
+            rows = slice(k * H, (k + 1) * H)
+            out[name] = {"kernel": cell[w][rows].T.copy()}
+            if keep:
+                out[name]["bias"] = cell[b][rows].copy()
+    return out
+
+
 def state_dict_to_flax(state: Mapping[str, torch.Tensor],
                        dense_modules=(), embed_modules=()) -> Dict:
     """Inverse of ``flax_to_state_dict``.  ``dense_modules`` names the
     sub-modules that are flax ``Dense`` layers (``nn.Linear`` here, e.g.
     ``"gat0.fc"``): their ``weight`` goes back to ``kernel (in, out)``;
     ``embed_modules`` those that are flax ``Embed`` layers
-    (``nn.Embedding``): their ``weight`` goes back to ``embedding``."""
+    (``nn.Embedding``): their ``weight`` goes back to ``embedding``.  A
+    module holding a recurrent cell's four stacked tensors goes back to
+    flax's gate kernels."""
     tree: Dict = {}
     dense = set(dense_modules)
     embed = set(embed_modules)
+    cells: Dict[tuple, Dict[str, np.ndarray]] = {}
     for key, val in state.items():
         *path, leaf = key.split(".")
         arr = val.detach().cpu().numpy()
+        if leaf in _CELL_LEAVES:
+            cells.setdefault(tuple(path), {})[leaf] = arr
+            continue
         if leaf == "weight" and ".".join(path) in dense:
             leaf, arr = "kernel", arr.T.copy()
         elif leaf == "weight" and ".".join(path) in embed:
@@ -113,6 +144,11 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor],
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = arr
+    for path, cell in cells.items():
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node.update(_recurrent_to_flax(cell))
     return {"params": tree}
 
 

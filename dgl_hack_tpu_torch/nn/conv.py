@@ -8,8 +8,9 @@ parameters convert one to one (``interop.py``) and outputs compare:
 * ``GATConv.fc`` is an ``nn.Linear`` (weight (out, in), no bias);
   ``attn_l``/``attn_r`` are (1, H, D);
 * ``SAGEConv``'s flax ``Dense`` layers are ``nn.Linear`` modules of the
-  same names (``fc_pool``, ``fc_self``, ``fc_neigh``); ``GINConv.eps`` is
-  a () parameter when learned;
+  same names (``fc_pool``, ``fc_self``, ``fc_neigh``), its lstm cell
+  flax's ``OptimizedLSTMCell_0`` as torch's stacked LSTM weights;
+  ``GINConv.eps`` is a () parameter when learned;
 * the layers ported from the rest of the JAX ``nn/conv.py`` (SGConv …
   DenseGraphConv) name their flax ``Dense`` layers as it does (``fc``,
   ``lin``, ``theta``, ``phi``, ``res_fc``), as ``init.Dense`` modules
@@ -261,31 +262,136 @@ def _init_linear(lin: nn.Module, in_feats: int, ref: Tensor) -> None:
         nn.init.zeros_(lin.bias)
 
 
-_SAGE_AGGREGATORS = ("mean", "gcn", "pool")
+_SAGE_AGGREGATORS = ("mean", "gcn", "pool", "lstm")
+
+
+class _LazyLSTMCell(LazyModuleMixin, nn.Module):
+    """flax's ``OptimizedLSTMCell`` at the width of its first input (hidden
+    = input width), as torch stacks an LSTM cell's weights (gates i, f, g,
+    o): ``weight_ih``/``weight_hh`` (4F, F) lecun-normal and orthogonal
+    per gate, ``bias_hh`` zero; ``bias_ih`` exists for ``interop``'s layout
+    and is held at 0 (flax's input gates have no bias).  Its forward is
+    the input projection, ``step`` one step of the recurrence."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight_ih = UninitializedParameter()
+        self.weight_hh = UninitializedParameter()
+        self.bias_ih = UninitializedParameter()
+        self.bias_hh = UninitializedParameter()
+
+    def initialize_parameters(self, x, *args, **kwargs) -> None:
+        if not self.has_uninitialized_params():
+            return
+        F_ = x.shape[-1]
+        with torch.no_grad():
+            for p, shape in ((self.weight_ih, (4 * F_, F_)),
+                             (self.weight_hh, (4 * F_, F_)),
+                             (self.bias_ih, (4 * F_,)),
+                             (self.bias_hh, (4 * F_,))):
+                p.materialize(shape, device=x.device, dtype=x.dtype)
+            lecun_normal_(self.weight_ih, F_)
+            orthogonal_blocks_(self.weight_hh, F_)
+            self.bias_ih.zero_()
+            self.bias_hh.zero_()
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.linear(x, self.weight_ih, self.bias_ih * 0.0)
+
+    def step(self, xw: Tensor, h: Tensor, c: Tensor):
+        """One step from the projected input ``xw`` (N, 4F)."""
+        gates = xw + F.linear(h, self.weight_hh, self.bias_hh)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def _zero_input_carry(cell: _LazyLSTMCell, width: int, like: Tensor
+                      ) -> Tensor:
+    """(1, F) hidden state after ``width`` steps over zero inputs from a
+    zero carry."""
+    xw = cell(like.new_zeros((1, like.shape[-1])))
+    h = like.new_zeros((1, xw.shape[-1] // 4))
+    c = torch.zeros_like(h)
+    for _ in range(width):
+        h, c = cell.step(xw, h, c)
+    return h
+
+
+def mailbox_lstm(cell: _LazyLSTMCell, g, feat_src: Tensor,
+                 width: int) -> Tensor:
+    """flax's ``nn.RNN(cell, return_carry=True)`` over each dst node's
+    padded mailbox of ``width`` slots (``build_mailbox``'s, padded edges
+    zero), as the JAX ``SAGEConv('lstm')`` runs it: the final hidden state
+    of each row at its length min(in-degree, width).
+
+    Only live rows step: the rows sorted by length, step t runs the
+    prefix of rows longer than t, and a row's carry is kept once its
+    length is reached (the JAX scan's later steps leave it unused), so
+    the work is the mailbox's real slots, not rows x width (one host
+    sync, for the rows live at each step).  The mailbox is built in that
+    order, time-major.  A row of length 0 takes what flax's carry
+    selection gives it: index -1, the carry after ``width`` steps over
+    zero inputs, the same for every such row, computed once.  As in
+    ``build_mailbox``, a row of in-degree above ``width`` has several
+    edges in its last slot, and which is left there is the scatter's
+    choice."""
+    from ..core.message import _box_rows, _slots
+    N = g.num_dst_nodes
+    lens = g.in_degrees().long().clamp(max=width)
+    per_len = torch.bincount(lens, minlength=width + 1).tolist()
+    live = [N - sum(per_len[:t + 1]) for t in range(width)]   # lens > t
+    longest = max([t + 1 for t in range(width) if live[t]], default=0)
+    order = torch.argsort(lens, descending=True, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(N, device=order.device)
+    steps = ()
+    if longest:
+        slot = _slots(g.csc_indptr, g.dst, width)
+        box = _box_rows(feat_src[g.src.long()], longest, N, slot,
+                        rank[g.dst.long()], g.edge_mask)
+        steps = box.unbind(0)                    # (N, F) per step, sorted
+    h = feat_src.new_zeros((live[0] if width else 0, feat_src.shape[-1]))
+    c = torch.zeros_like(h)
+    done = []                    # rows whose length is reached, by length
+    for t in range(longest):
+        n = live[t]
+        if n < h.shape[0]:
+            done.append(h[n:])
+            h, c = h[:n], c[:n]
+        h, c = cell.step(cell(steps[t][:n]), h, c)
+    done.append(h)
+    n_empty = N - (live[0] if width else 0)
+    if n_empty:
+        done.insert(0, _zero_input_carry(cell, width, feat_src).expand(
+            n_empty, -1))
+    return torch.cat(done[::-1])[rank]
 
 
 class SAGEConv(LazyModuleMixin, nn.Module):
-    """GraphSAGE layer with the 'mean', 'gcn' and 'pool' aggregators.
+    """GraphSAGE layer with the 'mean', 'gcn', 'pool' and 'lstm'
+    aggregators.
 
     mean: h_neigh = mean of the in-neighbours (K1 on CUDA); gcn: (sum of
     the in-neighbours + h_dst) / (in_degree + 1), then ``fc_neigh`` alone;
     pool: ``relu(fc_pool(h_src))`` (in -> in) and its max over the
-    in-neighbours (K4, with K5 in the backward, on CUDA).  For mean and
-    pool the output is ``fc_self(h_dst) + fc_neigh(h_neigh)``.  Like the
-    JAX layer, feature dropout takes two separate draws for the src and
-    the dst side of the same features.  On a block the dst side is the
-    pair's second tensor, and mean and pool count the block's real edges
-    (gspmm), gcn its in-degree, padding included (``Graph.in_degrees``),
-    as the JAX layer does."""
+    in-neighbours (K4, with K5 in the backward, on CUDA); lstm: the
+    in-neighbours' rows in the padded mailbox (``build_mailbox``, at most
+    ``lstm_max_degree`` slots), an LSTM over them (``OptimizedLSTMCell_0``,
+    hidden = input width, in torch: ``mailbox_lstm``) and its final hidden state at min(in-degree,
+    lstm_max_degree), as the JAX layer's flax ``nn.RNN``.  For all but gcn
+    the output is ``fc_self(h_dst) + fc_neigh(h_neigh)``.  Like the JAX
+    layer, feature dropout takes two separate draws for the src and the
+    dst side of the same features.  On a block the dst side is the pair's
+    second tensor, and mean and pool count the block's real edges (gspmm),
+    gcn and lstm its in-degree, padding included (``Graph.in_degrees``;
+    padded slots hold zeros), as the JAX layer does."""
 
     def __init__(self, out_feats: int, aggregator_type: str = "mean",
                  feat_drop: float = 0.0, use_bias: bool = True,
-                 activation: Optional[Callable] = None):
+                 activation: Optional[Callable] = None,
+                 lstm_max_degree: int = 32):
         super().__init__()
-        if aggregator_type == "lstm":
-            raise NotImplementedError(
-                "SAGEConv's 'lstm' aggregator needs the neighbour mailbox, "
-                "which is not ported yet (ROADMAP: 'core/message.py')")
         if aggregator_type not in _SAGE_AGGREGATORS:
             raise KeyError(f"Aggregator type {aggregator_type} not "
                            "recognized.")
@@ -293,8 +399,11 @@ class SAGEConv(LazyModuleMixin, nn.Module):
         self.aggregator_type = aggregator_type
         self.feat_drop = feat_drop
         self.activation = activation
+        self.lstm_max_degree = lstm_max_degree
         self.fc_pool = nn.LazyLinear(0) if aggregator_type == "pool" \
             else None
+        if aggregator_type == "lstm":     # flax's name for the cell
+            self.OptimizedLSTMCell_0 = _LazyLSTMCell()
         self.fc_self = nn.LazyLinear(out_feats, bias=use_bias) \
             if aggregator_type != "gcn" else None
         self.fc_neigh = nn.LazyLinear(out_feats, bias=use_bias)
@@ -307,6 +416,8 @@ class SAGEConv(LazyModuleMixin, nn.Module):
         if self.fc_pool is not None:
             self.fc_pool.out_features = in_feats
             _init_linear(self.fc_pool, in_feats, feat_src)
+        if self.aggregator_type == "lstm":
+            self.OptimizedLSTMCell_0.initialize_parameters(feat_src)
         if self.fc_self is not None:
             _init_linear(self.fc_self, feat_dst.shape[-1], feat_dst)
         _init_linear(self.fc_neigh, in_feats, feat_src)
@@ -323,9 +434,12 @@ class SAGEConv(LazyModuleMixin, nn.Module):
             s = gspmm(g, "copy_lhs", "sum", h_src)
             degs = g.in_degrees().to(h_dst.dtype)
             h_neigh = (s + h_dst) / (degs[:, None] + 1)
-        else:
+        elif self.aggregator_type == "pool":
             p = torch.relu(self.fc_pool(h_src))
             h_neigh = gspmm(g, "copy_lhs", "max", p)
+        else:
+            h_neigh = mailbox_lstm(self.OptimizedLSTMCell_0, g, h_src,
+                                   self.lstm_max_degree)
         if self.aggregator_type == "gcn":
             rst = self.fc_neigh(h_neigh)
         else:

@@ -3,9 +3,11 @@ train_sage_sampling.py): per step the host samples one block per layer
 (``MultiLayerNeighborSampler``, padded to static shapes, so every block
 carries an edge mask), the blocks and the input rows go to the card, and
 GraphSAGE trains on them through the segment-sum kernel (mean and gcn
-aggregators) or the segment-max kernels (pool).
+aggregators), the segment-max kernels (pool) or an LSTM over each dst
+node's padded mailbox in torch (lstm).
 
 Usage: python examples/train_sage_sampling_torch.py --num-epochs 3
+       [--aggregator mean|gcn|pool|lstm]   (the JAX example's is mean)
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead.  With no card and no ``--device cpu`` it exits with an
 error.  The dataset is the JAX example's stand-in for Reddit
@@ -150,6 +152,8 @@ def main():
     p.add_argument("--num-hidden", type=int, default=16)
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--aggregator", default="mean",
+                   choices=["mean", "gcn", "pool", "lstm"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -159,8 +163,8 @@ def main():
     ds = synthetic_reddit(num_nodes=int(232965 * args.reddit_scale))
     res = train(ds, fanouts=[int(f) for f in args.fan_out.split(",")],
                 batch_size=args.batch_size, num_hidden=args.num_hidden,
-                lr=args.lr, dropout=args.dropout, num_epochs=args.num_epochs,
-                device=args.device)
+                lr=args.lr, dropout=args.dropout, aggregator=args.aggregator,
+                num_epochs=args.num_epochs, device=args.device)
     print(json.dumps({"dataset": ds.name, "test_acc": float(res["test_acc"])}))
 
 

@@ -1,17 +1,27 @@
 """The port's example CLIs run end to end on the CPU when asked
 (``--device cpu``) and print their one JSON line; without a card and
 without ``--device cpu`` they refuse to run; their stand-in datasets are
-the JAX package's."""
+the JAX package's.  The Tree-LSTM twin's first five losses agree with the
+JAX example's loop (``pull`` per topological frontier, a UDF reduce over
+the mailbox, Adam) from the same parameters to 1e-5 (relative), and the
+PageRank twin with the JAX example's iteration to 1e-6."""
+import importlib.util
 import json
 import os
 import pathlib
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
+import dgl_hack_tpu as dgl
+from dgl_hack_tpu.core.message import pull as jpull
+from dgl_hack_tpu.core.traversal import topological_nodes_generator
 from dgl_hack_tpu.data import CoraGraphDataset
 
 from dgl_hack_tpu_torch.data import synthetic_citation
@@ -32,6 +42,8 @@ CLI_CASES = [
     ("train_tagcn_torch.py", ["--epochs", "3"]),
     ("train_rgcn_torch.py", ["--epochs", "3"]),
     ("train_rgcn_hetero_torch.py", ["--epochs", "3"]),
+    ("train_tree_lstm_torch.py", ["--epochs", "2", "--n_trees", "10"]),
+    ("pagerank_torch.py", ["--n", "80", "--iters", "15"]),
 ]
 # the dataset name each CLI prints (the JAX twin's)
 DATASETS = {"train_gin_torch.py": "SBM-mixture",
@@ -39,6 +51,7 @@ DATASETS = {"train_gin_torch.py": "SBM-mixture",
             "train_rgcn_torch.py": "aifb",
             "train_rgcn_hetero_torch.py": "academic-synth"}
 SCRIPTS = [script for script, _ in CLI_CASES]
+REFUSE_ARGS = {"pagerank_torch.py": ["--iters", "1"]}
 
 
 def _start_example(script, args):
@@ -57,9 +70,9 @@ def runs():
     procs = {("cpu", script): _start_example(script, [*args, "--device",
                                                       "cpu"])
              for script, args in CLI_CASES}
-    procs.update({("refuse", script): _start_example(script, ["--epochs",
-                                                              "1"])
-                  for script in SCRIPTS})
+    procs.update({("refuse", script): _start_example(
+        script, REFUSE_ARGS.get(script, ["--epochs", "1"]))
+        for script in SCRIPTS})
     done = {}
 
     def result(key):
@@ -82,6 +95,16 @@ def test_example_cli(runs, script, args):
     if script == "train_transformer_torch.py":
         assert (out["dataset"], out["model"]) == ("copy", "graph-transformer")
         assert 0.0 <= out["token_acc"] <= 1.0 and out["train_time_s"] >= 0
+        return
+    if script == "train_tree_lstm_torch.py":
+        assert (out["model"], out["epochs"]) == ("ChildSumTreeLSTM", 2)
+        assert 0.0 <= out["test_acc"] <= 1.0 and out["train_time_s"] >= 0
+        return
+    if script == "pagerank_torch.py":
+        pv = _jax_pagerank(80, 600, 15, 0.85)
+        assert out == {"model": "pagerank", "iters": 15,
+                       "sum": round(float(pv.sum()), 4),
+                       "top5": np.argsort(pv)[::-1][:5].tolist()}
         return
     assert out["dataset"] == DATASETS.get(script, "cora-synth")
     assert 0.0 <= out["test_acc"] <= 1.0 and out["train_time_s"] > 0
@@ -107,3 +130,100 @@ def test_citation_standin_matches_jax(monkeypatch, tmp_path):
         np.testing.assert_array_equal(getattr(dj, name), getattr(dtt, name))
     np.testing.assert_array_equal(np.asarray(dj.graph.src),
                                   dtt.graph.src.numpy())
+
+
+def _twin(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _jax_pagerank(n, edges, iters, damp):
+    """examples/pagerank.py's loop, unjitted, on its graph."""
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, n, edges).astype(np.int32)
+    dst = rng.integers(0, n, edges).astype(np.int32)
+    g = dgl.graph((src, dst), num_nodes=n)
+    deg = jnp.maximum(g.out_degrees().astype(jnp.float32), 1.0)
+    pv = jnp.full((n, 1), 1.0 / n)
+    for _ in range(iters):
+        agg = dgl.gspmm(g, "copy_lhs", "sum", pv / deg[:, None])
+        pv = (1 - damp) / n + damp * agg
+    return np.asarray(pv[:, 0])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_pagerank_twin_matches_jax(masked):
+    import dgl_hack_tpu_torch as dt
+    rng = np.random.default_rng(1)
+    src, dst = rng.integers(0, 300, 2000), rng.integers(0, 300, 2000)
+    mask = rng.random(2000) > 0.2 if masked else None
+    gt = dt.graph((src, dst), num_nodes=300, edge_mask=mask)
+    gj = dgl.graph((src, dst), num_nodes=300, edge_mask=mask)
+    out = _twin("pagerank_torch").pagerank(gt, 12, 0.9).numpy()
+    deg = jnp.maximum(gj.out_degrees().astype(jnp.float32), 1.0)
+    pv = jnp.full((300, 1), 1.0 / 300)
+    for _ in range(12):
+        pv = 0.1 / 300 + 0.9 * dgl.gspmm(gj, "copy_lhs", "sum",
+                                          pv / deg[:, None])
+    np.testing.assert_allclose(out, np.asarray(pv[:, 0]), rtol=1e-6)
+
+
+def _jax_tree_loss(params, g, tokens, root, label, frontiers):
+    """examples/train_tree_lstm.py's run_tree and loss_fn (lines 88-119)."""
+    H = params["U_f"].shape[0]
+    x = params["emb"][tokens]
+    g.ndata["iou"] = x @ params["W_iou"] + params["b_iou"]
+    g.ndata["h"] = jnp.zeros((g.num_nodes(), H))
+    g.ndata["c"] = jnp.zeros((g.num_nodes(), H))
+
+    def message(edges):
+        return {"mh": edges.src["h"], "mc": edges.src["c"]}
+
+    def reduce(nodes):
+        mh, mc = nodes.mailbox["mh"], nodes.mailbox["mc"]
+        mask = nodes.mask[:, :, None]
+        h_tilde = (mh * mask).sum(1)
+        f = jax.nn.sigmoid(mh @ params["U_f"] + params["b_f"])
+        c_acc = (f * mc * mask).sum(1)
+        iou = nodes.data["iou"] + h_tilde @ params["U_iou"]
+        i, o, u = jnp.split(jax.nn.sigmoid(iou), 3, axis=1)
+        u = jnp.tanh(iou[:, 2 * H:])
+        c = i * u + c_acc
+        return {"h": o * jnp.tanh(c), "c": c}
+
+    for f in frontiers:
+        jpull(g, jnp.asarray(f, jnp.int32), message, reduce, max_degree=2)
+    logits = g.ndata["h"][root] @ params["W_out"]
+    return -jax.nn.log_softmax(logits)[label]
+
+
+def test_tree_lstm_twin_matches_jax():
+    """The same trees (same numpy seed) and parameters: the first five
+    Adam steps' losses within 1e-5 (relative) of the JAX example's loop,
+    and the trees' topological frontiers equal."""
+    twin = _twin("train_tree_lstm_torch")
+    trees = twin.make_trees(12, 6, 3)
+    params = twin.init_params(6, 8, 3, seed=3)
+    res = twin.train(trees, params, epochs=1, lr=1e-2, device="cpu",
+                     max_steps=5)
+    p = {k: jnp.asarray(v) for k, v in params.items()}
+    tx = optax.adam(1e-2)
+    opt = tx.init(p)
+    grad_fn = jax.jit(jax.value_and_grad(_jax_tree_loss),
+                      static_argnums=(3, 4, 5))
+    ref = []
+    for gt, tokens, root, label, frontiers in trees[:5]:
+        s, d = gt.host_edges()
+        gj = dgl.graph((s, d), num_nodes=gt.num_nodes())
+        assert tuple(tuple(int(v) for v in f) for f in
+                     topological_nodes_generator(gj)) == frontiers
+        loss, grads = grad_fn(p, gj, jnp.asarray(tokens), root, label,
+                              frontiers)
+        up, opt = tx.update(grads, opt)
+        p = optax.apply_updates(p, up)
+        ref.append(float(loss))
+    np.testing.assert_allclose(res["losses"], ref, rtol=1e-5)
+    assert res["steps"] == 5 and len(res["epoch_losses"]) == 1

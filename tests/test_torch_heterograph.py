@@ -2,8 +2,9 @@
 mirroring tests/test_heterograph.py: schema, update_all on one relation,
 multi_update_all with every per-relation and cross-type reducer (forward
 and the inputs' gradients), the conversions, batching, the API extras and
-HeteroGraphConv from JAX parameters.  A reduce UDF raises in the port
-(its mailbox is ``core/message.py``, not ported).
+HeteroGraphConv from JAX parameters.  A reduce UDF per relation runs over
+its mailbox, as in the JAX package (test_torch_message_udf.py holds its
+gradients).
 
 Tolerance: 1e-6 of max|ref| (f32 sums in another order); structure and
 integer arrays bitwise.
@@ -143,14 +144,23 @@ def test_multi_update_all_matches_jax(cross, reducer, udf_message):
 
 
 def test_multi_update_all_refuses_reduce_udf():
-    _, ht = _pair()
-    ht.nodes_data("user")["h"] = torch.ones(4, 2)
+    """A reduce UDF per relation (it raised until the mailbox was ported)
+    gives the JAX package's result; an unknown cross reducer still raises
+    ``ValueError``.  Gradients and more cross reducers:
+    test_torch_message_udf.py."""
+    hj, ht = _pair()
+    feats = _features(5)
+    outs = {}
+    for name, hg, f, conv in (("jax", hj, jfn, jnp.asarray),
+                              ("torch", ht, tfn, torch.from_numpy)):
+        hg.nodes_data("user")["h"] = conv(feats["user"])
 
-    def udf_reduce(nodes):
-        return {"agg": nodes.mailbox["m"].sum(1)}
-    with pytest.raises(NotImplementedError, match="core/message.py"):
-        ht.multi_update_all({"plays": (tfn.copy_u("h", "m"), udf_reduce)},
+        def udf_reduce(nodes):
+            return {"agg": nodes.mailbox["m"].sum(1) + 1.0}
+        hg.multi_update_all({"plays": (f.copy_u("h", "m"), udf_reduce)},
                             "sum")
+        outs[name] = np.asarray(hg.nodes_data("game")["agg"])
+    assert_close(outs["torch"], outs["jax"])
     with pytest.raises(ValueError, match="cross reducer"):
         ht.multi_update_all({"plays": (tfn.copy_u("h", "m"),
                                        tfn.sum("m", "agg"))}, "prod")

@@ -3,8 +3,8 @@ PyTorch port against the JAX package, on the CPU, from the same graph and
 numpy inputs.  Both run bare graphs (composed paths; the port's K6 combos
 run K6's plain version), so results agree to 1e-5 * max|ref| (exact f32,
 only the summation order differs).  Reduce UDFs, send/recv, pull/push,
-send_and_recv and group_apply_edges raise in the port until ROADMAP
-Queue 1 item 6 ports them.
+send_and_recv and group_apply_edges are held against the JAX package in
+test_torch_message_udf.py.
 """
 from dataclasses import astuple
 
@@ -137,21 +137,31 @@ def test_graph_edge_softmax(order):
 
 
 def test_reduce_udf_and_unported_calls_raise():
-    _, gt = _pair(5)
+    """The calls that raised before ``core/message.py`` was ported (a
+    reduce UDF in update_all, send_and_recv, pull, push, send/recv,
+    group_apply_edges) now run, with the JAX package's results (the full
+    parity suite is test_torch_message_udf.py)."""
+    gj, gt = _pair(5)
+    res = {}
+    for name, g, f, xp in (("jax", gj.local_var(), dgl.function, jnp),
+                           ("torch", gt.local_var(), fn, torch)):
+        def reduce_udf(nodes):
+            return {"out": nodes.mailbox["m"].sum(1)}
 
-    def reduce_udf(nodes):
-        return {"out": nodes.mailbox["m"].sum(1)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gt.update_all(fn.copy_u("h", "m"), reduce_udf)
-    for call in (lambda: gt.send_and_recv([0, 1], fn.copy_u("h", "m"),
-                                          fn.sum("m", "o")),
-                 lambda: gt.pull([0], fn.copy_u("h", "m"), fn.sum("m", "o")),
-                 lambda: gt.push([0], fn.copy_u("h", "m"), fn.sum("m", "o")),
-                 lambda: gt.send(fn.copy_u("h", "m")),
-                 lambda: gt.recv([0], fn.sum("m", "o")),
-                 lambda: gt.group_apply_edges("src", lambda e: {})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            call()
+        def group_udf(edges):
+            return {"g": edges.src["h"] * edges.mask[:, :, None, None]}
+        g.update_all(f.copy_u("h", "m"), reduce_udf)
+        g.send_and_recv([0, 1], f.copy_u("h", "m"), f.sum("m", "o1"))
+        g.pull([0], f.copy_u("h", "m"), f.sum("m", "o2"))
+        g.push([0], f.copy_u("h", "m"), f.sum("m", "o3"))
+        g.send(f.copy_u("h", "m"))
+        g.recv([0], f.sum("m", "o4"))
+        g.group_apply_edges("src", group_udf)
+        res[name] = [np.asarray(g.ndata[k]) for k in
+                     ("out", "o1", "o2", "o3", "o4")] + [
+            np.asarray(g.edata["g"])]
+    for a, b in zip(res["torch"], res["jax"]):
+        assert_close(a, b)
 
 
 def test_builtin_namespace_matches_jax():

@@ -136,11 +136,34 @@ def test_graphsage_pool_forward_and_step():
 
 @pytest.mark.parametrize("case", ["lstm"])
 def test_unported_sage_paths_raise(case):
-    """The lstm aggregator (its mailbox) is not ported: it raises, naming
-    the ROADMAP item.  Sampled blocks and (src, dst) features are held
-    against the JAX package in test_torch_sampling.py."""
-    with pytest.raises(NotImplementedError, match="core/message.py"):
-        SAGEConv(4, case)
+    """The lstm aggregator, which raised until the mailbox was ported: its
+    output and parameter gradients against the JAX layer's from the same
+    parameters, with nonzero gate biases (so that the rows without
+    in-edges, whose carry flax takes after the last step over zero
+    inputs, count).  Over sampled blocks: test_torch_sampling.py."""
+    rng = np.random.default_rng(4)
+    gj, gt = _graphs(rng)
+    x = rng.normal(size=(200, 6)).astype(np.float32)
+    jm = JSAGEConv(5, case)
+    params = jm.init(jax.random.PRNGKey(0), gj, jnp.asarray(x))
+    params = jax.tree_util.tree_map(
+        lambda a: a + 0.1 * jnp.asarray(rng.normal(size=a.shape), a.dtype),
+        params)
+    jm_fixed = _Fixed(jm, params)
+    _compare(jm_fixed, SAGEConv(5, case), gj, gt, x)
+
+
+class _Fixed:
+    """A flax module whose ``init`` returns the given parameters."""
+
+    def __init__(self, module, params):
+        self.module, self.params = module, params
+
+    def init(self, *args):
+        return self.params
+
+    def apply(self, *args):
+        return self.module.apply(*args)
 
 
 def test_train_graphsage_pool_on_cpu():

@@ -275,11 +275,12 @@ def test_graph_loader_matches_jax():
 # ---------------------------------------------------------------------------
 # GraphSAGE over blocks
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("agg", ["mean", "gcn", "pool"])
+@pytest.mark.parametrize("agg", ["mean", "gcn", "pool", "lstm"])
 def test_graphsage_over_blocks_matches_jax(graphs, agg):
     """Logits and parameter gradients of the block-list GraphSAGE from the
     JAX parameters, on one minibatch drawn with replacement; pool against
-    the JAX prepared blocks (ties), mean and gcn against the bare ones."""
+    the JAX prepared blocks (ties), mean, gcn and lstm (the mailbox of the
+    padded blocks) against the bare ones."""
     lj, lt = _loader_pair(graphs, True, batch_size=48)
     (ij, sj, bj), (it, st, bt) = next(iter(lj)), next(iter(lt))
     if agg == "pool":
@@ -324,7 +325,7 @@ def _twin():
     return mod
 
 
-@pytest.mark.parametrize("agg", ["mean", "pool"])
+@pytest.mark.parametrize("agg", ["mean", "pool", "lstm"])
 def test_twin_trains_on_cpu(agg):
     """A few CPU steps of the example's loop at its widths (602 features,
     hidden 16, 41 classes) on a small synthetic Reddit: the loss falls."""
