@@ -80,13 +80,28 @@ Phases, one JSON line each:
      view, timed, with the view's and its row plans' build time; and
      gspmm (u_mul_e sum, copy_lhs mean with gradients, copy_lhs max) on
      the block against references built on the host from the mask alone;
- 17. the sampled GraphSAGE example (``sage_sampling_train``,
+ 17. the native host sampler (``native_sampler``: the port's copy of
+     fastgraph.cpp built with g++ into build/, OpenMP or not) on full
+     synthetic Reddit at the sampled GraphSAGE's layer shapes (1,024
+     seeds at fanout 25, 32,768 at fanout 10), with and without
+     replacement: every pick a real in-edge of its seed, the counts
+     right, no repeats without replacement, the picks repeatable, its
+     host ms beside the plain numpy version; then the sampled GraphSAGE
+     example (``sage_sampling_train``,
      examples/train_sage_sampling_torch.py) on full synthetic Reddit at
      its widths: 20 minibatches with the mean aggregator and 5 with pool,
-     each evaluated on 4 test batches; per-step host sampling, copy, plan
+     each evaluated on 4 test batches; per-step host sampling (split into
+     sample_neighbors, to_block and the rest), copy, plan
      and device times, peak memory, the device's busy share over steps
      3-7 of a mean run of its own and the launches (K1; K4/K5; nothing
-     plain);
+     plain); the same mean loop through the prefetchers (``prefetch``):
+     ThreadedPrefetcher (losses equal to the unprefetched run's) and
+     PooledPrefetcher with 2 and 4 workers over 32 batches' worth of
+     training nodes (every one trained on), each with its step, busy
+     share and launches; and ``NodeFlow.prop_flow`` over the sampler's
+     blocks at F = 602 with mean (K1) and max (K4/K5), forward and the
+     parent features' gradient, against the CPU, each block timed
+     (``nodeflow``);
  18. R-GCN entity classification (``rgcn_train``, the model and trainer
      of examples/train_rgcn_torch.py) on synthetic AM at full stats
      (1,666,764 nodes, 11,976,642 edges, 266 relations) with the AM
@@ -122,7 +137,15 @@ Phases, one JSON line each:
  23. ``prop_nodes_topo`` on a 131,072-node DAG of 32 levels against the
      CPU (K1's edge-row mode once a level);
  24. the Tree-LSTM twin (``tree_lstm``) at hidden 150, its first losses
-     against the CPU's (no kernel on this path).
+     against the CPU's (no kernel on this path);
+ 25. the PinSAGE recommendation twin (``pinsage_rec``) at MovieLens-1M's
+     counts (6,040 users, 3,706 items): the PinSAGE sampler's host
+     seconds, 60 epochs (gspmm u_mul_e and copy_rhs: K1), the loss
+     falling, HITS@10 and MRR;
+ 26. the GraphSAGE control-variate twin (``sage_cv``: gspmm mean over
+     padded blocks, K1 through the real-edge view) and the adaptive-
+     sampling GCN twin (``adaptive_sampling``: full-graph gspmm mean, K1)
+     at their CLI defaults, losses finite and falling.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -142,7 +165,8 @@ the fp32 rate of 67 TFLOP/s (H100 SXM data sheet); its library time is
 one PyTorch call computing the same function where there is one
 (``torch.sparse.mm`` on a CSR matrix for K1, ``torch.segment_reduce``
 for its rows route, ``torch.sparse.sampled_addmm``
-on a CSR matrix, batched over heads, for K6's dot), timed only.
+on a CSR matrix, batched over heads, for K6's dot, the masked block's
+too), timed only.
 """
 import copy
 import json
@@ -2086,7 +2110,8 @@ def phase_masked_kernels(dt, sk, sm, gk, k6, checks, dev):
                 reps=3),
         nbytes(g.dst, g.src, rhs, dot) + int(torch.unique(g.src).numel())
         * 4 * H * D, g.num_edges() * H * D * 2,
-        "masked block, every slot, H=8, D=8")
+        "masked block, every slot, H=8, D=8",
+        library_ms=library_sddmm_ms(g, lhs, rhs, H, reps=3))
     # edge_softmax on the masked block (torch ops): padded slots get 0,
     # the rest agree with the CPU
     logits = t((g.num_edges(), H, 1))
@@ -2116,7 +2141,7 @@ def _load_twin(name="train_sage_sampling_torch"):
     return mod
 
 
-def _busy_share(twin, ds, dev, warm=2, steps=5, aggregator="mean"):
+def _busy_share(twin, ds, dev, warm=2, steps=5, aggregator="mean", **kw):
     """The device's busy share over training steps ``warm + 1`` to
     ``warm + steps`` of the twin's loop: torch.profiler
     runs from the sync that ends step ``warm`` to the one that ends step
@@ -2124,7 +2149,8 @@ def _busy_share(twin, ds, dev, warm=2, steps=5, aggregator="mean"):
     the sum is the busy time) is taken over that window's wall time.  The
     dataset's upload, the model's set-up, the warm steps and evaluation
     lie outside the window; the profiler's own cost lies inside it, so
-    ``window_ms_per_step`` beside the unprofiled step shows that cost."""
+    ``window_ms_per_step`` beside the unprofiled step shows that cost.
+    ``kw`` goes to the twin's ``train`` (a prefetcher)."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     marks = {}
@@ -2137,7 +2163,7 @@ def _busy_share(twin, ds, dev, warm=2, steps=5, aggregator="mean"):
             marks["t1"] = time.perf_counter()
             prof.stop()
     twin.train(ds, aggregator=aggregator, max_steps=warm + steps,
-               eval_batches=0, device=dev, log=None, on_step=on_step)
+               eval_batches=0, device=dev, log=None, on_step=on_step, **kw)
     wall = 1e3 * (marks["t1"] - marks["t0"])
     dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
                  if str(e.device_type).endswith("CUDA")) / 1e3
@@ -2154,20 +2180,66 @@ def _busy_share(twin, ds, dev, warm=2, steps=5, aggregator="mean"):
             "top": [{"name": n, "ms": ms} for n, ms in top[:8]]}
 
 
+class _HostSplit:
+    """Times the sampler's two host stages apart while it is entered:
+    ``sampling.neighbor``'s ``sample_neighbors`` and ``to_block`` (the
+    names ``MultiLayerNeighborSampler`` calls) are wrapped with host
+    clocks, and ``on_step`` (the twin's hook) closes each step's sums."""
+
+    STAGES = ("sample_neighbors", "to_block")
+
+    def __init__(self):
+        from dgl_hack_tpu_torch.sampling import neighbor
+        self.mod = neighbor
+        self.acc = dict.fromkeys(self.STAGES, 0.0)
+        self.steps = []
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.mod, n) for n in self.STAGES}
+        for name, fn in self.orig.items():
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.acc[_name] += 1e3 * (time.perf_counter() - t0)
+            setattr(self.mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+    def on_step(self, n):
+        self.steps.append(dict(self.acc))
+        self.acc = dict.fromkeys(self.STAGES, 0.0)
+
+    def split(self, sample_ms):
+        """Medians over steps 2.. of each stage's ms and of the rest of the
+        step's host sampling time (``sample_ms``, the twin's)."""
+        parts = {f"{n}_ms": [st[n] for st in self.steps]
+                 for n in self.STAGES}
+        parts["rest_ms"] = [t - sum(st.values())
+                            for t, st in zip(sample_ms, self.steps)]
+        return {k: float(np.median(v[1:])) for k, v in parts.items()}
+
+
 def phase_sage_sampling_train(build, ds, dev):
     """The sampled GraphSAGE twin's loop (examples/
     train_sage_sampling_torch.py) on full synthetic Reddit at the JAX
     example's widths (602 features, hidden 16, 41 classes, fanouts 10,25,
     batch 1,024, Adam at 3e-3, dropout 0.5): 20 minibatches with the mean
     aggregator and 5 with pool, each then evaluated on 4 test batches.
-    Per step the host's sampling and block build, the copy to the card,
-    the blocks' plans (real-edge view, row plans) and the device step are
-    timed apart; peak memory; the device's busy share over mean steps 3-7
-    of a run of its own under torch.profiler (``_busy_share``); the
-    launches (K1 for mean, K4/K5 for pool, no
-    plain path)."""
+    Per step the host's sampling and block build (the native sampler's
+    picks and the frontiers: ``sample_neighbors``; ``to_block``; the rest,
+    ``_HostSplit``), the copy to the card, the blocks' plans (real-edge
+    view, row plans) and the device step are timed apart; peak memory;
+    the device's busy share over mean steps 3-7 of a run of its own under
+    torch.profiler (``_busy_share``); the launches (K1 for mean, K4/K5 for
+    pool, no plain path).  Returns the launches and the mean run's
+    losses."""
     twin = _load_twin()
-    counts = {}
+    counts, mean_losses = {}, None
     for agg, steps, need in (("mean", 20, ("segment_sum.fwd",)),
                              ("pool", 5, ("segment_max.fwd",
                                           "segment_max.bwd"))):
@@ -2175,8 +2247,10 @@ def phase_sage_sampling_train(build, ds, dev):
         reset_peak_memory()
         build.LAUNCHES.reset()
         t0 = time.perf_counter()
-        res = twin.train(ds, aggregator=agg, max_steps=steps,
-                         eval_batches=4, device=dev, log=None)
+        with _HostSplit() as split:
+            res = twin.train(ds, aggregator=agg, max_steps=steps,
+                             eval_batches=4, device=dev, log=None,
+                             on_step=split.on_step)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         c = dict(build.LAUNCHES.counts)
@@ -2187,6 +2261,7 @@ def phase_sage_sampling_train(build, ds, dev):
                "losses": losses, "test_acc": res["test_acc"],
                "test_nodes": res["test_nodes"], "wall_s": wall,
                "median_ms_after_first": steady,
+               "host_split_ms": split.split(res["times"]["sample_ms"]),
                "step_total_ms": sum(steady.values()),
                "first_step_ms": {k: v[0] for k, v in res["times"].items()},
                "launches": c,
@@ -2204,13 +2279,14 @@ def phase_sage_sampling_train(build, ds, dev):
             problems.append(f"plain path ran on CUDA: {plain}")
         if agg == "mean":
             rec["profile"] = _busy_share(twin, ds, dev)
+            mean_losses = losses
         emit(rec)
         if problems:
             raise SystemExit(f"sage_sampling_{agg} failed: "
                              + "; ".join(problems))
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
-    return counts
+    return counts, mean_losses
 
 
 def _layer_graph(dt):
@@ -2305,7 +2381,21 @@ def phase_layers(dt, build, checks, dev):
     """Every layer and pooling of the slice, and GINConv(max), forward
     and backward on the card against the same module (same weights) on
     the CPU, on a batch holding a dst hub and a src hub of 700 edges; each
-    module's kernel launches on the card, and no plain path."""
+    module's kernel launches on the card, and no plain path.  torch's
+    deterministic algorithms are on for the phase: the gradients that are
+    0 up to rounding (``_grads_close``) come out of torch's index_add,
+    whose CUDA atomics add in another order on every run; without them,
+    on an H100, GlobalAttentionPooling's gate bias read from 5.8e-5 to
+    1.1e-4 against LAYER_TOL over seven runs of the same inputs, with
+    them 5.8e-5 every time."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _layers(dt, build, checks, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _layers(dt, build, checks, dev):
     g_c = _layer_graph(dt)
     g_d = g_c.to(dev)
     rng = np.random.default_rng(15)
@@ -3199,6 +3289,346 @@ def phase_sage_lstm_train(build, ds, checks, dev):
     return counts
 
 
+def _sampler_checks(native, csc, seeds, fanout, replace, seed):
+    """The native picks of ``seeds`` against what they must be: each a real
+    in-edge of its seed, min(fanout, degree) of them without replacement
+    (none repeated) and fanout with it (0 for a seed without in-edges),
+    the same picks again from the same seed."""
+    indptr = csc.indptr
+    pos, counts = native.rowwise_sample_native(indptr, csc.src, seeds,
+                                               fanout, replace, seed)
+    again = native.rowwise_sample_native(indptr, csc.src, seeds, fanout,
+                                         replace, seed)
+    deg = (indptr[seeds + 1] - indptr[seeds]).astype(np.int64)
+    want = np.where(deg > 0, fanout, 0) if replace else np.minimum(deg,
+                                                                   fanout)
+    rows = np.repeat(np.arange(len(seeds)), counts)
+    lo = indptr[seeds].astype(np.int64)[rows]
+    hi = indptr[seeds + 1].astype(np.int64)[rows]
+    ok = {"counts": bool((counts == want).all()),
+          "real_in_edges": bool(((pos >= lo) & (pos < hi)).all()),
+          "repeatable": bool(np.array_equal(again[0], pos)
+                             and np.array_equal(again[1], counts))}
+    if not replace:
+        key = rows * np.int64(len(csc.src)) + pos
+        ok["no_repeats"] = bool(len(np.unique(key)) == len(pos))
+    return ok, int(len(pos)), int((deg == 0).sum())
+
+
+def phase_native_sampler(ds):
+    """The native host sampler (dgl_hack_tpu_torch/native/fastgraph.cpp,
+    built with g++ into build/dgl_hack_tpu_torch/ at first use; which
+    library, and whether with OpenMP) on full synthetic Reddit at the
+    sampled GraphSAGE's two layer shapes: 1,024 training seeds at fanout
+    25 (layer 1) and the 32,768 padded src nodes of their block at fanout
+    10 (layer 0), with and without replacement.  Each pick must be a real
+    in-edge of its seed, the counts min(fanout, degree) without
+    replacement (no repeats) and fanout with it (0 for a seed without
+    in-edges), and a second call with the seed must repeat the picks.
+    The native call's host ms beside the plain numpy version's
+    (``neighbor._pick_uniform_plain``).  A library that does not build
+    fails the run: there is no other path."""
+    from dgl_hack_tpu_torch import native
+    from dgl_hack_tpu_torch.core.transform import to_block
+    from dgl_hack_tpu_torch.sampling import neighbor
+    t0 = time.perf_counter()
+    native.get_lib()
+    info = dict(native.BUILD_INFO)
+    lib = os.path.relpath(info["path"], REPO)
+    problems = []
+    if not lib.startswith(os.path.join("build", "dgl_hack_tpu_torch", "")):
+        problems.append(f"library built outside build/: {info['path']}")
+    g = ds.graph
+    csc = neighbor._get_csc(g)
+    rng = np.random.default_rng(31)
+    seeds1 = rng.choice(np.nonzero(ds.train_mask)[0], 1024, replace=False)
+    frontier, _ = neighbor.sample_neighbors(g, seeds1, 25, replace=True,
+                                            rng=rng)
+    cap = len(seeds1) * 25
+    _, seeds0, _ = to_block(frontier, seeds1, pad_num_edges=cap,
+                            pad_num_src=neighbor._round_up_pow2(
+                                len(seeds1) + cap))
+    res = {}
+    for name, seeds, fanout in (("layer1", seeds1, 25),
+                                ("layer0", seeds0, 10)):
+        seeds = np.asarray(seeds, np.int64)
+        for replace in (True, False):
+            key = f"{name}_{'replace' if replace else 'no_replace'}"
+            ok, picks, zero = _sampler_checks(native, csc, seeds, fanout,
+                                              replace, 12345)
+            res[key] = {
+                "seeds": len(seeds), "fanout": fanout, "picks": picks,
+                "zero_degree_seeds": zero, "checks": ok,
+                "native_ms": _host_ms(lambda: native.rowwise_sample_native(
+                    csc.indptr, csc.src, seeds, fanout, replace, 7)),
+                "plain_ms": _host_ms(lambda: neighbor._pick_uniform_plain(
+                    csc, seeds, fanout, replace, np.random.default_rng(7)),
+                    reps=3)}
+            problems += [f"{key}: {k}" for k, v in ok.items() if not v]
+    emit({"phase": "native_sampler", "library": lib,
+          "openmp": info["openmp"], "build_s": info["seconds"],
+          "host_cpus": os.cpu_count(), **res,
+          "seconds": time.perf_counter() - t0})
+    if problems:
+        raise SystemExit("native_sampler failed: " + "; ".join(problems))
+
+
+SAGE_BATCH = 1024              # the sampled twin's batch (its default)
+POOL_SEEDS = 32 * SAGE_BATCH
+
+
+def phase_prefetch(build, ds, dev, ref_losses):
+    """The sampled GraphSAGE twin's mean loop through the prefetchers
+    (``dgl_hack_tpu_torch.distributed``): ``ThreadedPrefetcher`` (capacity
+    2) over the same loader as ``sage_sampling_mean``, whose losses it
+    must repeat exactly (the same batches in the same order, each copied
+    from pinned memory on the worker's stream), then ``PooledPrefetcher``
+    with 2 and 4 workers over the first 32,768 training nodes (32
+    batches), each worker over its own shard, which must train on every
+    one of those nodes.  Per run: the step's parts (``sample_ms`` is the
+    wait for the next prefetched batch) and the whole step, medians over
+    the second half of the steps (the first drain what the workers
+    queued while the model was set up), the device's busy share over
+    five steps of a profiled run of its own after as many warm steps
+    (2 threaded, 10 pooled), and the launches (K1, nothing plain)."""
+    twin = _load_twin()
+    train_nid = np.nonzero(ds.train_mask)[0]
+    runs = (("thread", dict(prefetch="thread"), len(ref_losses), 2),
+            ("pool2", dict(prefetch="pool", num_workers=2,
+                           train_nids=train_nid[:POOL_SEEDS]), None, 10),
+            ("pool4", dict(prefetch="pool", num_workers=4,
+                           train_nids=train_nid[:POOL_SEEDS]), None, 10))
+    counts, recs, problems = {}, {}, []
+    for name, kw, steps, warm in runs:
+        torch.manual_seed(0)
+        build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        res = twin.train(ds, aggregator="mean", max_steps=steps,
+                         eval_batches=0, device=dev, log=None, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = dict(build.LAUNCHES.counts)
+        losses = res["losses"]
+        per_step = [sum(p) for p in zip(*res["times"].values())]
+        half = len(per_step) // 2
+        rec = {"steps": res["steps"], "wall_s": wall,
+               "median_ms_second_half": {
+                   k: float(np.median(v[half:]))
+                   for k, v in res["times"].items()},
+               "step_ms": float(np.median(per_step[half:])),
+               "step_ms_by_step": per_step, "losses": losses,
+               "launches": c}
+        if name == "thread":
+            diff = [abs(a - b) for a, b in zip(losses, ref_losses)]
+            rec["max_abs_loss_diff_vs_unprefetched"] = max(diff)
+            if losses != ref_losses:
+                problems.append(f"thread: losses differ from the "
+                                f"unprefetched loop by up to {max(diff)}")
+        else:
+            rec["distinct_seeds"] = res["distinct_seeds"]
+            rec["seeds"] = POOL_SEEDS
+            shards = np.array_split(kw["train_nids"], kw["num_workers"])
+            if res["distinct_seeds"] != POOL_SEEDS or res["steps"] != sum(
+                    -(-len(sh) // SAGE_BATCH) for sh in shards):
+                problems.append(f"{name}: {res['distinct_seeds']} of "
+                                f"{POOL_SEEDS} seeds in {res['steps']} "
+                                "steps")
+        if not all(np.isfinite(losses)):
+            problems.append(f"{name}: losses {losses}")
+        if c.get("segment_sum.fwd", 0) <= 0:
+            problems.append(f"{name}: K1 never launched")
+        plain = {k: v for k, v in c.items() if k.startswith("plain.")}
+        if plain:
+            problems.append(f"{name}: plain path ran on CUDA: {plain}")
+        rec["profile"] = _busy_share(twin, ds, dev, warm=warm, **kw)
+        recs[name] = rec
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    emit({"phase": "prefetch", **recs})
+    if problems:
+        raise SystemExit("prefetch failed: " + "; ".join(problems))
+    return counts
+
+
+def _nodeflow_run(nf, x, cot, how):
+    """prop_flow with copy_u and the ``how`` builtin from the parent
+    features ``x`` (requiring grad), then the backward of <out, cot>:
+    returns the seed layer's output and x's gradient."""
+    from dgl_hack_tpu_torch import fn
+    x = x.detach().clone().requires_grad_(True)
+    nf.copy_from_parent({"h": x})
+    nf.prop_flow(fn.copy_u("h", "m"), getattr(fn, how)("m", "h"))
+    out = nf.layers(nf.num_layers - 1)["h"]
+    (grad,) = torch.autograd.grad((out * cot).sum(), [x])
+    return out.detach(), grad
+
+
+def phase_nodeflow(build, ds, dev):
+    """``NodeFlow`` over the sampled GraphSAGE's blocks on full synthetic
+    Reddit (1,024 training seeds, fanouts 10 and 25, drawn with
+    replacement by ``NodeFlow.from_sampler`` onto the card) at F = 602:
+    ``prop_flow`` with copy_u and mean (K1 forward, K1 dx backward) and
+    with max (K4, K5), forward and the gradient of the parent features,
+    against the same NodeFlow's blocks on the CPU (<= 1e-4 of max|ref|,
+    ``LAYER_TOL``; the max forward exactly), each block's
+    ``block_compute`` timed (CUDA events), the launches (no plain path)."""
+    from dgl_hack_tpu_torch import fn
+    from dgl_hack_tpu_torch.sampling import (MultiLayerNeighborSampler,
+                                             NodeFlow)
+    seeds = np.nonzero(ds.train_mask)[0][:1024]
+    nf = NodeFlow.from_sampler(ds.graph, seeds, MultiLayerNeighborSampler(
+        (10, 25), replace=True, seed=0), device=dev)
+    ids = [nf.layer_parent_nid(i) for i in range(nf.num_layers)]
+    nf_cpu = NodeFlow([b.to("cpu") for b in nf.blocks], ids)
+    x = torch.from_numpy(ds.features)
+    x_dev = x.to(dev)
+    cot = torch.from_numpy(np.random.default_rng(41).normal(
+        size=(len(seeds), x.shape[1])).astype(np.float32))
+    rec = {"layers": [len(i) for i in ids],
+           "block_edges": [b.num_edges() for b in nf.blocks],
+           "real_edges": [nf.block_size(i) for i in range(nf.num_blocks)],
+           "F": int(x.shape[1])}
+    counts, problems = {}, []
+    for how in ("mean", "max"):
+        build.LAUNCHES.reset()
+        out, grad = _nodeflow_run(nf, x_dev, cot.to(dev), how)
+        torch.cuda.synchronize()
+        c = dict(build.LAUNCHES.counts)
+        ref, gref = _nodeflow_run(nf_cpu, x, cot, how)
+        err = {"fwd": rel_err(out.cpu(), ref), "dx": rel_err(grad.cpu(),
+                                                              gref)}
+        tol = 0.0 if how == "max" else LAYER_TOL
+        if not (err["fwd"] <= tol and err["dx"] <= LAYER_TOL) or \
+                not bool(torch.isfinite(out).all()):
+            problems.append(f"{how}: {err} against the CPU")
+        need = ("segment_sum.fwd",) if how == "mean" else \
+            ("segment_max.fwd", "segment_max.bwd")
+        problems += [f"{how}: {k} never launched" for k in need
+                     if c.get(k, 0) <= 0]
+        plain = {k: v for k, v in c.items() if k.startswith("plain.")}
+        if plain:
+            problems.append(f"{how}: plain path ran on CUDA: {plain}")
+        msg, red = fn.copy_u("h", "m"), getattr(fn, how)("m", "h")
+        with torch.no_grad():
+            block_ms = [cuda_ms(lambda b=b: nf.block_compute(b, msg, red),
+                                reps=5) for b in range(nf.num_blocks)]
+        rec[how] = {"rel_err_vs_cpu": err, "launches": c,
+                    "block_ms": block_ms}
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    del nf, nf_cpu, x_dev
+    torch.cuda.empty_cache()
+    emit({"phase": "nodeflow", **rec})
+    if problems:
+        raise SystemExit("nodeflow failed: " + "; ".join(problems))
+    return counts
+
+
+def _twin_checks(name, losses, c, need=("segment_sum.fwd",), window=3):
+    """Problems of a twin's run: losses not finite or not falling (the
+    mean of the last ``window`` below the first's), a kernel of ``need``
+    never launched, a plain path on the card."""
+    problems = []
+    if not losses or not all(np.isfinite(losses)):
+        problems.append(f"losses {losses}")
+    elif not np.mean(losses[-window:]) < np.mean(losses[:window]):
+        problems.append(f"loss did not fall: {losses}")
+    problems += [f"{k} never launched" for k in need if c.get(k, 0) <= 0]
+    plain = {k: v for k, v in c.items() if k.startswith("plain.")}
+    if plain:
+        problems.append(f"plain path ran on CUDA: {plain}")
+    if problems:
+        raise SystemExit(f"{name} failed: " + "; ".join(problems))
+
+
+def phase_pinsage_rec(build, dev):
+    """The PinSAGE recommendation twin (examples/train_pinsage_rec_torch.py)
+    at MovieLens-1M's counts (6,040 users, 3,706 items; the twin's
+    latent-factor stand-in, 12 items a user) and its other defaults
+    (hidden 64, 20 walks, 8 neighbors, 60 epochs, lr 3e-2): the
+    PinSAGESampler's host seconds, the epoch ms (gspmm u_mul_e with an
+    (E, 1) weight and copy_rhs, both K1), the loss falling, HITS@10 and
+    MRR, peak memory and the launches."""
+    twin = _load_twin("train_pinsage_rec_torch")
+    t0 = time.perf_counter()
+    data = twin.synth_movielens(6040, 3706)
+    data_s = time.perf_counter() - t0
+    built = twin.build(data, num_walks=20, num_neighbors=8)
+    reset_peak_memory()
+    build.LAUNCHES.reset()
+    res = twin.train(built, twin.init_params(built["num_items"], 64),
+                     epochs=60, lr=3e-2,
+                     num_negs=4, device=dev, log=None)
+    torch.cuda.synchronize()
+    c = dict(build.LAUNCHES.counts)
+    hits10, mrr = twin.evaluate(built, res, data[2], data[3], 100)
+    losses = res["losses"]
+    emit({"phase": "pinsage_rec", "users": 6040, "items": 3706,
+          "train_pairs": int(len(data[0])),
+          "item_graph_edges": built["gi"].num_edges(), "data_s": data_s,
+          "sampler_s": built["sample_s"],
+          "epoch_ms_median_after_first": float(np.median(
+              res["epoch_ms"][1:])), "first_epoch_ms": res["epoch_ms"][0],
+          "losses_every_10": losses[::10] + [losses[-1]], "hits10": hits10,
+          "mrr": mrr, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "launches": c})
+    _twin_checks("pinsage_rec", losses, c, window=5)
+    return c
+
+
+def phase_sage_cv(build, dev):
+    """The GraphSAGE control-variate twin (examples/train_sage_cv_torch.py)
+    at its CLI defaults on the card: a 2,000-node planted partition, fanouts
+    (2, 2), batches of 128, hidden 16, 15 epochs; gspmm mean over padded
+    blocks (K1 through the real-edge view) and full-graph inference (K1);
+    per-step host (sampling, exact history means) and device ms, the
+    losses, test accuracy and the launches."""
+    from dgl_hack_tpu_torch.data import planted_partition
+    twin = _load_twin("train_sage_cv_torch")
+    ds = planted_partition(2000, 5, 32, avg_degree=10.0, homophily=0.85,
+                           feat_noise=1.5, seed=0, train_per_class=60,
+                           num_val=100, num_test=400)
+    build.LAUNCHES.reset()
+    res = twin.train(ds, twin.init_params([32, 16, ds.num_classes], 0),
+                     device=dev)
+    torch.cuda.synchronize()
+    c = dict(build.LAUNCHES.counts)
+    losses = res["losses"]
+    emit({"phase": "sage_cv", "steps": len(losses),
+          "losses_first_last": [losses[:3], losses[-3:]],
+          "test_acc": res["test_acc"],
+          "median_ms_after_first": {k: float(np.median(v[1:]))
+                                    for k, v in res["times"].items()},
+          "launches": c})
+    _twin_checks("sage_cv", losses, c)
+    return c
+
+
+def phase_adaptive_sampling(build, dev):
+    """The adaptive-sampling GCN twin
+    (examples/train_adaptive_sampling_torch.py) at its CLI defaults on the
+    card: synthetic Cora, 150 epochs of batches of 256 with 256 sampled
+    nodes a layer, hidden 32; the sampled layers a segment_reduce sum
+    (torch's index_add, as the JAX example's segment sum is XLA's), the
+    full-graph evaluation gspmm mean (K1); per-epoch host and device ms,
+    the losses, test accuracy and the launches."""
+    from dgl_hack_tpu_torch.data import synthetic_cora
+    twin = _load_twin("train_adaptive_sampling_torch")
+    build.LAUNCHES.reset()
+    res = twin.train(synthetic_cora(), device=dev, log=None)
+    torch.cuda.synchronize()
+    c = dict(build.LAUNCHES.counts)
+    losses = res["losses"]
+    emit({"phase": "adaptive_sampling", "epochs": len(losses),
+          "losses_first_last": [losses[:5], losses[-5:]],
+          "test_acc": res["test_acc"], "train_s": res["train_s"],
+          "median_ms_after_first": {k: float(np.median(v[1:]))
+                                    for k, v in res["times"].items()},
+          "launches": c})
+    _twin_checks("adaptive_sampling", losses, c, window=10)
+    return c
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -3269,7 +3699,10 @@ def main() -> int:
                             timings)
     phase_sage_kernels(sm, sk, g, checks, dev, timings)
     c_sage = phase_sage_train(build, ds, g, dev)
-    c_sampled = phase_sage_sampling_train(build, ds, dev)
+    phase_native_sampler(ds)
+    c_sampled, mean_losses = phase_sage_sampling_train(build, ds, dev)
+    c_prefetch = phase_prefetch(build, ds, dev, mean_losses)
+    c_nodeflow = phase_nodeflow(build, ds, dev)
     c_lstm = phase_sage_lstm_train(build, ds, checks, dev)
     c_rmax = phase_reddit_max_subset(dt, build, sm, sk, g, checks, dev,
                                      timings)
@@ -3284,11 +3717,15 @@ def main() -> int:
     c_hetero = phase_rgcn_hetero_train(dt, build, checks, dev)
     c_topo = phase_prop_topo(dt, build, checks, dev)
     phase_tree_lstm(build, checks, dev)
+    c_pinsage = phase_pinsage_rec(build, dev)
+    c_cv = phase_sage_cv(build, dev)
+    c_adaptive = phase_adaptive_sampling(build, dev)
     phase_entry(dt, dev)
 
     runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled, c_rgcn,
-            c_hetero, c_pr, c_sub, c_lstm, c_rmax, c_topo)
-    max_runs = (c_sage, c_sampled, c_hetero, c_rmax)
+            c_hetero, c_pr, c_sub, c_lstm, c_rmax, c_topo, c_prefetch,
+            c_nodeflow, c_pinsage, c_cv, c_adaptive)
+    max_runs = (c_sage, c_sampled, c_hetero, c_rmax, c_nodeflow)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
                            if k.startswith("segment_sum.")),

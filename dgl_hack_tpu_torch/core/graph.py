@@ -265,12 +265,20 @@ class Graph:
         """Copy without feature frames (cheap; tensors are shared)."""
         return self.replace(node_frames=None, edge_frame=None)
 
-    def to(self, device) -> "Graph":
-        """Copy with every structure tensor and feature on ``device``."""
+    def to(self, device, non_blocking: bool = False) -> "Graph":
+        """Copy with every structure tensor and feature on ``device``.
+        ``non_blocking`` copies host tensors to the card through pinned
+        memory on the current stream without waiting for the copies: the
+        caller synchronises that stream before the graph is read."""
         device = torch.device(device)
+        pin = non_blocking and device.type == "cuda"
 
         def mv(t):
-            return None if t is None else t.to(device)
+            if t is None:
+                return None
+            if pin and t.device.type == "cpu":
+                t = t.pin_memory()
+            return t.to(device, non_blocking=non_blocking)
 
         out = self.replace(
             node_frames=tuple({k: mv(v) for k, v in f.items()}
@@ -278,7 +286,8 @@ class Graph:
             edge_frame={k: mv(v) for k, v in self._edge_frame.items()},
             host_cache=self._np_cache,
             **{n: mv(getattr(self, n)) for n in _STRUCT})
-        out.derived = {k: mv(v) for k, v in self.derived.items()}
+        out.derived = {k: None if v is None else v.to(device)
+                       for k, v in self.derived.items()}
         return out
 
     def __repr__(self):

@@ -1,18 +1,23 @@
 """Neighbor sampling into minibatch blocks, as
 ``dgl_hack_tpu.sampling.neighbor``.
 
-Sampling stays on the host in numpy, as in the JAX package (and in DGL,
-whose samplers run on the CPU too).  The port samples with the JAX
-package's numpy path: that package's native OpenMP sampler has no loader
-here yet (ROADMAP: 'sampling').  Before that path the sampler draws
-``rng.integers(1 << 62)``, the seed the JAX function hands its native
-sampler, so that one generator gives the same blocks in both packages.
+Sampling stays on the host, as in the JAX package (and in DGL, whose
+samplers run on the CPU too).  Uniform picks (``fanout >= 0`` and no
+``prob``), the path every minibatch loader takes, go through the native
+C++/OpenMP sampler (``native.rowwise_sample_native``), exactly where the
+JAX package takes its own: it draws ``rng.integers(1 << 62)`` and hands
+it to the sampler, whose picks are a function of that seed alone, so one
+generator gives the same frontiers, edge ids and blocks in both packages.
+``_pick_uniform_plain`` is that step's plain numpy version (the JAX
+package's fallback when its library does not build); tests call it, the
+samplers never do.  Taking all in-edges and weighted picks stay in numpy,
+as in the JAX package.
 
 Blocks have static shapes: with ``replace=True`` each block has exactly
 ``len(seeds) * fanout`` edges; without replacement it is padded to that
 count with masked edges, and the src set is padded to a power of two
 (``_round_up_pow2``).  The blocks' tensors stay on the host; a training
-loop moves them (``Graph.to``).
+loop moves them (``Graph.to``, or ``distributed.prefetch_to_device``).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import numpy as np
 from ..core.batch import batch as batch_graphs
 from ..core.graph import Graph, _build
 from ..core.transform import to_block
+from ..native import rowwise_sample_native
 
 
 class _HostCSC:
@@ -55,6 +61,42 @@ def _frontier(csc: _HostCSC, pos: np.ndarray, dst_sel: np.ndarray
     return frontier, csc.eid[pos].astype(np.int32)
 
 
+def _pick_uniform(csc: _HostCSC, nodes: np.ndarray, fanout: int,
+                  replace: bool, rng: np.random.Generator
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """``fanout`` uniform in-edges of each seed (with replacement; without
+    it min(fanout, degree)), by the native sampler from one seed drawn
+    from ``rng``.  Returns (CSC positions, picks per seed)."""
+    return rowwise_sample_native(csc.indptr, csc.src, nodes, fanout,
+                                 replace, int(rng.integers(1 << 62)))
+
+
+def _pick_uniform_plain(csc: _HostCSC, nodes: np.ndarray, fanout: int,
+                        replace: bool, rng: np.random.Generator
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain numpy version of ``_pick_uniform``: the same counts from
+    other draws.  It draws the native sampler's seed first and leaves it
+    unused, as the JAX package's numpy fallback does, so that it gives
+    that fallback's picks from one generator."""
+    rng.integers(1 << 62)
+    starts = csc.indptr[nodes].astype(np.int64)
+    degs = (csc.indptr[nodes + 1] - csc.indptr[nodes]).astype(np.int64)
+    if replace:
+        # fanout picks per seed; a seed without in-edges gets none
+        nz = degs > 0
+        r = rng.random((nz.sum(), fanout))
+        pick = (r * degs[nz][:, None]).astype(np.int64)
+        pos = (starts[nz][:, None] + pick).reshape(-1)
+        return pos, np.where(nz, fanout, 0).astype(np.int32)
+    pos_list = []
+    for s, c in zip(starts, degs):
+        if c:
+            pos_list.append(s + rng.choice(int(c), size=min(fanout, int(c)),
+                                           replace=False))
+    pos = np.concatenate(pos_list) if pos_list else np.zeros(0, np.int64)
+    return pos, np.minimum(degs, fanout).astype(np.int32)
+
+
 def sample_neighbors(g: Graph, nodes: Sequence[int], fanout: int,
                      replace: bool = False,
                      prob: Optional[np.ndarray] = None,
@@ -70,24 +112,17 @@ def sample_neighbors(g: Graph, nodes: Sequence[int], fanout: int,
     rng = rng or np.random.default_rng()
     csc = _get_csc(g)
     nodes = np.asarray(nodes, dtype=np.int64)
+    if fanout >= 0 and prob is None:
+        pos, counts = _pick_uniform(csc, nodes, fanout, replace, rng)
+        return _frontier(csc, pos, np.repeat(nodes, counts))
     starts = csc.indptr[nodes].astype(np.int64)
     degs = (csc.indptr[nodes + 1] - csc.indptr[nodes]).astype(np.int64)
-
-    if fanout >= 0 and prob is None:
-        rng.integers(1 << 62)     # the JAX package's native sampler's seed
 
     if fanout < 0:          # take all in-edges
         pos = np.concatenate([np.arange(s, s + c)
                               for s, c in zip(starts, degs)]) \
             if len(nodes) else np.zeros(0, np.int64)
         dst_sel = np.repeat(nodes, degs)
-    elif replace and prob is None:
-        # fanout uniform picks per seed; a seed without in-edges gets none
-        nz = degs > 0
-        r = rng.random((nz.sum(), fanout))
-        pick = (r * degs[nz][:, None]).astype(np.int64)
-        pos = (starts[nz][:, None] + pick).reshape(-1)
-        dst_sel = np.repeat(nodes[nz], fanout)
     elif replace:
         # weighted with replacement: inverse CDF over each seed's prefix
         # sums of the edge weights
@@ -101,18 +136,14 @@ def sample_neighbors(g: Graph, nodes: Sequence[int], fanout: int,
         pos = np.minimum(pick, np.repeat(starts[nz] + degs[nz] - 1, fanout))
         dst_sel = np.repeat(nodes[nz], fanout)
     else:
-        # without replacement: a partial permutation per seed
+        # weighted without replacement: a partial permutation per seed
         pos_list, dst_list = [], []
         for v, s, c in zip(nodes, starts, degs):
             if c == 0:
                 continue
             k = min(fanout, int(c))
-            if prob is not None:
-                p = prob[csc.eid[s:s + c]].astype(np.float64)
-                p = p / p.sum()
-                sel = rng.choice(int(c), size=k, replace=False, p=p)
-            else:
-                sel = rng.choice(int(c), size=k, replace=False)
+            p = prob[csc.eid[s:s + c]].astype(np.float64)
+            sel = rng.choice(int(c), size=k, replace=False, p=p / p.sum())
             pos_list.append(s + sel)
             dst_list.append(np.full(k, v, np.int64))
         pos = np.concatenate(pos_list) if pos_list else np.zeros(0, np.int64)

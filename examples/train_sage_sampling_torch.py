@@ -8,6 +8,7 @@ node's padded mailbox in torch (lstm).
 
 Usage: python examples/train_sage_sampling_torch.py --num-epochs 3
        [--aggregator mean|gcn|pool|lstm]   (the JAX example's is mean)
+       [--prefetch none|thread|pool] [--num-workers 2]
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead.  With no card and no ``--device cpu`` it exits with an
 error.  The dataset is the JAX example's stand-in for Reddit
@@ -35,23 +36,34 @@ def _sync(device) -> None:
 def train(ds, *, fanouts=(10, 25), batch_size=1024, num_hidden=16,
           lr=3e-3, dropout=0.5, aggregator="mean", num_epochs=1,
           max_steps=None, eval_batches=None, device="cuda", seed=0,
-          log=print, on_step=None):
+          log=print, on_step=None, prefetch=None, num_workers=2,
+          train_nids=None):
     """Train GraphSAGE on ``ds`` (a NodeClassificationDataset) over sampled
     blocks, then evaluate on its test nodes (at most 8,192, or
     ``eval_batches`` batches of them).
 
     Each step is timed in four parts, each ended by a device sync:
-    ``sample_ms`` the host's sampling and block build, ``copy_ms`` the
-    blocks' copy to the device and the gather of the input rows and
-    labels there, ``plan_ms`` the blocks' kernel plans (``prepare_spmm``:
-    the real-edge view and the row plans), ``step_ms`` forward, backward
-    and the Adam update.  ``max_steps`` stops training early.
-    ``on_step(n)``, where given, is called after the sync that ends the
-    n-th step (1-based).  Returns the losses, the per-step times, the step
-    count and test_acc."""
+    ``sample_ms`` the host's sampling and block build (with a prefetcher,
+    the wait for the next batch), ``copy_ms`` the blocks' copy to the
+    device and the gather of the input rows and labels there,
+    ``plan_ms`` the blocks' kernel plans (``prepare_spmm``: the real-edge
+    view and the row plans), ``step_ms`` forward, backward and the Adam
+    update.  ``max_steps`` stops training early.  ``on_step(n)``, where
+    given, is called after the sync that ends the n-th step (1-based).
+
+    ``prefetch`` samples ahead of the training loop and copies each batch
+    to the device in worker threads: ``"thread"`` one thread over the
+    loader (``ThreadedPrefetcher``, two batches ahead: the same batches in
+    the same order), ``"pool"`` ``num_workers`` threads, each over its own
+    shard of the training nodes with its own sampler, every node of a
+    shard in a batch (``PooledPrefetcher``).  ``train_nids`` replaces the
+    dataset's training nodes.  Returns the losses, the per-step times, the
+    step count, the number of distinct seeds trained on and test_acc."""
     import dgl_hack_tpu_torch as dt
     from dgl_hack_tpu_torch.models import GraphSAGE
     from dgl_hack_tpu_torch.models.training import masked_cross_entropy
+    from dgl_hack_tpu_torch.distributed import (PooledPrefetcher,
+                                                ThreadedPrefetcher)
     from dgl_hack_tpu_torch.sampling import (MultiLayerNeighborSampler,
                                              NodeDataLoader)
 
@@ -66,17 +78,35 @@ def train(ds, *, fanouts=(10, 25), batch_size=1024, num_hidden=16,
                       num_layers=len(fanouts), aggregator_type=aggregator,
                       dropout=dropout).to(device)
     sampler = MultiLayerNeighborSampler(fanouts, replace=True, seed=seed)
-    train_nid = np.nonzero(ds.train_mask)[0]
+    train_nid = np.nonzero(ds.train_mask)[0] if train_nids is None \
+        else np.asarray(train_nids)
     loader = NodeDataLoader(g, train_nid, sampler, batch_size,
                             drop_last=True, seed=seed)
+    if prefetch == "thread":
+        source = ThreadedPrefetcher(loader, capacity=2, device=device)
+    elif prefetch == "pool":
+        shards = np.array_split(train_nid, num_workers)
+
+        def make_loader(i):
+            return NodeDataLoader(
+                g, shards[i], MultiLayerNeighborSampler(
+                    fanouts, replace=True, seed=seed + 1000 + i),
+                batch_size, drop_last=False, seed=seed + i)
+        source = PooledPrefetcher(make_loader, num_workers=num_workers,
+                                  capacity=4, device=device)
+    elif prefetch is None:
+        source = loader
+    else:
+        raise ValueError(f"prefetch must be None, 'thread' or 'pool', got "
+                         f"{prefetch!r}")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def batch_on_device(input_nodes, seeds, blocks, times):
         t = time.perf_counter()
         blocks = [b.to(device) for b in blocks]
-        x = feats[torch.from_numpy(input_nodes).to(device).long()]
-        y = labels[torch.from_numpy(seeds).to(device).long()]
+        x = feats[torch.as_tensor(input_nodes).to(device).long()]
+        y = labels[torch.as_tensor(seeds).to(device).long()]
         _sync(device)
         times["copy_ms"].append(1e3 * (time.perf_counter() - t))
         t = time.perf_counter()
@@ -86,16 +116,17 @@ def train(ds, *, fanouts=(10, 25), batch_size=1024, num_hidden=16,
         return blocks, x, y
 
     times = {k: [] for k in ("sample_ms", "copy_ms", "plan_ms", "step_ms")}
-    losses, opt, steps = [], None, 0
+    losses, opt, steps, seen = [], None, 0, []
     for epoch in range(num_epochs):
         t_epoch = time.perf_counter()
-        it = iter(loader)
+        it = iter(source)
         while max_steps is None or steps < max_steps:
             t = time.perf_counter()
             batch = next(it, None)
             if batch is None:
                 break
             times["sample_ms"].append(1e3 * (time.perf_counter() - t))
+            seen.append(torch.as_tensor(batch[1]).cpu().numpy())
             blocks, x, y = batch_on_device(*batch, times)
             if opt is None:
                 with torch.no_grad():
@@ -115,6 +146,7 @@ def train(ds, *, fanouts=(10, 25), batch_size=1024, num_hidden=16,
             steps += 1
             if on_step is not None:
                 on_step(steps)
+        it.close()              # stops a prefetcher's workers
         if log is not None and losses:
             log(f"epoch {epoch}: {steps} batches, "
                 f"{time.perf_counter() - t_epoch:.2f}s, loss {losses[-1]:.4f}")
@@ -138,6 +170,8 @@ def train(ds, *, fanouts=(10, 25), batch_size=1024, num_hidden=16,
             correct += int((pred[:take] == ds.labels[seeds[:take]]).sum())
             total += take
     return {"losses": losses, "steps": steps, "times": times,
+            "distinct_seeds": int(len(np.unique(np.concatenate(seen))))
+            if seen else 0,
             "test_acc": correct / max(total, 1), "test_nodes": total}
 
 
@@ -154,6 +188,9 @@ def main():
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--aggregator", default="mean",
                    choices=["mean", "gcn", "pool", "lstm"])
+    p.add_argument("--prefetch", default="none",
+                   choices=["none", "thread", "pool"])
+    p.add_argument("--num-workers", type=int, default=2)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -164,7 +201,9 @@ def main():
     res = train(ds, fanouts=[int(f) for f in args.fan_out.split(",")],
                 batch_size=args.batch_size, num_hidden=args.num_hidden,
                 lr=args.lr, dropout=args.dropout, aggregator=args.aggregator,
-                num_epochs=args.num_epochs, device=args.device)
+                num_epochs=args.num_epochs, device=args.device,
+                prefetch=None if args.prefetch == "none" else args.prefetch,
+                num_workers=args.num_workers)
     print(json.dumps({"dataset": ds.name, "test_acc": float(res["test_acc"])}))
 
 

@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-import dgl_hack_tpu.native
 from dgl_hack_tpu import nn as jnn
 from dgl_hack_tpu import sampling as jsampling
 
@@ -28,8 +27,8 @@ from dgl_hack_tpu_torch import sampling as tsampling
 from dgl_hack_tpu_torch.interop import (dense_module_names,
                                         flax_to_state_dict,
                                         state_dict_to_flax)
-from test_torch_sampling import (N, _numpy_sampler, assert_close,  # noqa
-                                 graphs)
+from test_torch_sampling import (N, _highest_precision,  # noqa: F401
+                                 assert_close, graphs, pinned_paths)
 
 torch.set_num_threads(2)
 
@@ -43,20 +42,21 @@ def _np_tree(tree):
 # ---------------------------------------------------------------------------
 # bipartite layers
 # ---------------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def block_pair(graphs):
+@pytest.fixture(scope="module", params=["native", "plain"])
+def block_pair(graphs, request):
     """The outer block of one minibatch drawn without replacement: its
     seeds are distinct, seeds of fewer in-edges than the fanout leave
-    padding, and seeds 290.. have no in-edges."""
+    padding, and seeds 290.. have no in-edges.  Drawn by both packages'
+    native samplers, or by the port's plain version and the JAX numpy
+    fallback (test_torch_sampling.pinned_paths), the paths pinned."""
     gj, gt = graphs
     seeds = np.concatenate([np.arange(0, 100, 2), [N - 4, N - 2]])
     sj = jsampling.MultiLayerNeighborSampler([6], replace=False, seed=13)
     st = tsampling.MultiLayerNeighborSampler([6], replace=False, seed=13)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(dgl_hack_tpu.native, "rowwise_sample_native",
-                   lambda *args, **kwargs: None)
+    with pinned_paths(request.param) as calls:
         (bj,), _, _ = sj.sample_blocks(gj, seeds)
         (bt,), _, _ = st.sample_blocks(gt, seeds)
+    calls.check()
     assert not bool(bt.edge_mask.all())
     return bj, bt
 

@@ -44,12 +44,24 @@ CLI_CASES = [
     ("train_rgcn_hetero_torch.py", ["--epochs", "3"]),
     ("train_tree_lstm_torch.py", ["--epochs", "2", "--n_trees", "10"]),
     ("pagerank_torch.py", ["--n", "80", "--iters", "15"]),
+    ("train_metapath2vec_torch.py", ["--epochs", "1"]),
+    ("train_pinsage_rec_torch.py", ["--epochs", "3", "--users", "60",
+                                    "--items", "50"]),
+    ("train_sage_cv_torch.py", ["--epochs", "1"]),
+    ("train_adaptive_sampling_torch.py", ["--epochs", "3"]),
 ]
 # the dataset name each CLI prints (the JAX twin's)
 DATASETS = {"train_gin_torch.py": "SBM-mixture",
             "train_tagcn_torch.py": "synthetic",
             "train_rgcn_torch.py": "aifb",
             "train_rgcn_hetero_torch.py": "academic-synth"}
+# the keys of the JSON line of each CLI whose line has no test_acc
+OTHER_LINES = {
+    "train_metapath2vec_torch.py": {"model", "epochs", "intra_sim",
+                                    "inter_sim", "separation",
+                                    "train_time_s"},
+    "train_pinsage_rec_torch.py": {"dataset", "model", "hits10", "mrr",
+                                   "train_time_s"}}
 SCRIPTS = [script for script, _ in CLI_CASES]
 REFUSE_ARGS = {"pagerank_torch.py": ["--iters", "1"]}
 
@@ -105,6 +117,17 @@ def test_example_cli(runs, script, args):
         assert out == {"model": "pagerank", "iters": 15,
                        "sum": round(float(pv.sum()), 4),
                        "top5": np.argsort(pv)[::-1][:5].tolist()}
+        return
+    if script in OTHER_LINES:
+        assert set(out) == OTHER_LINES[script]
+        assert out.get("model") in ("metapath2vec", "pinsage")
+        assert all(np.isfinite(v) for k, v in out.items()
+                   if k not in ("model", "dataset"))
+        return
+    if script == "train_sage_cv_torch.py":
+        assert set(out) == {"dataset", "test_acc", "epochs", "loss"}
+        assert out["dataset"] == "synthetic" and out["epochs"] == 1
+        assert 0.0 <= out["test_acc"] <= 1.0 and np.isfinite(out["loss"])
         return
     assert out["dataset"] == DATASETS.get(script, "cora-synth")
     assert 0.0 <= out["test_acc"] <= 1.0 and out["train_time_s"] > 0

@@ -1,12 +1,17 @@
 """Neighbor sampling, ``to_block``, the loaders and the sampled GraphSAGE
 example twin in the PyTorch port, against the JAX package.
 
-The JAX sampler runs its numpy path: its native sampler is switched off
-here by making ``dgl_hack_tpu.native.rowwise_sample_native`` return None
-(nothing in the JAX package is edited), and one seed must then give the
-same blocks in both packages: edges, masks, permutations, ``src_ids`` and
-``_ID``, bit for bit.  The bipartite layers on these blocks are in
-test_torch_bipartite.py.
+The sampler tests run on two paths of the uniform pick (``sampler_path``):
+``native``, both packages' native samplers (the JAX library must have
+loaded), and ``plain``, the port's plain numpy version
+(``neighbor._pick_uniform_plain``) against the JAX numpy fallback, which
+runs when ``dgl_hack_tpu.native.rowwise_sample_native`` returns None
+(made so here; nothing in the JAX package is edited).  Each test counts
+the calls of each side's path and pins them.  On either path one seed
+must give the same blocks in both packages: edges, masks, permutations,
+``src_ids`` and ``_ID``, bit for bit.  The bipartite layers on these
+blocks are in test_torch_bipartite.py; GraphSAGE over blocks draws them
+natively.
 
 GraphSAGE over blocks drawn with replacement (as the example draws them;
 repeated picks tie in a max) comes from the JAX parameters
@@ -19,6 +24,7 @@ The twin's loop trains a few CPU steps at the example's widths; its loss
 must fall (the mean of the last three losses below that of the first
 three).
 """
+import contextlib
 import importlib.util
 import json
 import os
@@ -45,6 +51,7 @@ from dgl_hack_tpu_torch.interop import (dense_module_names,
                                         flax_to_state_dict,
                                         state_dict_to_flax)
 from dgl_hack_tpu_torch.models import GraphSAGE
+from dgl_hack_tpu_torch.sampling import neighbor as tneighbor
 
 torch.set_num_threads(2)
 
@@ -56,11 +63,78 @@ STRUCT = ("src", "dst", "csc_indptr", "csr_indptr", "csr_eids", "int2user",
 
 
 @pytest.fixture(autouse=True)
-def _numpy_sampler(monkeypatch):
-    """The JAX sampler on its numpy path, Pallas at full f32 precision."""
-    monkeypatch.setattr(dgl_hack_tpu.native, "rowwise_sample_native",
-                        lambda *args, **kwargs: None)
+def _highest_precision(monkeypatch):
+    """Pallas at full f32 precision."""
     monkeypatch.setenv("DGL_TPU_SPMM_MODE", "highest")
+
+
+class PathCalls:
+    """Calls of each package's uniform-pick path under ``pinned_paths``."""
+
+    def __init__(self, path):
+        self.path = path
+        self.counts = {"jax_native": 0, "jax_numpy": 0, "port_native": 0,
+                       "port_plain": 0}
+
+    def check(self, uniform=True):
+        """Each side took ``path`` as often as the other, at least once,
+        and never the other path; with ``uniform=False`` neither took
+        either (taking all in-edges, weighted picks)."""
+        c = self.counts
+        mine = ("jax_native", "port_native") if self.path == "native" \
+            else ("jax_numpy", "port_plain")
+        n = c[mine[0]]
+        assert c[mine[1]] == n and (n > 0) == uniform, c
+        assert all(v == 0 for k, v in c.items() if k not in mine), c
+
+
+@contextlib.contextmanager
+def pinned_paths(path):
+    """Run both packages' uniform picks on ``path`` ('native' or 'plain'),
+    counting each side's calls (``PathCalls``)."""
+    calls = PathCalls(path)
+    jax_native = dgl_hack_tpu.native.rowwise_sample_native
+    port_native = tneighbor.rowwise_sample_native
+    port_plain = tneighbor._pick_uniform_plain
+
+    def jax_pick(*args, **kwargs):
+        if path == "plain":
+            calls.counts["jax_numpy"] += 1
+            return None
+        calls.counts["jax_native"] += 1
+        res = jax_native(*args, **kwargs)
+        assert res is not None, "the JAX native sampler did not load"
+        return res
+
+    def port_native_pick(*args, **kwargs):
+        calls.counts["port_native"] += 1
+        return port_native(*args, **kwargs)
+
+    def port_plain_pick(*args, **kwargs):
+        calls.counts["port_plain"] += 1
+        return port_plain(*args, **kwargs)
+
+    if path == "native":
+        assert dgl_hack_tpu.native.get_lib() is not None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dgl_hack_tpu.native, "rowwise_sample_native", jax_pick)
+        mp.setattr(tneighbor, "rowwise_sample_native", port_native_pick)
+        if path == "plain":
+            mp.setattr(tneighbor, "_pick_uniform", port_plain_pick)
+        yield calls
+
+
+@pytest.fixture(params=["native", "plain"])
+def sampler_path(request):
+    with pinned_paths(request.param) as calls:
+        yield calls
+
+
+@pytest.fixture
+def native_path():
+    """Both packages on their native samplers, the paths pinned."""
+    with pinned_paths("native") as calls:
+        yield calls
 
 
 def _np_tree(tree):
@@ -112,8 +186,8 @@ SAMPLE_CASES = [("all", -1, False, False), ("replace", 6, True, False),
 
 
 @pytest.mark.parametrize("case,fanout,replace,weighted", SAMPLE_CASES)
-def test_sample_neighbors_matches_jax(graphs, case, fanout, replace,
-                                      weighted):
+def test_sample_neighbors_matches_jax(graphs, sampler_path, case, fanout,
+                                      replace, weighted):
     gj, gt = graphs
     rng = np.random.default_rng(1)
     seeds = np.concatenate([rng.choice(N - 10, 40, replace=False),
@@ -130,6 +204,7 @@ def test_sample_neighbors_matches_jax(graphs, case, fanout, replace,
     if fanout > 0:
         per_seed = np.bincount(ft.host_edges()[1], minlength=N)[seeds]
         assert per_seed.max() <= fanout
+    sampler_path.check(uniform=fanout >= 0 and not weighted)
 
 
 TO_BLOCK_CASES = {
@@ -142,7 +217,7 @@ TO_BLOCK_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(TO_BLOCK_CASES))
-def test_to_block_matches_jax(graphs, case):
+def test_to_block_matches_jax(graphs, sampler_path, case):
     """Repeated dst ids keep the last place in both maps; padding carries
     a mask and the permutations, even at an exact fit."""
     gj, gt = graphs
@@ -164,6 +239,7 @@ def test_to_block_matches_jax(graphs, case):
     assert (bt.edge_mask is not None) == (kw["pad_num_edges"] is not None)
     if case == "exact_fit":
         assert bool(bt.edge_mask.all()) and bt.int2user is not None
+    sampler_path.check()
 
 
 def _loader_pair(graphs, replace, fanouts=(3, 5), batch_size=64,
@@ -182,7 +258,7 @@ def _loader_pair(graphs, replace, fanouts=(3, 5), batch_size=64,
 
 
 @pytest.mark.parametrize("replace", [True, False])
-def test_node_loader_blocks_match_jax(graphs, replace):
+def test_node_loader_blocks_match_jax(graphs, sampler_path, replace):
     """Every minibatch of a padded multi-layer sampler, the last one padded
     with repeated seeds: blocks, masks, input nodes, seeds and _ID."""
     lj, lt = _loader_pair(graphs, replace)
@@ -201,6 +277,9 @@ def test_node_loader_blocks_match_jax(graphs, replace):
     assert batches == 3
     # layer 0's dst set is layer 1's padded src set, zeros included
     assert bt[0].num_dst_nodes == bt[1].num_src_nodes
+    sampler_path.check()
+    assert sampler_path.counts["jax_" + ("native" if sampler_path.path ==
+                                         "native" else "numpy")] == 6
 
 
 def test_select_topk_and_layer_sampler_match_jax(graphs):
@@ -276,13 +355,14 @@ def test_graph_loader_matches_jax():
 # GraphSAGE over blocks
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("agg", ["mean", "gcn", "pool", "lstm"])
-def test_graphsage_over_blocks_matches_jax(graphs, agg):
+def test_graphsage_over_blocks_matches_jax(graphs, native_path, agg):
     """Logits and parameter gradients of the block-list GraphSAGE from the
     JAX parameters, on one minibatch drawn with replacement; pool against
     the JAX prepared blocks (ties), mean, gcn and lstm (the mailbox of the
     padded blocks) against the bare ones."""
     lj, lt = _loader_pair(graphs, True, batch_size=48)
     (ij, sj, bj), (it, st, bt) = next(iter(lj)), next(iter(lt))
+    native_path.check()
     if agg == "pool":
         bj = [dgl.prepare_spmm(b, te=256, bc=8, wc=2) for b in bj]
     feats = np.random.default_rng(15).normal(size=(N, 9)).astype(np.float32)
