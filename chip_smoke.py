@@ -145,11 +145,38 @@ Phases, one JSON line each:
  26. the GraphSAGE control-variate twin (``sage_cv``: gspmm mean over
      padded blocks, K1 through the real-edge view) and the adaptive-
      sampling GCN twin (``adaptive_sampling``: full-graph gspmm mean, K1)
-     at their CLI defaults, losses finite and falling.
+     at their CLI defaults, losses finite and falling;
+ 27. bf16 rows (``bf16_kernels``, after phase 9): K1 in every mode
+     (forward, dx, edge rows) and weight kind (none, (E,) float32 and
+     bf16, (E, F) float32, and a float32 result) at F = 7 and 1 on phase
+     2's small graph and at bench.py's graph (F = 128), K4/K5 there, K1's
+     edge-row mode at the GIN readout (1,024 x 24, F = 32) and every
+     kernel on the masked layer-0 block (F = 602); each timed at bench.py's
+     shape and on the block beside the float32 kernel on the same shape,
+     its plain version and torch.sparse.mm on a bf16 CSR (or torch's
+     message where it refuses); ``bf16_reddit`` (after phase 6): the same
+     at synthetic Reddit's F = 602 padded to 640 (64 bf16 columns a line)
+     as GspmmSum and GspmmMax run it, then gspmm max in bf16 forward and
+     backward through dt.gspmm, K4/K5's main path, launches counted;
+ 28. bench.py's loop (``headline``): its graph prepared as bench.py does
+     (the dense-hub hybrid: threshold 28,000, budget 6 GB), with the
+     port's default threshold and with dense_hub=False (K1 alone), each
+     run as bench.py runs it (K = 12 minus K = 2 chained gspmm(copy_lhs,
+     sum) * 1e-3, one readback) in float32 and with a bf16 carry: edges/s,
+     share of the compulsory-byte bound, windows, dense rows, C's bytes and
+     build ms, peak memory; one iteration of each hybrid against K1 alone;
+ 29. the hybrid's parts (``hybrid``) at bench.py's shape, forward and
+     backward, in float32 and bf16, against K1 alone, with the inputs of
+     the port's default breakeven as this run measures them.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
-Tolerances (max abs error / max |reference|): K1 (its rows route too)
+Tolerances (max abs error / max |reference|): bf16 sums (K1, K5 dx
+under a weight, the hybrid) within one bf16 ulp of the float64 sum of the
+same values plus K1_TOL * max|reference| (``BF16_ULPS``: the order of the
+float32 sums); bf16 max/min and K5's dx of an integer cotangent equal to
+their plain versions; a float32 hybrid within 1e-5 of K1 alone.  K1 (its
+rows route too)
 and K5 <= 2e-5 against their plain versions run in float64 (the kernels'
 f32 sums); the slice's layers <= 1e-4 against the CPU (``LAYER_TOL``);
 K2, K3 <= 1e-4 against their f32 plain versions (the exp adds rounding);
@@ -182,6 +209,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 K1_TOL, GAT_TOL, K5_TOL = 2e-5, 1e-4, 2e-5
 LAYER_TOL = 1e-4
 K6_DOT_TOL, K6_BWD_TOL = 1e-5, 2e-5
+BF16_ULPS = 1.0        # bf16 sums: ulps of the float64 sum, + K1_TOL of max
+HYBRID_TOL = 1e-5      # a float32 hybrid against K1 alone
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 
 
@@ -451,7 +480,9 @@ def phase_k1(dt, sk, checks, dev):
     t0 = time.perf_counter()
     gb = random_power_law_graph(1_000_000, 16.0, alpha=2.1, seed=0)
     build_s = time.perf_counter() - t0
-    gb = dt.prepare_spmm(gb, device=dev)
+    # K1 alone: the phases that share this graph measure K1 (the port's
+    # default would densify its hub window; ``headline`` measures that)
+    gb = dt.prepare_spmm(gb, dense_hub=False, device=dev)
     F = 128
     errs = _k1_cases(sk, gb, F, checks, "bench", rng, weights=False,
                      plans=True)
@@ -3629,6 +3660,573 @@ def phase_adaptive_sampling(build, dev):
     return c
 
 
+# ---------------------------------------------------------------------------
+# bf16 storage (K1, K4, K5) and the dense-hub hybrid
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+
+
+def bf16_ulp(v):
+    """One bf16 ulp (8 significant bits) at each |v|, in float64."""
+    a = v.double().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def bf16_err(out, ref):
+    """max over elements of |out - ref| / (one bf16 ulp at the larger of
+    the two + K1_TOL * max|ref|): <= 1 is ``BF16_ULPS``'s pass."""
+    if not ref.numel():
+        return 0.0
+    o, r = out.double(), ref.double()
+    allow = bf16_ulp(torch.maximum(o.abs(), r.abs())) + K1_TOL * float(
+        r.abs().max())
+    return float(((o - r).abs() / allow).max())
+
+
+def bf16_check(checks, kernel, what, out, ref, again):
+    """A bf16 sum (``BF16_ULPS``): within one bf16 ulp of the float64 sum
+    of the same bf16 values, plus the float32 kernels' own tolerance
+    (K1_TOL of max|ref|) for the order of the float32 sums; repeated
+    bitwise."""
+    out, ref = out.detach(), ref.detach()
+    err = bf16_err(out, ref)
+    checks.max_abs[kernel] = max(checks.max_abs.get(kernel, 0.0),
+                                 abs_err(out.double(), ref.double()))
+    if not (err <= BF16_ULPS) or not bool(out.isfinite().all()):
+        checks.failures.append(f"{kernel} {what}: {err:.3g} bf16 ulps")
+    if not bool((out == again).all()):
+        checks.failures.append(f"{kernel} {what}: not bitwise repeatable")
+    return err
+
+
+def bf16_csr_mm_ms(A32, x):
+    """torch.sparse.mm over a bf16 copy of the CSR matrix A32 and bf16 x:
+    its ms, or torch's message where it does not take bf16 (timed only)."""
+    A = torch.sparse_csr_tensor(A32.crow_indices(), A32.col_indices(),
+                                A32.values().to(BF16), size=A32.shape)
+    try:
+        return cuda_ms(lambda: torch.sparse.mm(A, x), reps=5)
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        return f"torch raised: {str(exc).splitlines()[0][:160]}"
+
+
+def _bf16_k1_cases(sk, g, F, checks, tag, rng, modes=("fwd", "rev", "edge"),
+                   weights=True):
+    """K1 over bf16 x in each mode, with no weight, an (E,) and an (E, F)
+    float32 weight and an (E,) bf16 one, against its plain version in
+    float64 (``bf16_check``), and with a float32 result (out_dtype)
+    against it within K1_TOL."""
+    dev, E = g.device, g.num_edges()
+    ins = {"fwd": (g.num_src_nodes, dict(indptr=g.csc_indptr, gidx=g.src)),
+           "rev": (g.num_dst_nodes, dict(indptr=g.csr_indptr,
+                                         gidx=sk.rev_gidx(g),
+                                         eid=g.csr_eids)),
+           "edge": (E, dict(indptr=g.csc_indptr))}
+    ws = [("none", None)]
+    if weights:
+        w1 = torch.from_numpy(rng.normal(size=(E,)).astype(np.float32))
+        ws += [("scalar", w1.to(dev)), ("scalar_bf16", w1.to(dev, BF16)),
+               ("full", torch.from_numpy(rng.normal(size=(E, F)).astype(
+                   np.float32)).to(dev))]
+    errs = {}
+    for d in modes:
+        rows, args = ins[d]
+        x = torch.from_numpy(rng.normal(size=(rows, F)).astype(np.float32)
+                             ).to(dev, BF16)
+        for kind, w in ws:
+            out = sk.segment_sum(x=x, w=w, site=d, **args)
+            ref = sk.segment_sum_plain(x=x.double(), w=None if w is None
+                                       else w.double(), **args)
+            errs[f"{d}.{kind}"] = bf16_check(
+                checks, "segment_sum_bf16", f"{tag} F={F} {d} w={kind}", out,
+                ref, sk.segment_sum(x=x, w=w, site=d, **args))
+            if kind == "none":
+                o32 = sk.segment_sum(x=x, site=d, out_dtype=torch.float32,
+                                     **args)
+                errs[f"{d}.f32_out"] = checks.compare(
+                    "segment_sum_bf16", f"{tag} F={F} {d} f32 out", o32,
+                    ref.float(), K1_TOL,
+                    sk.segment_sum(x=x, site=d, out_dtype=torch.float32,
+                                   **args))
+                if o32.dtype != torch.float32:
+                    checks.failures.append(f"{tag}: out_dtype not float32")
+    return errs
+
+
+def _bf16_k4k5_case(sm, sk, g, x, w, gout, checks, what, x_bwd=None):
+    """K4 over bf16 x against its plain version, exactly; K5 against its
+    plain version: exactly where gout holds small integers and there is
+    no weight (every sum exact), else ``bf16_check`` against the float64
+    plain version (dw against it within K5_TOL).  Returns raw."""
+    p_fwd, p_rev = sk.graph_row_plan(g, "csc"), sk.graph_row_plan(g, "csr")
+    fwd = (g.csc_indptr, x, g.src, w)
+    raw = sm.segment_max(*fwd, plan=p_fwd)
+    checks.exact("segment_max_bf16", what, raw, sm.segment_max_plain(*fwd),
+                 sm.segment_max(*fwd, plan=p_fwd))
+    args = (g.csr_indptr, sk.rev_gidx(g), g.csr_eids,
+            x if x_bwd is None else x_bwd, w, raw, gout)
+    dx, dw = sm.segment_max_bwd(*args, plan=p_rev)
+    dx2, dw2 = sm.segment_max_bwd(*args, plan=p_rev)
+    if w is None:
+        checks.exact("segment_max_bwd_bf16", f"{what} dx", dx,
+                     sm.segment_max_bwd_plain(*args)[0], dx2)
+    else:
+        rdx, rdw = sm.segment_max_bwd_plain(*args, acc_dtype=torch.float64)
+        bf16_check(checks, "segment_max_bwd_bf16", f"{what} dx", dx, rdx,
+                   dx2)
+        checks.compare("segment_max_bwd_bf16", f"{what} dw", dw, rdw.float(),
+                       K5_TOL, dw2)
+    return raw
+
+
+def _int_cotangent(rng, shape, dev):
+    """A bf16 cotangent of small integers: K5's sums of it are exact."""
+    return torch.from_numpy(rng.integers(-4, 5, size=shape).astype(
+        np.float32)).to(dev, BF16)
+
+
+def _bf16_sweeps(sk, sm, g, x, gout, raw, xb, vecs=(), slices=()):
+    """ms of K1 forward and dx, K4 and K5 over bf16 rows at each load width
+    of ``vecs`` (values a lane loads; at the rule's slice width) and at
+    each slice width of ``slices`` (at the rule's load width): what
+    ``SUM_MAX_VALUES`` and ``SLICE_MIN_REUSE`` rest on."""
+    p_fwd, p_rev = sk.graph_row_plan(g, "csc"), sk.graph_row_plan(g, "csr")
+    dst_csr = sk.rev_gidx(g)
+    launchers = {
+        "k1": sk.segment_sum_launcher(g.csc_indptr, x, g.src, plan=p_fwd),
+        "k1_dx": sk.segment_sum_launcher(g.csr_indptr, gout, dst_csr,
+                                         g.csr_eids, plan=p_rev),
+        "k4": sm.segment_max_launcher(g.csc_indptr, x, g.src, plan=p_fwd),
+        "k5": sm.segment_max_bwd_launcher(g.csr_indptr, dst_csr, g.csr_eids,
+                                          xb, None, raw, gout, plan=p_rev)}
+    res = {}
+    for name, launch in launchers.items():
+        rec = {f"vec{v}": cuda_ms(lambda: launch(None, v), reps=5)
+               for v in vecs}
+        rec.update({f"slice{c}": cuda_ms(lambda: launch(c), reps=5)
+                    for c in slices})
+        res[name] = rec
+    return res
+
+
+def _bf16_timings(sk, sm, g, x, gout, shape, cols=None, library=True):
+    """K1 forward and dx, K4 and K5 over bf16 x on g, each timed beside
+    its plain version and the float32 kernel on the same shape (float32
+    copies of x and gout), with its bound at bf16 widths (``cols``: the
+    function's columns where x is padded) and, for K1,
+    torch.sparse.mm on a bf16 CSR."""
+    E, F = g.num_edges(), x.shape[1]
+    cols = cols or F
+    p_fwd, p_rev = sk.graph_row_plan(g, "csc"), sk.graph_row_plan(g, "csr")
+    dst_csr = sk.rev_gidx(g)
+    x32, g32 = x.float(), gout.float()
+    rows = lambda *a: sum(2 * t.shape[0] * cols for t in a)    # noqa: E731
+    res = {}
+    fwd = (g.csc_indptr, x, g.src)
+    rev = (g.csr_indptr, gout, dst_csr, g.csr_eids)
+    for name, args, f32args, plan, idx, arrays in (
+            ("k1_fwd", fwd, (g.csc_indptr, x32, g.src), p_fwd,
+             (g.csc_indptr, g.src), (x, gout)),
+            ("k1_dx", rev, (g.csr_indptr, g32, dst_csr, g.csr_eids), p_rev,
+             (g.csr_indptr, dst_csr), (gout, x))):
+        site = "fwd" if name == "k1_fwd" else "rev"
+        rec = timing(
+            both_ms(lambda: sk.segment_sum(*args, site=site, plan=plan)),
+            cuda_ms(lambda: sk.segment_sum_plain(*args), reps=3),
+            nbytes(*idx) + rows(*arrays), E * cols, shape + f", {name}")
+        rec["f32_ms"] = cuda_ms(lambda: sk.segment_sum(*f32args, site=site,
+                                                       plan=plan))
+        if library:
+            A = csr_matrix(g, reverse=name == "k1_dx")
+            rec["library_ms"] = bf16_csr_mm_ms(A, args[1])
+            rec["library_f32_ms"] = cuda_ms(
+                lambda: torch.sparse.mm(A, f32args[1]), reps=5)
+            del A
+        res[name] = rec
+    raw = sm.segment_max(g.csc_indptr, x, g.src, plan=p_fwd)
+    raw32 = sm.segment_max(g.csc_indptr, x32, g.src, plan=p_fwd)
+    xb = x[:, :cols].contiguous() if cols < F else x
+    k4 = timing(
+        both_ms(lambda: sm.segment_max(g.csc_indptr, x, g.src, plan=p_fwd)),
+        cuda_ms(lambda: sm.segment_max_plain(g.csc_indptr, x, g.src),
+                reps=3),
+        nbytes(g.csc_indptr, g.src) + rows(x, raw), E * cols,
+        shape + ", k4")
+    k4["f32_ms"] = cuda_ms(lambda: sm.segment_max(g.csc_indptr, x32, g.src,
+                                                  plan=p_fwd))
+    rev5 = (g.csr_indptr, dst_csr, g.csr_eids, xb, None, raw, gout)
+    rev5_32 = (g.csr_indptr, dst_csr, g.csr_eids, xb.float(), None, raw32,
+               g32)
+    k5 = timing(
+        both_ms(lambda: sm.segment_max_bwd(*rev5, plan=p_rev)),
+        cuda_ms(lambda: sm.segment_max_bwd_plain(*rev5), reps=3),
+        nbytes(g.csr_indptr, dst_csr) + rows(xb, raw, gout, xb),
+        2 * E * cols, shape + ", k5")
+    k5["f32_ms"] = cuda_ms(lambda: sm.segment_max_bwd(*rev5_32, plan=p_rev))
+    res.update(k4=k4, k5=k5)
+    if F % 8 == 0:
+        res["vec_sweep"] = _bf16_sweeps(sk, sm, g, x, gout, raw, xb,
+                                        vecs=(8, 4, 2))
+    return res
+
+
+def _bf16_still_raises(dt, g, rng):
+    """K2 (GAT) and K6 (gSDDMM) take float32 alone: bf16 rows on the card
+    raise NotImplementedError naming ROADMAP's 'bf16'.  True per kernel
+    where they do."""
+    from dgl_hack_tpu_torch.ops.cuda import gat_kernel as gk
+    N, H, D = g.num_src_nodes, 2, 8
+    z = torch.from_numpy(rng.normal(size=(N, H, D)).astype(np.float32)).to(
+        g.device, BF16)
+    a = torch.zeros((N, H), device=g.device, dtype=BF16)
+    calls = {"gat_fwd": lambda: gk.gat_attention_fused(g, z, a, a),
+             "sddmm": lambda: dt.gsddmm(g, "dot", z, z, "u", "v")}
+    res = {}
+    for name, call in calls.items():
+        try:
+            call()
+            res[name] = False
+        except NotImplementedError as exc:
+            res[name] = "'bf16'" in str(exc)
+    return res
+
+
+def phase_bf16_kernels(dt, sk, sm, g_small, gb, checks, dev, timings):
+    """K1, K4 and K5 over bf16 rows (``bf16_kernels``): every K1 mode and
+    weight kind at F = 7 and 1 on the small graph (hub in pieces) and at
+    bench.py's graph (F = 128) with its times; K4/K5 at both, exact; K1's
+    edge-row mode at the GIN readout (1,024 graphs of 24 nodes, F = 32);
+    and every kernel on the masked layer-0 block through the real-edge
+    view (F = 602, as the sampled GraphSAGE runs it)."""
+    rng = np.random.default_rng(21)
+    errs = {}
+    for F in (7, 1):
+        errs[f"small.F{F}"] = _bf16_k1_cases(sk, g_small, F, checks, "small",
+                                             rng)
+        x = torch.from_numpy(rng.normal(size=(g_small.num_src_nodes, F))
+                             .astype(np.float32)).to(dev, BF16)
+        for kind, w in _k4k5_weights(g_small, F, rng):
+            gout = _int_cotangent(rng, (g_small.num_dst_nodes, F), dev)
+            _bf16_k4k5_case(sm, sk, g_small, x, w, gout, checks,
+                            f"small F={F} w={kind}")
+    errs["bench.F128"] = _bf16_k1_cases(sk, gb, 128, checks, "bench", rng,
+                                        modes=("fwd", "rev"), weights=False)
+    x = torch.from_numpy(rng.normal(size=(gb.num_src_nodes, 128)).astype(
+        np.float32)).to(dev, BF16)
+    gout = _int_cotangent(rng, (gb.num_dst_nodes, 128), dev)
+    _bf16_k4k5_case(sm, sk, gb, x, None, gout, checks, "bench F=128")
+    t_bench = _bf16_timings(sk, sm, gb, x, gout, "bench.py graph, F=128")
+    timings["segment_sum_bf16"] = t_bench["k1_fwd"]
+    del x, gout
+    seg = sk.segments([24] * 1024, dev)
+    xr = torch.from_numpy(rng.normal(size=(seg.ids.numel(), 32)).astype(
+        np.float32)).to(dev, BF16)
+    out = sk.segment_sum_rows(xr, seg)
+    errs["rows.gin_readout"] = bf16_check(
+        checks, "segment_sum_bf16", "GIN readout rows", out,
+        sk.segment_sum_plain(seg.indptr, xr.double()),
+        sk.segment_sum_rows(xr, seg))
+    rows_t = timing(
+        both_ms(lambda: sk.segment_sum_rows(xr, seg)),
+        cuda_ms(lambda: sk.segment_sum_plain(seg.indptr, xr), reps=3),
+        nbytes(seg.indptr, xr, out), xr.numel(),
+        "readout 1,024 x 24, F=32, bf16")
+    rows_t["f32_ms"] = cuda_ms(lambda: sk.segment_sum_rows(xr.float(), seg))
+    mb = _masked_block(dt, dev, np.random.default_rng(22))
+    view = sk.real_edges(mb).graph
+    xm = torch.relu(torch.from_numpy(rng.normal(size=(
+        view.num_src_nodes, 602)).astype(np.float32))).to(dev, BF16)
+    gm = _int_cotangent(rng, (view.num_dst_nodes, 602), dev)
+    errs["masked"] = _bf16_k1_cases(sk, view, 602, checks, "masked", rng,
+                                    modes=("fwd", "rev"), weights=False)
+    _bf16_k4k5_case(sm, sk, view, xm, None, gm, checks, "masked F=602")
+    t_masked = _bf16_timings(sk, sm, view, xm, gm,
+                             "masked layer-0 block, F=602", library=False)
+    t_masked["slice_sweep"] = _bf16_sweeps(
+        sk, sm, view, xm, gm, sm.segment_max(view.csc_indptr, xm, view.src),
+        xm, slices=(16, 64, 602))
+    raised = _bf16_still_raises(dt, g_small, rng)
+    if not all(raised.values()):
+        checks.failures.append(f"bf16 on K2/K6 did not raise 'bf16': "
+                               f"{raised}")
+    emit({"phase": "bf16_kernels", "err": errs, "bench": t_bench,
+          "gin_readout_rows": rows_t, "masked": t_masked,
+          "k2_k6_raise_bf16": raised,
+          "ulp_rule": "bf16 sums within 1 ulp + K1_TOL*max|ref| of float64"})
+    del xm, gm, mb, view
+    checks.raise_if_failed("bf16_kernels")
+
+
+def phase_bf16_reddit(dt, sk, sm, g, checks, dev, timings):
+    """K1, K4 and K5 over bf16 rows at synthetic Reddit's F = 602 as
+    GspmmSum and GspmmMax run them: x and the cotangent padded to 640
+    columns (64 bf16 columns a line), K5's x and dx at 602; checked,
+    timed beside the float32 kernels at the same padded width; then the
+    main path of K4/K5 in bf16: gspmm max (GraphSAGE-pool's aggregation at
+    layer 0) forward and backward through ``dt.gspmm``, launches
+    counted."""
+    rng = np.random.default_rng(23)
+    N, F = g.num_src_nodes, 602
+    Fp = sk.padded_width(N, F, None, 2)
+    x = torch.relu(torch.from_numpy(rng.normal(size=(N, F)).astype(
+        np.float32))).to(dev, BF16)
+    gout = _int_cotangent(rng, (N, F), dev)
+    xp, gp = sk.pad_columns(x, Fp), sk.pad_columns(gout, Fp)
+    _bf16_k4k5_case(sm, sk, g, xp, None, gp, checks,
+                    f"reddit F={F} padded to {Fp}", x_bwd=x)
+    fwd = (g.csc_indptr, xp, g.src)
+    plan = sk.graph_row_plan(g, "csc")
+    err = bf16_check(checks, "segment_sum_bf16", f"reddit F={Fp} fwd",
+                     sk.segment_sum(*fwd, plan=plan),
+                     sk.segment_sum_plain(g.csc_indptr, xp.double(), g.src),
+                     sk.segment_sum(*fwd, plan=plan))
+    t = _bf16_timings(sk, sm, g, xp, gp,
+                      f"synthetic Reddit, F={F} padded to {Fp}", cols=F)
+    t["slice_width_rule"] = sk.slice_width(N, F, False, 2)
+    timings["segment_max_bf16"], timings["segment_max_bwd_bf16"] = \
+        t["k4"], t["k5"]
+    del xp, gp
+    torch.cuda.empty_cache()
+    reset_peak_memory()
+    xg = x.clone().requires_grad_()
+    sk.LAUNCHES.reset()
+    out = dt.gspmm(g, "copy_lhs", "max", xg)
+    (out.float() * gout.float()).sum().backward()
+    torch.cuda.synchronize()
+    counts = dict(sk.LAUNCHES.counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if counts.get("segment_max_bf16.fwd", 0) < 1 or \
+            counts.get("segment_max_bf16.bwd", 0) < 1 or \
+            any(k.startswith("plain.") for k in counts) or \
+            out.dtype != BF16 or xg.grad.dtype != BF16 or \
+            not bool(out.isfinite().all()):
+        checks.failures.append(f"bf16 gspmm max main path: launches {counts}"
+                               f", dtypes {out.dtype} {xg.grad.dtype}")
+    emit({"phase": "bf16_reddit", "padded_width": Fp, "k1_fwd_err": err,
+          "timings": t, "gspmm_max_launches": counts, "peak_gb": peak,
+          "hybrid_default_reddit": default_windows(sk, g)})
+    del x, gout, xg, out
+    torch.cuda.empty_cache()
+    checks.raise_if_failed("bf16_reddit")
+    return counts
+
+
+HEADLINE_KNOBS = dict(te=64, weighted=False, flat=True,
+                      dense_threshold=28_000, dense_budget=6 << 30,
+                      bucket_rows=None)      # bench.py's prepare_spmm
+HEADLINE_K = (2, 12)
+
+
+def _headline_loop(dt, g, x, iters):
+    """bench.py's loop: ``iters`` chained gspmm(copy_lhs, sum) * 1e-3,
+    ending in one readback; host seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = x
+    for _ in range(iters):
+        h = dt.gspmm(g, "copy_lhs", "sum", h) * 1e-3
+    float(h[0, 0])
+    return time.perf_counter() - t0
+
+
+def _headline_ms(dt, g, x):
+    """bench.py's timing: the best of 3 runs at K = 12 and at K = 2 after
+    a warm run each, and their difference over 10 iterations; ms an
+    iteration."""
+    best = {}
+    for k in HEADLINE_K:
+        _headline_loop(dt, g, x, k)
+        best[k] = min(_headline_loop(dt, g, x, k) for _ in range(3))
+    lo, hi = HEADLINE_K
+    return 1e3 * (best[hi] - best[lo]) / (hi - lo)
+
+
+def phase_headline(dt, sk, gb, checks, dev):
+    """bench.py's headline loop on the port (``headline``): the graph of
+    bench.py (random_power_law_graph(1M, 16, alpha 2.1, seed 0)) prepared
+    as bench.py prepares it (the dense-hub hybrid at threshold 28,000,
+    budget 6 GB), with the port's default threshold (when it picks a
+    window) and with dense_hub=False (K1 alone), each in float32 and with
+    a bf16 carry: edges/s, the share of the compulsory-byte bound (x read
+    and the result written once an iteration, the CSC indices) at 3.35
+    TB/s, dense windows and rows, C's bytes and build ms, and peak memory
+    (``loop_gb``: above what was resident before the loop); one iteration
+    of each hybrid held against K1 alone."""
+    E, N, F = gb.num_edges(), gb.num_src_nodes, 128
+    preps = {"k1": dt.prepare_spmm(gb, dense_hub=False)}
+    info = {}
+    for name, knobs in (("hybrid", HEADLINE_KNOBS), ("default", {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = dt.prepare_spmm(gb, **knobs)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        hyb = g.derived.get("hybrid")
+        if hyb is None:
+            info[name] = {"dense_windows": 0}
+            continue
+        t0 = time.perf_counter()
+        sk._build_dense_C(gb, hyb.windows.cpu().numpy(), hyb.tr)
+        torch.cuda.synchronize()
+        info[name] = {"dense_windows": int(hyb.windows.numel()),
+                      "dense_rows": int(hyb.rows.numel()),
+                      "dense_edges": E - hyb.rem.num_edges(),
+                      "C_bytes": nbytes(hyb.C),
+                      "C_build_ms": 1e3 * (time.perf_counter() - t0),
+                      "prepare_s": prep_s}
+        preps[name] = g
+    if "hybrid" not in preps:
+        raise SystemExit("headline failed: bench.py's knobs built no hybrid")
+    x32 = torch.from_numpy(np.random.default_rng(0).normal(size=(N, F))
+                           .astype(np.float32)).to(dev)
+    res, launches = {}, {}
+    for dtype in (torch.float32, BF16):
+        x = x32.to(dtype)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        with torch.no_grad():
+            one_k1 = dt.gspmm(preps["k1"], "copy_lhs", "sum", x)
+            for name, g in preps.items():
+                if name == "k1":
+                    continue
+                one = dt.gspmm(g, "copy_lhs", "sum", x)
+                if dtype == torch.float32:
+                    err = rel_err(one.double(), one_k1.double())
+                    ok = err <= HYBRID_TOL
+                else:
+                    err = bf16_err(one, one_k1.double())
+                    ok = err <= BF16_ULPS
+                res[f"one_iter_err.{name}.{tag}"] = err
+                if not ok or one.dtype != dtype:
+                    checks.failures.append(
+                        f"headline {name} {tag}: vs K1 alone {err:.3g}")
+                del one
+        del one_k1
+        bound_ms = bound(2 * N * F * x.element_size()
+                         + nbytes(gb.csc_indptr, gb.src), E * F)[0]
+        for name, g in preps.items():
+            reset_peak_memory()
+            base = torch.cuda.memory_allocated()
+            sk.LAUNCHES.reset()
+            with torch.no_grad():
+                ms = _headline_ms(dt, g, x)
+            launches[f"{name}.{tag}"] = dict(sk.LAUNCHES.counts)
+            res[f"{name}.{tag}"] = {
+                "ms_per_iter": ms, "edges_per_s": E / (ms * 1e-3),
+                "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "loop_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    emit({"phase": "headline", "nodes": N, "edges": E, "F": F,
+          "knobs": dict(HEADLINE_KNOBS), "prepared": info, "runs": res,
+          "launches": launches,
+          "err_rule": "f32: rel 1e-5; bf16: 1 ulp + K1_TOL*max"})
+    checks.raise_if_failed("headline")
+    for key, counts in launches.items():
+        name = "segment_sum_bf16" if key.endswith("bf16") else "segment_sum"
+        if counts.get(f"{name}.fwd", 0) < 1 or any(
+                k.startswith("plain.") for k in counts):
+            raise SystemExit(f"headline {key}: launches {counts}")
+    return preps["hybrid"], launches
+
+
+def default_windows(sk, g, tr=128):
+    """The port's default breakeven on g: its threshold, the windows it
+    picks and the most edges any window of ``tr`` dst rows holds."""
+    ip = g.host("csc_indptr")
+    W = -(-g.num_dst_nodes // tr)
+    b = np.minimum(np.arange(W + 1) * tr, g.num_dst_nodes)
+    return {"threshold": sk._dense_breakeven(g.num_src_nodes, tr),
+            "windows": int(sk.select_dense_windows(
+                ip, g.num_src_nodes, g.num_dst_nodes, tr).size),
+            "max_window_edges": int(np.max(ip[b[1:]] - ip[b[:-1]]))}
+
+
+def phase_hybrid(dt, sk, gb, gh, checks, dev):
+    """gspmm_hybrid forward and backward against K1 alone at bench.py's
+    shape (``hybrid``), in float32 and bf16, with each part's ms: the
+    remainder's K1, the dense product, the add at the dense rows; in the
+    backward the remainder's K1 dx, Cᵀ g and the add.  Then the inputs of
+    the port's default breakeven (K1's ns an edge, the float32 product's
+    rate) as this run measured them, and the windows the default picks on
+    this graph (``bf16_reddit`` prints synthetic Reddit's)."""
+    hyb = gh.derived["hybrid"]
+    rem = hyb.rem
+    N, F, E = gb.num_src_nodes, 128, gb.num_edges()
+    rng = np.random.default_rng(24)
+    x32 = torch.from_numpy(rng.normal(size=(N, F)).astype(np.float32)
+                           ).to(dev)
+    t32 = torch.from_numpy(rng.normal(size=(N, F)).astype(np.float32)
+                           ).to(dev)
+    res = {}
+    for dtype in (torch.float32, BF16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        x, t = x32.to(dtype), t32.to(dtype)
+        acc = sk.accumulate_dtype(dtype)
+        p_fwd = sk.graph_row_plan(rem, "csc")
+        p_rev = sk.graph_row_plan(rem, "csr")
+        dst_csr = sk.rev_gidx(rem)
+        parts = {
+            "rem_k1_fwd_ms": cuda_ms(lambda: sk.segment_sum(
+                rem.csc_indptr, x, rem.src, plan=p_fwd)),
+            "dense_fwd_ms": cuda_ms(lambda: sk._dense_matmul(hyb.C, x)),
+            "rem_k1_dx_ms": cuda_ms(lambda: sk.segment_sum(
+                rem.csr_indptr, t, dst_csr, site="rev", plan=p_rev,
+                out_dtype=acc)),
+            "dense_bwd_ms": cuda_ms(lambda: sk._dense_matmul_t(
+                hyb.C, t[hyb.rows])),
+        }
+        out = sk.segment_sum(rem.csc_indptr, x, rem.src, plan=p_fwd)
+        d = sk._dense_matmul(hyb.C, x)
+
+        def add():
+            out[hyb.rows] = (out[hyb.rows].to(acc) + d).to(out.dtype)
+        parts["add_fwd_ms"] = cuda_ms(add)
+        dx = sk.segment_sum(rem.csr_indptr, t, dst_csr, site="rev",
+                            plan=p_rev, out_dtype=acc)
+        dd = sk._dense_matmul_t(hyb.C, t[hyb.rows])
+        parts["add_bwd_ms"] = cuda_ms(lambda: (dx + dd).to(dtype))
+        del out, d, dx, dd
+        xg = x.clone().requires_grad_()
+
+        def fwd_bwd(g):
+            xg.grad = None
+            y = dt.gspmm(g, "copy_lhs", "sum", xg)
+            (y.float() * t.float()).sum().backward()
+            return y.detach(), xg.grad
+        gk = dt.prepare_spmm(gb, dense_hub=False)
+        y_h, dx_h = fwd_bwd(gh)
+        y_k, dx_k = fwd_bwd(gk)
+        if dtype == torch.float32:
+            errs = {"fwd": rel_err(y_h.double(), y_k.double()),
+                    "dx": rel_err(dx_h.double(), dx_k.double())}
+            bad = max(errs.values()) > HYBRID_TOL
+        else:
+            errs = {"fwd": bf16_err(y_h, y_k.double()),
+                    "dx": bf16_err(dx_h, dx_k.double())}
+            bad = max(errs.values()) > BF16_ULPS
+        if bad:
+            checks.failures.append(f"hybrid {tag}: {errs}")
+        del y_h, dx_h, y_k, dx_k
+        with torch.no_grad():
+            parts["hybrid_fwd_ms"] = cuda_ms(
+                lambda: dt.gspmm(gh, "copy_lhs", "sum", x))
+            parts["k1_fwd_ms"] = cuda_ms(
+                lambda: dt.gspmm(gk, "copy_lhs", "sum", x))
+        parts["hybrid_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(gh))
+        parts["k1_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(gk))
+        parts["err"] = errs
+        res[tag] = parts
+        del xg
+    R = hyb.rows.numel()
+    emit({"phase": "hybrid", "dense_rows": R, "parts": res,
+          "measured_k1_ns_per_edge_f32": res["f32"]["k1_fwd_ms"] * 1e6 / E,
+          "measured_dense_fp32_ops_per_s":
+              2.0 * R * N * F / (res["f32"]["dense_fwd_ms"] * 1e-3),
+          "constants": {"K1_NS_PER_EDGE": sk.K1_NS_PER_EDGE,
+                        "DENSE_FP32_OPS_PER_S": sk.DENSE_FP32_OPS_PER_S},
+          "default_bench": default_windows(sk, gb, hyb.tr)})
+    checks.raise_if_failed("hybrid")
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -3682,7 +4280,10 @@ def main() -> int:
     phase_k6_bench(k6, g_bench, checks)
     phase_k4k5_bench(sm, sk, g_bench, checks)
     phase_gat_bench(gk, sk, g_bench, checks)
-    del g_bench
+    phase_bf16_kernels(dt, sk, sm, g_small, g_bench, checks, dev, timings)
+    g_hybrid, c_headline = phase_headline(dt, sk, g_bench, checks, dev)
+    phase_hybrid(dt, sk, g_bench, g_hybrid, checks, dev)
+    del g_bench, g_hybrid
     torch.cuda.empty_cache()
     phase_k4k5_small(sm, sk, g_small, checks)
     phase_k4k5_plan(dt, sm, sk, plan_edges, checks, dev)
@@ -3698,6 +4299,7 @@ def main() -> int:
     c_gat = phase_gat_train(dt, build, gk, sk, ds, g, checks, dev,
                             timings)
     phase_sage_kernels(sm, sk, g, checks, dev, timings)
+    c_max_bf16 = phase_bf16_reddit(dt, sk, sm, g, checks, dev, timings)
     c_sage = phase_sage_train(build, ds, g, dev)
     phase_native_sampler(ds)
     c_sampled, mean_losses = phase_sage_sampling_train(build, ds, dev)
@@ -3724,7 +4326,7 @@ def main() -> int:
 
     runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled, c_rgcn,
             c_hetero, c_pr, c_sub, c_lstm, c_rmax, c_topo, c_prefetch,
-            c_nodeflow, c_pinsage, c_cv, c_adaptive)
+            c_nodeflow, c_pinsage, c_cv, c_adaptive, *c_headline.values())
     max_runs = (c_sage, c_sampled, c_hetero, c_rmax, c_nodeflow)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
@@ -3734,7 +4336,12 @@ def main() -> int:
         "segment_max": sum(c.get("segment_max.fwd", 0) for c in max_runs),
         "segment_max_bwd": sum(c.get("segment_max.bwd", 0)
                                for c in max_runs),
-        "sddmm": sum(v for k, v in c_tf.items() if k.startswith("sddmm."))}
+        "sddmm": sum(v for k, v in c_tf.items() if k.startswith("sddmm.")),
+        "segment_sum_bf16": sum(v for c in c_headline.values()
+                                for k, v in c.items()
+                                if k.startswith("segment_sum_bf16.")),
+        "segment_max_bf16": c_max_bf16.get("segment_max_bf16.fwd", 0),
+        "segment_max_bwd_bf16": c_max_bf16.get("segment_max_bf16.bwd", 0)}
     tpu = "dgl_hack_tpu/ops/pallas/"
     meta = {
         "segment_sum": ("dgl_hack_tpu_torch/csrc/segment_sum.cu",
@@ -3748,7 +4355,13 @@ def main() -> int:
         "segment_max_bwd": ("dgl_hack_tpu_torch/csrc/segment_max.cu",
                             tpu + "spmm_kernel.py:1109"),
         "sddmm": ("dgl_hack_tpu_torch/csrc/sddmm.cu",
-                  tpu + "sddmm_kernel.py:160")}
+                  tpu + "sddmm_kernel.py:160"),
+        "segment_sum_bf16": ("dgl_hack_tpu_torch/csrc/segment_sum.cu",
+                             tpu + "spmm_kernel.py:489"),
+        "segment_max_bf16": ("dgl_hack_tpu_torch/csrc/segment_max.cu",
+                             tpu + "spmm_kernel.py:632"),
+        "segment_max_bwd_bf16": ("dgl_hack_tpu_torch/csrc/segment_max.cu",
+                                 tpu + "spmm_kernel.py:1109")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": n, "route": "cuda", "source": s, "replaces": r,
                 "launches": launches[n], "max_abs_err": checks.max_abs[n],

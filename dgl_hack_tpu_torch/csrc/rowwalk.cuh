@@ -15,10 +15,14 @@
 //   partials in piece order.  No float atomics, so every result repeats
 //   bitwise.  Pieces come first in the grid so the heavy work starts early
 //   and the short rows fill the tail.
-// * Loads (load, store).  A lane reads V consecutive floats of a row
-//   (V = 4, 2 or 1, chosen by the wrapper from F's divisibility and the
-//   pointers' alignment: float4 needs 4 | F and 16-byte aligned tensors;
-//   F = 602 is 8-byte aligned per row and takes float2).
+// * Loads (load, store).  A lane reads V consecutive values of a row, at
+//   most 16 bytes: V = 4, 2 or 1 of float32, 8, 4, 2 or 1 of bf16, chosen
+//   by the wrapper from F's divisibility and the pointers' alignment
+//   (spmm_kernel.py:vector_width): a 16-byte load needs 16 / size | F and
+//   16-byte aligned tensors; F = 602 is 8-byte aligned per row in float32
+//   and takes float2, 4-byte aligned in bf16 and takes bfloat162.  bf16
+//   rows widen to float on the load; sums, maxima and compares run in
+//   float registers, and a bf16 store rounds to nearest even once.
 // * The edge walk (walk_edges).  Lanes per edge = the slice's width / V
 //   rounded up to a power of two, at most 32; the warp's 32 / lanes groups
 //   take every (32 / lanes)-th edge of the item, kUnroll edges at a time,
@@ -34,10 +38,14 @@
 //   per slice.  A slice of a row costs one 128-byte L2 line where it starts
 //   on a line boundary and two where it straddles one, so gspmm runs the
 //   kernels over copies whose columns are padded to whole lines
-//   (spmm_kernel.py:padded_width, run_width).
+//   (spmm_kernel.py:padded_width, run_width; 32 columns of float32, 64 of
+//   bf16).
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+using bf16 = __nv_bfloat16;
 
 namespace {
 
@@ -59,10 +67,17 @@ struct RowPlan {
 };
 
 // kStream: a read-once load (ld.global.cs), which L2 evicts first, for
-// what streams beside a gathered slice that should stay in L2.
+// what streams beside a gathered slice that should stay in L2.  V = 8 is
+// two 16-byte loads: an f32 weight read beside bf16 rows of 8 per load.
 template <int V, bool kStream = false>
 __device__ __forceinline__ void load(const float* p, float (&v)[V]) {
-  if constexpr (V == 4) {
+  if constexpr (V == 8) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    const float4 a = kStream ? __ldcs(q) : __ldg(q);
+    const float4 b = kStream ? __ldcs(q + 1) : __ldg(q + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else if constexpr (V == 4) {
     const float4* q = reinterpret_cast<const float4*>(p);
     const float4 t = kStream ? __ldcs(q) : __ldg(q);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
@@ -75,22 +90,91 @@ __device__ __forceinline__ void load(const float* p, float (&v)[V]) {
   }
 }
 
-template <int V>
-__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
-  if constexpr (V == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else if constexpr (V == 2)
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  else
-    *p = v[0];
+// bf16 storage (the JAX package's packed-u32 rows, spmm_kernel.py:720):
+// a 32-bit word holds two bf16 values, the lower column in its low half,
+// and the bits of a bf16 value b are those of the float b << 16, so a load
+// widens exactly and the sums run in float registers.
+__device__ __forceinline__ void unpack2(unsigned w, float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
 }
 
-// Columns [c, c + V) of a row of n columns, moved VX floats at a time (VX
+// V bf16 values: 16 bytes (8, a uint4), 8 (4), 4 (2, a bfloat162) or 2.
+template <int V, bool kStream = false>
+__device__ __forceinline__ void load(const bf16* p, float (&v)[V]) {
+  if constexpr (V == 8) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    const uint4 t = kStream ? __ldcs(q) : __ldg(q);
+    unpack2(t.x, v[0], v[1]); unpack2(t.y, v[2], v[3]);
+    unpack2(t.z, v[4], v[5]); unpack2(t.w, v[6], v[7]);
+  } else if constexpr (V == 4) {
+    const uint2* q = reinterpret_cast<const uint2*>(p);
+    const uint2 t = kStream ? __ldcs(q) : __ldg(q);
+    unpack2(t.x, v[0], v[1]); unpack2(t.y, v[2], v[3]);
+  } else if constexpr (V == 2) {
+    const unsigned* q = reinterpret_cast<const unsigned*>(p);
+    const unsigned t = kStream ? __ldcs(q) : __ldg(q);
+    unpack2(t, v[0], v[1]);
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    const unsigned short t = kStream ? __ldcs(q) : __ldg(q);
+    v[0] = __uint_as_float((unsigned)t << 16);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
+  if constexpr (V == 8) {
+    float4* q = reinterpret_cast<float4*>(p);
+    q[0] = make_float4(v[0], v[1], v[2], v[3]);
+    q[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// float -> bf16 rounds to nearest even, as astype(jnp.bfloat16) does
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+template <int V>
+__device__ __forceinline__ void store(bf16* p, const float (&v)[V]) {
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(
+        pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+        pack2(v[6], v[7]));
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<unsigned*>(p) = pack2(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// v rounded to T and widened back: what a store of v to T and a load of
+// it give (the identity for float)
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (sizeof(T) == 2)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
+// Columns [c, c + V) of a row of n columns, moved VX values at a time (VX
 // divides V, n and c): a piece at or past column n is left as it is on a
 // load and not written on a store.  For a row narrower, or less aligned,
 // than the rows the kernel walks beside it.
-template <int V, int VX, bool kStream = false>
-__device__ __forceinline__ void load_clipped(const float* row, int c, int n,
+template <int V, int VX, bool kStream = false, class T>
+__device__ __forceinline__ void load_clipped(const T* row, int c, int n,
                                              float (&v)[V]) {
 #pragma unroll
   for (int i = 0; i < V; i += VX)
@@ -102,8 +186,8 @@ __device__ __forceinline__ void load_clipped(const float* row, int c, int n,
     }
 }
 
-template <int V, int VX>
-__device__ __forceinline__ void store_clipped(float* row, int c, int n,
+template <int V, int VX, class T>
+__device__ __forceinline__ void store_clipped(T* row, int c, int n,
                                               const float (&v)[V]) {
 #pragma unroll
   for (int i = 0; i < V; i += VX)
@@ -205,11 +289,11 @@ __device__ __forceinline__ void walk_edges(int beg, int end, const int* gidx,
 }
 
 // out[long_rows[l], f] = the long row l's partial rows combined in piece
-// order: their sum, or with kMax their NaN-keeping max.
+// order: their sum, or with kMax their NaN-keeping max, stored as TO.
 // grid (L, ceil(F / kFixCols)), one thread per column.
-template <bool kMax>
+template <bool kMax, class TO>
 __global__ void __launch_bounds__(kFixCols)
-row_fixup(RowPlan p, float* out, int F) {
+row_fixup(RowPlan p, TO* out, int F) {
   const int l = blockIdx.x;
   const int f = blockIdx.y * kFixCols + threadIdx.x;
   if (f >= F) return;
@@ -221,11 +305,12 @@ row_fixup(RowPlan p, float* out, int F) {
     const float v = p.partial[(int64_t)q * F + f];
     acc = kMax ? max_nan(acc, v) : acc + v;
   }
-  out[(int64_t)p.long_rows[l] * F + f] = acc;
+  const float r[1] = {acc};
+  store<1>(out + (int64_t)p.long_rows[l] * F + f, r);
 }
 
-template <bool kMax>
-void launch_fixup(const RowPlan& p, float* out, int F, cudaStream_t stream) {
+template <bool kMax, class TO>
+void launch_fixup(const RowPlan& p, TO* out, int F, cudaStream_t stream) {
   if (p.num_long > 0)
     row_fixup<kMax><<<dim3((unsigned)p.num_long,
                            (unsigned)((F + kFixCols - 1) / kFixCols)),
@@ -236,9 +321,17 @@ inline bool aligned(const void* p, int bytes) {
   return p == nullptr || (uintptr_t)p % bytes == 0;
 }
 
+// The alignment a load or store of vec values of T needs: its bytes, at
+// most 16 (vec = 8 of float is two 16-byte loads).
+template <class T>
+inline int vec_bytes(int vec) {
+  const int b = (int)sizeof(T) * vec;
+  return b < 16 ? b : 16;
+}
+
 // The grid of a row-walking kernel and its slice width S and lanes per
-// edge.  False where the wrapper's choices do not fit: vec (floats per
-// load) must be 1, 2 or 4 and divide F and slice (columns per feature
+// edge.  False where the wrapper's choices do not fit: vec (values per
+// load) must be 1, 2, 4 or 8 and divide F and slice (columns per feature
 // slice; F or more for none), and the plan's scratch must be there and
 // aligned for vec.
 struct LaunchShape {
@@ -248,8 +341,9 @@ struct LaunchShape {
 
 inline bool launch_shape(int num_rows, int F, int vec, int slice, const RowPlan& p,
                   LaunchShape& s) {
-  if (!(vec == 1 || vec == 2 || vec == 4) || F % vec != 0 || slice <= 0 ||
-      slice % vec != 0 || p.T <= 0 || !aligned(p.partial, 4 * vec) ||
+  if (!(vec == 1 || vec == 2 || vec == 4 || vec == 8) || F % vec != 0 ||
+      slice <= 0 || slice % vec != 0 || p.T <= 0 ||
+      !aligned(p.partial, vec_bytes<float>(vec)) ||
       (p.num_pieces > 0 && p.partial == nullptr))
     return false;
   s.S = slice < F ? slice : F;
@@ -261,37 +355,39 @@ inline bool launch_shape(int num_rows, int F, int vec, int slice, const RowPlan&
   return true;
 }
 
-// Launches kernel<V, W>(args, shape.S, shape.lanes) on shape.grid for the
-// run-time vec (1, 2, 4) and w_kind (0, 1, 2): the kernels are compiled per
+// Runs L::go<V, W>(args...) for the run-time vec (1, 2, 4, and 8 where
+// kWide: bf16 rows) and w_kind (0, 1, 2): the kernels are compiled per
 // load width and weight kind, so that each keeps only its own registers.
-#define ROWWALK_LAUNCH_W(kernel, V, w_kind, shape, stream, args)             \
-  do {                                                                       \
-    const int threads_ = kWarps * 32;                                        \
-    if ((w_kind) == 0)                                                       \
-      kernel<V, 0><<<(shape).grid, threads_, 0, stream>>>(                   \
-          args, (shape).S, (shape).lanes);                                   \
-    else if ((w_kind) == 1)                                                  \
-      kernel<V, 1><<<(shape).grid, threads_, 0, stream>>>(                   \
-          args, (shape).S, (shape).lanes);                                   \
-    else                                                                     \
-      kernel<V, 2><<<(shape).grid, threads_, 0, stream>>>(                   \
-          args, (shape).S, (shape).lanes);                                   \
-  } while (0)
-#define ROWWALK_LAUNCH(kernel, vec, w_kind, shape, stream, args)             \
-  do {                                                                       \
-    if ((vec) == 4)                                                          \
-      ROWWALK_LAUNCH_W(kernel, 4, w_kind, shape, stream, args);              \
-    else if ((vec) == 2)                                                     \
-      ROWWALK_LAUNCH_W(kernel, 2, w_kind, shape, stream, args);              \
-    else                                                                     \
-      ROWWALK_LAUNCH_W(kernel, 1, w_kind, shape, stream, args);              \
-  } while (0)
+template <class L, int V, class... A>
+void rowwalk_launch_w(int w_kind, const A&... args) {
+  if (w_kind == 0)
+    L::template go<V, 0>(args...);
+  else if (w_kind == 1)
+    L::template go<V, 1>(args...);
+  else
+    L::template go<V, 2>(args...);
+}
+
+template <class L, bool kWide, class... A>
+void rowwalk_launch(int vec, int w_kind, const A&... args) {
+  if (vec == 8) {
+    if constexpr (kWide) rowwalk_launch_w<L, 8>(w_kind, args...);
+  } else if (vec == 4) {
+    rowwalk_launch_w<L, 4>(w_kind, args...);
+  } else if (vec == 2) {
+    rowwalk_launch_w<L, 2>(w_kind, args...);
+  } else {
+    rowwalk_launch_w<L, 1>(w_kind, args...);
+  }
+}
 
 // w_kind must be 0, 1 or 2, with a weight where it is not 0, aligned for
-// the load width where it is 2
-inline bool bad_weight(const float* w, int w_kind, int vbytes) {
+// a load of vec floats where it is 2.  Weights are float32 under rows of
+// either type: the wrapper casts a bf16 weight up, as the JAX package's
+// edge_weights does (spmm_kernel.py:_run_direction).
+inline bool bad_weight(const float* w, int w_kind, int vec) {
   return w_kind < 0 || w_kind > 2 || (w_kind != 0 && w == nullptr) ||
-         (w_kind == 2 && !aligned(w, vbytes));
+         (w_kind == 2 && !aligned(w, vec_bytes<float>(vec)));
 }
 
 // ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 // K4: segment max over the CSC direction, and K5: its argmax backward,
-// fused, over the CSR direction (float32).
+// fused, over the CSR direction (float32 or bf16 rows).
 //
 //   K4  raw[r, f] = max_{j in [indptr[r], indptr[r+1])}
 //                       max(x[gidx[j], f] * w(j, f), NEG)
@@ -76,21 +76,34 @@
 //   warp that owns edge e then adds its column passes into dw[e] in order.
 //   (E, F) weights write disjoint columns per slice.  Neither weighted
 //   form is on a main path; they are right and repeatable, not tuned.
-// Left for later: bf16 storage; K5's g loads (a third of its time); a
-// slice-major copy in place of the padded one.
+// * bf16 (the JAX package's packed path, spmm_kernel.py:632-634): x, raw,
+//   g and dx are of one type T, float32 or bf16; the weight and dw are
+//   float32.  Both take 16-byte loads of 8 bf16 columns; K5's hold 93-128
+//   registers a thread and ran slower on the H100, so its wrapper loads at
+//   most 4 (spmm_kernel.py:SUM_MAX_VALUES).  A message is rounded to T
+//   (the float product of a bf16 x and an f32 weight is not bf16-exact),
+//   so K4's raw holds bf16-exact values and K5 compares the same rounded
+//   message with them in float: it sees the bits K4 wrote.  Unweighted,
+//   the message is x itself and the max of bf16 values is exact.  Weighted, the JAX VJP compares the unrounded
+//   f32 message with an f32 raw, so a tie that only the rounding makes
+//   (two products that round to one bf16 value) passes the cotangent here
+//   and not there; the forward is the same (rounding is monotone).
+// Left for later: K5's g loads (a third of its time); a slice-major copy
+// in place of the padded one.
 #include "rowwalk.cuh"
 
 namespace {
 
+template <class T>
 struct Args {
   const int* indptr;   // K4: CSC; K5: CSR
   const int* gidx;     // K4: src per edge; K5: dst in CSR order
   const int* eid;      // K5: csr_eids (K4's edge id is j)
-  const float* x;
+  const T* x;
   const float* w;
-  const float* raw;    // K5
-  const float* g;      // K5
-  float* out;          // K4: raw; K5: dx
+  const T* raw;        // K5
+  const T* g;          // K5
+  T* out;              // K4: raw; K5: dx
   float* dw;           // K5, or NULL
   int num_rows;
   int F;               // columns of every array but K5's x and dx
@@ -103,22 +116,22 @@ __device__ __forceinline__ float clamp_neg(float m) {
   return m < kNeg ? kNeg : m;
 }
 
-// the message of one edge and feature; W: the weight kind
-template <int W>
+// the message of one edge and feature, rounded to T; W: the weight kind
+template <int W, class T>
 __device__ __forceinline__ float message(float x, float w) {
-  return clamp_neg(W ? __fmul_rn(x, w) : x);
+  return round_to<T>(clamp_neg(W ? __fmul_rn(x, w) : x));
 }
 
 // grid of launch_shape.  S: the slice's width in columns, a multiple of
 // V; lanes: lanes per edge, a power of two <= 32.
-template <int V, int W>
+template <int V, int W, class T>
 __global__ void __launch_bounds__(kWarps * 32)
-segment_max_kernel(Args a, int S, int lanes) {
+segment_max_kernel(Args<T> a, int S, int lanes) {
   WorkItem it;
   if (!work_item(a.plan, a.indptr, a.num_rows, it)) return;  // warp-uniform
   const int64_t Fl = a.F;
-  float* orow = it.piece >= 0 ? a.plan.partial + it.piece * Fl
-                              : a.out + it.row * Fl;
+  float* prow = it.piece >= 0 ? a.plan.partial + it.piece * Fl : nullptr;
+  T* orow = a.out + it.row * Fl;
   const int lane = threadIdx.x & 31;
   const int sub = lane & (lanes - 1);
   const int grp = lane / lanes;
@@ -149,29 +162,34 @@ segment_max_kernel(Args a, int S, int lanes) {
       for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
         for (int k = 0; k < V; ++k)
-          acc[k] = max_nan(acc[k], message<W>(xv[u][k], wv[u][k]));
+          acc[k] = max_nan(acc[k], message<W, T>(xv[u][k], wv[u][k]));
     });
     // tree over the groups (lanes of equal sub)
     for (int off = 16; off >= lanes; off >>= 1)
 #pragma unroll
       for (int k = 0; k < V; ++k)
         acc[k] = max_nan(acc[k], __shfl_down_sync(kFull, acc[k], off));
-    if (grp == 0 && active) store<V>(orow + c, acc);
+    if (grp == 0 && active) {
+      if (prow != nullptr)                            // warp-uniform
+        store<V>(prow + c, acc);
+      else
+        store<V>(orow + c, acc);
+    }
   }
 }
 
-// VX: floats per load of x and per store of dx (and of the partial dx
+// VX: values per load of x and per store of dx (and of the partial dx
 // rows, which have dx's width).
-template <int V, int VX, int W>
+template <int V, int VX, int W, class T>
 __global__ void __launch_bounds__(kWarps * 32)
-segment_max_bwd_kernel(Args a, int S, int lanes) {
+segment_max_bwd_kernel(Args<T> a, int S, int lanes) {
   WorkItem it;
   if (!work_item(a.plan, a.indptr, a.num_rows, it)) return;  // warp-uniform
   const int64_t Fl = a.F;
   const int64_t Fxl = a.Fx;
-  float* orow = it.piece >= 0 ? a.plan.partial + it.piece * Fxl
-                              : a.out + it.row * Fxl;
-  const float* xrow = a.x + it.row * Fxl;
+  float* prow = it.piece >= 0 ? a.plan.partial + it.piece * Fxl : nullptr;
+  T* orow = a.out + it.row * Fxl;
+  const T* xrow = a.x + it.row * Fxl;
   const int lane = threadIdx.x & 31;
   const int sub = lane & (lanes - 1);
   const int grp = lane / lanes;
@@ -207,7 +225,7 @@ segment_max_bwd_kernel(Args a, int S, int lanes) {
 #pragma unroll
         for (int k = 0; k < V; ++k) {
           gv[u][k] = 0.0f;
-          if (ok[u] && active && message<W>(xu[k], wv[u][k]) == rv[u][k])
+          if (ok[u] && active && message<W, T>(xu[k], wv[u][k]) == rv[u][k])
             hit[u] |= 1u << k;
         }
         if (hit[u]) load<V, true>(a.g + row[u] * Fl + c, gv[u]);
@@ -244,12 +262,26 @@ segment_max_bwd_kernel(Args a, int S, int lanes) {
 #pragma unroll
       for (int k = 0; k < V; ++k)
         acc[k] += __shfl_down_sync(kFull, acc[k], off);
-    if (grp == 0 && active) store_clipped<V, VX>(orow, c, a.Fx, acc);
+    if (grp == 0 && active) {
+      if (prow != nullptr)                            // warp-uniform
+        store_clipped<V, VX>(prow, c, a.Fx, acc);
+      else
+        store_clipped<V, VX>(orow, c, a.Fx, acc);
+    }
   }
 }
 
-template <int V, int VX>
-void launch_bwd(const Args& a, int w_kind, const LaunchShape& s,
+struct MaxLaunch {
+  template <int V, int W, class T>
+  static void go(const Args<T>& a, const LaunchShape& s,
+                 cudaStream_t stream) {
+    segment_max_kernel<V, W><<<s.grid, kWarps * 32, 0, stream>>>(
+        a, s.S, s.lanes);
+  }
+};
+
+template <int V, int VX, class T>
+void launch_bwd(const Args<T>& a, int w_kind, const LaunchShape& s,
                 cudaStream_t stream) {
   const int threads = kWarps * 32;
   if (w_kind == 0)
@@ -263,12 +295,78 @@ void launch_bwd(const Args& a, int w_kind, const LaunchShape& s,
         a, s.S, s.lanes);
 }
 
+template <class T>
+int run_fwd(const int* indptr, const int* gidx, const T* x, const float* w,
+            int w_kind, T* out, int num_rows, int F, int vec, int slice,
+            const RowPlan& plan, cudaStream_t stream) {
+  if (num_rows <= 0 || F <= 0) return (int)cudaGetLastError();
+  LaunchShape s;
+  if (!launch_shape(num_rows, F, vec, slice, plan, s) ||
+      vec_bytes<T>(vec) < (int)sizeof(T) * vec ||       // 8 floats: no
+      !aligned(x, vec_bytes<T>(vec)) || !aligned(out, vec_bytes<T>(vec)) ||
+      bad_weight(w, w_kind, vec))
+    return (int)cudaErrorInvalidValue;
+  const Args<T> a{indptr, gidx, nullptr, x, w, nullptr, nullptr, out,
+                  nullptr, num_rows, F, F, plan};
+  rowwalk_launch<MaxLaunch, sizeof(T) == 2>(vec, w_kind, a, s, stream);
+  launch_fixup<true>(plan, out, F, stream);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int run_bwd(const int* csr_indptr, const int* dst_csr, const int* csr_eids,
+            const T* x, const float* w, int w_kind, const T* raw, const T* g,
+            T* dx, float* dw, int num_src, int F, int Fx, int vec, int vec_x,
+            int slice, const RowPlan& plan, cudaStream_t stream) {
+  if (num_src <= 0 || F <= 0) return (int)cudaGetLastError();
+  const int vb = vec_bytes<T>(vec);
+  LaunchShape s;
+  if (!launch_shape(num_src, F, vec, slice, plan, s) ||
+      vb < (int)sizeof(T) * vec ||
+      !(vec_x == 1 || vec_x == 2 || vec_x == 4 || vec_x == 8) ||
+      vec % vec_x != 0 || Fx <= 0 || Fx > F || Fx % vec_x != 0 ||
+      (w_kind == 2 && Fx != F) ||
+      !aligned(x, vec_bytes<T>(vec_x)) || !aligned(dx, vec_bytes<T>(vec_x)) ||
+      !aligned(raw, vb) || !aligned(g, vb) ||
+      bad_weight(w, w_kind, vec) ||
+      (w_kind == 2 && !aligned(dw, vec_bytes<float>(vec))) ||
+      (w_kind == 1 && dw != nullptr && s.S < F) ||
+      (w_kind != 0 && csr_eids == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args<T> a{csr_indptr, dst_csr, csr_eids, x, w, raw, g, dx, dw,
+                  num_src, F, Fx, plan};
+  switch (vec * 16 + vec_x) {
+    case 8 * 16 + 8:
+      if constexpr (sizeof(T) == 2) launch_bwd<8, 8>(a, w_kind, s, stream);
+      break;
+    case 8 * 16 + 4:
+      if constexpr (sizeof(T) == 2) launch_bwd<8, 4>(a, w_kind, s, stream);
+      break;
+    case 8 * 16 + 2:
+      if constexpr (sizeof(T) == 2) launch_bwd<8, 2>(a, w_kind, s, stream);
+      break;
+    case 8 * 16 + 1:
+      if constexpr (sizeof(T) == 2) launch_bwd<8, 1>(a, w_kind, s, stream);
+      break;
+    case 4 * 16 + 4: launch_bwd<4, 4>(a, w_kind, s, stream); break;
+    case 4 * 16 + 2: launch_bwd<4, 2>(a, w_kind, s, stream); break;
+    case 4 * 16 + 1: launch_bwd<4, 1>(a, w_kind, s, stream); break;
+    case 2 * 16 + 2: launch_bwd<2, 2>(a, w_kind, s, stream); break;
+    case 2 * 16 + 1: launch_bwd<2, 1>(a, w_kind, s, stream); break;
+    default:         launch_bwd<1, 1>(a, w_kind, s, stream); break;
+  }
+  launch_fixup<false>(plan, dx, Fx, stream);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// vec: floats per load (1, 2, 4; the wrapper's choice, checked here);
-// slice: columns per feature slice (a multiple of vec; F for none);
-// T, long_rows, piece_ptr, pieces, piece_row, num_long, num_pieces: the
-// plan of spmm_kernel.py:row_plan for indptr; partial: (num_pieces, F)
+// vec: values per load (1, 2, 4, and 8 for bf16; the wrapper's choice,
+// checked here; the wrapper gives K5 at most 4:
+// spmm_kernel.py:SUM_MAX_VALUES); slice:
+// columns per feature slice (a multiple of vec; F for none); T,
+// long_rows, piece_ptr, pieces, piece_row, num_long, num_pieces: the plan
+// of spmm_kernel.py:row_plan for indptr; partial: (num_pieces, F) float32
 // scratch.
 extern "C" int segment_max_f32(const int* indptr, const int* gidx,
                                const float* x, const float* w, int w_kind,
@@ -278,26 +376,31 @@ extern "C" int segment_max_f32(const int* indptr, const int* gidx,
                                const int* piece_row, int num_long,
                                int num_pieces, float* partial,
                                cudaStream_t stream) {
-  if (num_rows <= 0 || F <= 0) return (int)cudaGetLastError();
-  const int vbytes = 4 * vec;
   const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
                      num_pieces, partial};
-  LaunchShape s;
-  if (!launch_shape(num_rows, F, vec, slice, plan, s) ||
-      !aligned(x, vbytes) || !aligned(out, vbytes) ||
-      bad_weight(w, w_kind, vbytes))
-    return (int)cudaErrorInvalidValue;
-  const Args a{indptr, gidx, nullptr, x, w, nullptr, nullptr, out, nullptr,
-               num_rows, F, F, plan};
-  ROWWALK_LAUNCH(segment_max_kernel, vec, w_kind, s, stream, a);
-  launch_fixup<true>(plan, out, F, stream);
-  return (int)cudaGetLastError();
+  return run_fwd(indptr, gidx, x, w, w_kind, out, num_rows, F, vec, slice,
+                 plan, stream);
+}
+
+// As above over bf16 x; raw is bf16.
+extern "C" int segment_max_bf16(const int* indptr, const int* gidx,
+                                const bf16* x, const float* w, int w_kind,
+                                bf16* out, int num_rows, int F, int vec,
+                                int slice, int T, const int* long_rows,
+                                const int* piece_ptr, const int* pieces,
+                                const int* piece_row, int num_long,
+                                int num_pieces, float* partial,
+                                cudaStream_t stream) {
+  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
+                     num_pieces, partial};
+  return run_fwd(indptr, gidx, x, w, w_kind, out, num_rows, F, vec, slice,
+                 plan, stream);
 }
 
 // As above, over the CSR direction; the plan is csr_indptr's.  x and dx
 // have Fx <= F columns (Fx == F under an (E, F) weight) and move vec_x
-// floats at a time (vec_x divides vec and Fx); partial is (num_pieces, Fx).
-// With an (E,) weight and dw, slice must be F or more.
+// values at a time (vec_x divides vec and Fx); partial is (num_pieces, Fx).
+// With an (E,) weight and dw, slice must be F or more.  dw is float32.
 extern "C" int segment_max_bwd_f32(const int* csr_indptr, const int* dst_csr,
                                    const int* csr_eids, const float* x,
                                    const float* w, int w_kind,
@@ -309,31 +412,27 @@ extern "C" int segment_max_bwd_f32(const int* csr_indptr, const int* dst_csr,
                                    const int* piece_row, int num_long,
                                    int num_pieces, float* partial,
                                    cudaStream_t stream) {
-  if (num_src <= 0 || F <= 0) return (int)cudaGetLastError();
-  const int vbytes = 4 * vec;
   const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
                      num_pieces, partial};
-  LaunchShape s;
-  if (!launch_shape(num_src, F, vec, slice, plan, s) ||
-      !(vec_x == 1 || vec_x == 2 || vec_x == 4) || vec % vec_x != 0 ||
-      Fx <= 0 || Fx > F || Fx % vec_x != 0 || (w_kind == 2 && Fx != F) ||
-      !aligned(x, 4 * vec_x) || !aligned(dx, 4 * vec_x) ||
-      !aligned(raw, vbytes) || !aligned(g, vbytes) ||
-      bad_weight(w, w_kind, vbytes) ||
-      (w_kind == 2 && !aligned(dw, vbytes)) ||
-      (w_kind == 1 && dw != nullptr && s.S < F) ||
-      (w_kind != 0 && csr_eids == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Args a{csr_indptr, dst_csr, csr_eids, x, w, raw, g, dx, dw,
-               num_src, F, Fx, plan};
-  switch (vec * 8 + vec_x) {
-    case 4 * 8 + 4: launch_bwd<4, 4>(a, w_kind, s, stream); break;
-    case 4 * 8 + 2: launch_bwd<4, 2>(a, w_kind, s, stream); break;
-    case 4 * 8 + 1: launch_bwd<4, 1>(a, w_kind, s, stream); break;
-    case 2 * 8 + 2: launch_bwd<2, 2>(a, w_kind, s, stream); break;
-    case 2 * 8 + 1: launch_bwd<2, 1>(a, w_kind, s, stream); break;
-    default:        launch_bwd<1, 1>(a, w_kind, s, stream); break;
-  }
-  launch_fixup<false>(plan, dx, Fx, stream);
-  return (int)cudaGetLastError();
+  return run_bwd(csr_indptr, dst_csr, csr_eids, x, w, w_kind, raw, g, dx, dw,
+                 num_src, F, Fx, vec, vec_x, slice, plan, stream);
+}
+
+// As above over bf16 x, raw, g and dx.
+extern "C" int segment_max_bwd_bf16(const int* csr_indptr,
+                                    const int* dst_csr, const int* csr_eids,
+                                    const bf16* x, const float* w,
+                                    int w_kind, const bf16* raw,
+                                    const bf16* g, bf16* dx, float* dw,
+                                    int num_src, int F, int Fx, int vec,
+                                    int vec_x, int slice, int T,
+                                    const int* long_rows,
+                                    const int* piece_ptr, const int* pieces,
+                                    const int* piece_row, int num_long,
+                                    int num_pieces, float* partial,
+                                    cudaStream_t stream) {
+  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
+                     num_pieces, partial};
+  return run_bwd(csr_indptr, dst_csr, csr_eids, x, w, w_kind, raw, g, dx, dw,
+                 num_src, F, Fx, vec, vec_x, slice, plan, stream);
 }

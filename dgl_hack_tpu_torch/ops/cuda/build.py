@@ -11,10 +11,11 @@ Every C entry point takes raw device pointers and a stream and returns
 Nothing here runs at import: the CPU tests import every module of the
 port, and this machine may have no ``nvcc``.
 
-``LAUNCHES`` counts kernel launches by name.  A wrapper adds one where it
-launches its kernel and nowhere else; a plain version that runs on a CUDA
-tensor adds one under ``plain.<name>``, so a run can show that its main
-path went through the kernels.
+``LAUNCHES`` counts kernel launches by name (``counted``: bf16 launches
+under ``<name>_bf16``).  A wrapper adds one where it launches its kernel
+and nowhere else; a plain version that runs on a CUDA tensor adds one
+under ``plain.<name>``, so a run can show that its main path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Collection, Dict, Optional, Union
 
 import torch
 
@@ -45,12 +46,19 @@ SIGNATURES = {
     # stream
     "segment_sum_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                         *_PLAN, _P],
+    # as segment_sum_f32, with out_f32 after out
+    "segment_sum_bf16": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                         *_PLAN, _P],
     # indptr, gidx, x, w, w_kind, raw, num_rows, F, vec, slice, plan, stream
     "segment_max_f32": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, *_PLAN, _P],
+    "segment_max_bf16": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, *_PLAN,
+                         _P],
     # csr_indptr, dst_csr, csr_eids, x, w, w_kind, raw, g, dx, dw,
     # num_src, F, Fx, vec, vec_x, slice, plan, stream
     "segment_max_bwd_f32": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, *_PLAN, _P],
+    "segment_max_bwd_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, *_PLAN, _P],
     # indptr, src, wh, el, er, w, shift, rst, den,
     # num_dst, H, D, slope, vec, lane_floats, plan, stream
     "gat_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -78,6 +86,13 @@ class Launches:
 
 
 LAUNCHES = Launches()
+
+
+def counted(name: str, dtype: torch.dtype) -> str:
+    """A kernel's name in ``LAUNCHES``: bf16 launches of K1, K4 and K5
+    count apart from float32 ones, as ``<name>_bf16``."""
+    return f"{name}_bf16" if dtype == torch.bfloat16 else name
+
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -167,16 +182,20 @@ def check(name: str, err: int) -> None:
                            f"cudaError {err}")
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+def require(t: torch.Tensor, name: str,
+            dtypes: Union[torch.dtype, Collection[torch.dtype]],
             device: torch.device, numel: Optional[int] = None) -> None:
     """Wrapper-side argument check: the kernels take contiguous tensors of
-    one dtype on the launch device, and raise on anything else."""
+    the given dtype (or one of the given dtypes) on the launch device, and
+    raise on anything else."""
+    if isinstance(dtypes, torch.dtype):
+        dtypes = (dtypes,)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes "
-                        f"{dtype} (other dtypes: ROADMAP: "
-                        "'bf16')")
+                        f"{' or '.join(map(str, dtypes))} (other dtypes: "
+                        "ROADMAP: 'bf16')")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if numel is not None and t.numel() != numel:

@@ -168,7 +168,7 @@ def gsddmm_kernel(g, op: str, lhs_data: Optional[Tensor], rhs_data: Tensor,
     Returns internal-order edge values with DGL's shapes: (E, ...) for the
     elementwise ops, and for dot (E, 1) from 2-D operands and (E, H, 1)
     from (N, H, D) ones."""
-    check_cuda_call(rhs_data, "gsddmm")
+    check_cuda_call(rhs_data, "gsddmm", (torch.float32,))
     if rhs_data.shape[0] != g.num_dst_nodes:
         raise ValueError(f"rhs has {rhs_data.shape[0]} rows, the graph "
                          f"{g.num_dst_nodes} dst nodes")

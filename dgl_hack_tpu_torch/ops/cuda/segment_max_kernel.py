@@ -34,10 +34,16 @@ over a padded copy of x that lives through the forward only, K5 over the
 padded raw and cotangent, while it takes x and writes dx, which it streams
 and does not gather, at their own 602 columns (``max_bwd_load_widths``).  K5 with an (E,) weight whose gradient
 is wanted runs unsliced: dw[e] sums over all columns, and one warp must
-own it for the sum to repeat bitwise (``max_bwd_slice_width``).  Left for
-later: bf16 storage; K5's g loads, one scattered 16-byte load per (v, f)
-pair, a third of its time; and a slice-major copy in place of the padded
-one (no line of a slice would then hold another slice's columns).
+own it for the sum to repeat bitwise (``max_bwd_slice_width``).
+
+Both take bf16 rows as the JAX package's packed path does: x, raw, the
+cotangent and dx in one dtype, the weight cast to float32, each message
+rounded to x's dtype (``_message``), so that K5 compares the values K4
+stored; the max is exact, K5's sums run in float32 and round once.  The
+line and slice rules then count two-byte columns (64 to a line).  Left for
+later: K5's g loads, one scattered 16-byte load per (v, f) pair, a third
+of its time; and a slice-major copy in place of the padded one (no line of
+a slice would then hold another slice's columns).
 """
 from __future__ import annotations
 
@@ -45,12 +51,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import LAUNCHES, check, library, ptr, require, stream_ptr
-from .spmm_kernel import (_I32_MAX, RowPlan, check_cuda_call, checked_plan,
-                          flat_weight, graph_row_plan, local_rows,
-                          on_real_edges, pad_columns, plan_args, plan_scratch,
-                          rev_gidx, row_chunks, run_width, slice_width,
-                          vector_width)
+from .build import (LAUNCHES, check, counted, library, ptr, require,
+                    stream_ptr)
+from .spmm_kernel import (_I32_MAX, FEATURE_DTYPES, SUM_MAX_VALUES, RowPlan,
+                          accumulate_dtype, check_cuda_call, checked_plan,
+                          edges_per_row, flat_weight, graph_row_plan,
+                          kernel_weight, local_rows, on_real_edges,
+                          pad_columns, plan_args, plan_scratch, rev_gidx,
+                          row_chunks, run_width, slice_width, vector_width)
 
 Tensor = torch.Tensor
 
@@ -75,6 +83,16 @@ def _weighted(m: Tensor, we: Optional[Tensor]) -> Tensor:
     return m * (we[:, None] if we.dim() == 1 else we)
 
 
+def _message(xe: Tensor, we: Optional[Tensor]) -> Tensor:
+    """max(x[u] * w[e], MINMAX_NEG) as K4 and K5 form it: the product in
+    ``accumulate_dtype`` (float32 for bf16 x, with the weight cast up),
+    then clamped and rounded to x's dtype, so that a bf16 message is the
+    bf16 value K4 stores and K5 compares."""
+    acc = accumulate_dtype(xe.dtype)
+    m = _weighted(xe.to(acc), None if we is None else we.to(acc))
+    return torch.clamp_min(m, MINMAX_NEG).to(xe.dtype)
+
+
 # ---------------------------------------------------------------------------
 # K4: forward
 # ---------------------------------------------------------------------------
@@ -82,19 +100,21 @@ def segment_max_plain(indptr: Tensor, x: Tensor, gidx: Tensor,
                       w: Optional[Tensor] = None) -> Tensor:
     """raw[r] = max_{j in [indptr[r], indptr[r+1])} max(x[gidx[j]] * w[j],
     MINMAX_NEG); empty rows give MINMAX_NEG.  w None, (E,) or (E, F), in
-    the order of gidx.  Rows go in blocks of ``row_chunks``."""
+    the order of gidx.  raw has x's dtype (each message rounded to it:
+    ``_message``).  Rows go in blocks of ``row_chunks``."""
     if x.is_cuda:
         LAUNCHES.add("plain.segment_max")
     out = x.new_full((indptr.numel() - 1, x.shape[1]), MINMAX_NEG)
     for r0, r1, j0, j1 in row_chunks(indptr, x.shape[1]):
-        m = _weighted(x[gidx[j0:j1]], None if w is None else w[j0:j1])
-        m = torch.clamp_min(m, MINMAX_NEG)
+        m = _message(x[gidx[j0:j1]], None if w is None else w[j0:j1])
         rows = local_rows(indptr, r0, r1)[:, None].expand_as(m)
         out[r0:r1].scatter_reduce_(0, rows, m, "amax")
     return out
 
 
-def max_bwd_slice_width(rows: int, F: int, w_kind: int, want_dw: bool) -> int:
+def max_bwd_slice_width(rows: int, F: int, w_kind: int, want_dw: bool,
+                        elem_bytes: int = 4,
+                        reuse: Optional[float] = None) -> int:
     """Columns per feature slice of K5 over a gathered raw of ``rows``
     rows.  K4 over a gathered x takes K1's rule (``slice_width``) as it
     is, and so does K5, since what must stay in L2 is the same, one slice
@@ -109,52 +129,61 @@ def max_bwd_slice_width(rows: int, F: int, w_kind: int, want_dw: bool) -> int:
     28.3 / 25.6 / 25.5 / 29.9; over bench.py's graph at F = 128 (no slice
     of a 512 MB array fits) K4 5.6 / 3.3 / 3.0 / 2.9 and K5 4.7 / 2.7 / 1.8
     / 1.4.  The rule picks 32 on Reddit and none at bench.py's shape."""
-    return F if w_kind == 1 and want_dw else slice_width(rows, F, False)
+    return F if w_kind == 1 and want_dw else \
+        slice_width(rows, F, False, elem_bytes, reuse)
 
 
 def segment_max(indptr: Tensor, x: Tensor, gidx: Tensor,
                 w: Optional[Tensor] = None, *,
                 plan: Optional[RowPlan] = None) -> Tensor:
     """K4 wrapper; arguments and result as ``segment_max_plain``.  x (rows,
-    F) float32; indptr, gidx int32.  ``plan`` is ``row_plan(indptr)``,
-    built here when None."""
+    F) float32 or bf16; indptr, gidx int32.  ``plan`` is
+    ``row_plan(indptr)``, built here when None."""
     if x.device.type == "cpu":
         return segment_max_plain(indptr, x, gidx, w)
     if x.device.type != "cuda":
         raise ValueError(f"segment_max: unsupported device {x.device}")
     launch = segment_max_launcher(indptr, x, gidx, w, plan)
-    LAUNCHES.add("segment_max.fwd")
+    LAUNCHES.add(f"{counted('segment_max', x.dtype)}.fwd")
     return launch(None)
 
 
 def segment_max_launcher(indptr: Tensor, x: Tensor, gidx: Tensor,
                          w: Optional[Tensor] = None,
                          plan: Optional[RowPlan] = None):
-    """Check K4's arguments on CUDA and return ``launch(slice_cols)``,
-    which runs the kernel at that slice width, or at ``slice_width``'s
-    when None, and returns raw.  ``segment_max`` launches through it;
-    ``chip_smoke.py`` times the slice widths with it."""
+    """Check K4's arguments on CUDA and return ``launch(slice_cols,
+    vec)``, which runs the kernel at that slice width and load width, or
+    at ``slice_width``'s and ``vector_width``'s where None, and returns
+    raw.  ``segment_max`` launches through it; ``chip_smoke.py`` times the
+    slice and load widths with it."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"segment_max takes x of shape (rows, F), got "
                          f"{tuple(x.shape)}")
     num_rows, F, E = indptr.numel() - 1, x.shape[1], gidx.numel()
-    require(x, "x", torch.float32, dev)
+    require(x, "x", FEATURE_DTYPES, dev)
     require(indptr, "indptr", torch.int32, dev)
     require(gidx, "gidx", torch.int32, dev)
     w_kind = _w_kind(w, E, F)
     if w is not None:
-        require(w, "w", torch.float32, dev)
+        require(w, "w", FEATURE_DTYPES, dev)
+        w = kernel_weight(w)
     if max(num_rows, E, x.shape[0]) > _I32_MAX:
         raise ValueError("segment_max: sizes exceed the int32 index range")
     plan = checked_plan(plan, indptr, "segment_max")
-    vec = vector_width(F, x, w if w_kind == 2 else None)
+    vec_rule = vector_width(F, x, w if w_kind == 2 else None)
+    reuse = edges_per_row(E, x.shape[0], num_rows)
+    entry = "segment_max_f32" if x.dtype == torch.float32 \
+        else "segment_max_bf16"
 
-    def launch(slice_cols: Optional[int]) -> Tensor:
+    def launch(slice_cols: Optional[int], vec: Optional[int] = None
+               ) -> Tensor:
+        vec = vec or vec_rule
         if slice_cols is None:
-            slice_cols = slice_width(x.shape[0], F, False)
-        out = torch.empty((num_rows, F), dtype=torch.float32, device=dev)
-        check("segment_max", library().segment_max_f32(
+            slice_cols = slice_width(x.shape[0], F, False, x.element_size(),
+                                     reuse)
+        out = torch.empty((num_rows, F), dtype=x.dtype, device=dev)
+        check("segment_max", getattr(library(), entry)(
             ptr(indptr), ptr(gidx), ptr(x), ptr(w), w_kind, ptr(out),
             num_rows, F, vec, slice_cols,
             *plan_args(plan, plan_scratch(plan, F)), stream_ptr(dev)))
@@ -174,14 +203,18 @@ def segment_max_bwd_plain(csr_indptr: Tensor, dst_csr: Tensor,
     dst_csr[j], e = csr_eids[j]): m = max(x[u] * w[e], MINMAX_NEG), eq =
     (m == raw[v]);  dx[u] = sum_j eq * g[v] * w[e];  dw[e] = sum_f eq *
     x[u] * g[v] for (E,) weights, elementwise for (E, F).  The comparison
-    runs in x's dtype; the products and sums in ``acc_dtype`` (x's when
-    None), so a float64 reference can check the float32 kernel.  An x of
-    fewer columns than raw and g stands for x with zero columns added (no
-    (E, F) weight then), and dx has x's columns.  Returns (dx, dw), dw
-    None without w or ``want_dw``."""
+    runs on the message rounded to x's dtype (``_message``); the products
+    and sums in ``acc_dtype`` when given (a float64 reference can check
+    the float32 kernel; dx and dw come back in it), else in float32 for
+    bf16 x (dx rounded once to x's dtype, dw cast to w's) and in x's dtype
+    otherwise.  An x of fewer columns than raw and g stands for x with
+    zero columns added (no (E, F) weight then), and dx has x's columns.
+    Returns (dx, dw), dw None without w or ``want_dw``."""
     if x.is_cuda:
         LAUNCHES.add("plain.segment_max_bwd")
-    acc = acc_dtype or x.dtype
+    acc = acc_dtype or accumulate_dtype(x.dtype)
+    dx_dtype = acc_dtype or x.dtype
+    dw_dtype = acc_dtype or (None if w is None else w.dtype)
     Fx = x.shape[1]
     x = pad_columns(x, raw.shape[1])
     Ns, F = x.shape
@@ -195,24 +228,25 @@ def segment_max_bwd_plain(csr_indptr: Tensor, dst_csr: Tensor,
         e = csr_eids[j0:j1].long()
         xu = x[r0:r1][rows]
         we = None if w is None else w[e]
-        eq = torch.clamp_min(_weighted(xu, we), MINMAX_NEG) == raw[v]
+        eq = _message(xu, we) == raw[v]
         gv = torch.where(eq, g[v].to(acc), 0.0)
         we_acc = None if we is None else we.to(acc)
         dx[r0:r1].index_add_(0, rows, _weighted(gv, we_acc))
         if dw is not None:
             prod = xu.to(acc) * gv
             dw[e] = prod.sum(-1) if w.dim() == 1 else prod
-    return dx[:, :Fx], dw
+    return (dx[:, :Fx].to(dx_dtype),
+            None if dw is None else dw.to(dw_dtype))
 
 
 def max_bwd_load_widths(F: int, x: Tensor, w: Optional[Tensor], raw: Tensor,
                         g: Tensor) -> Tuple[int, int]:
-    """Floats per load of K5: (of raw, g and an (E, F) weight, which set
+    """Values per load of K5: (of raw, g and an (E, F) weight, which set
     the columns a lane owns; of x, and per store of dx).  Each is
-    ``vector_width``'s over its tensors' width and alignment, the second
-    at most the first."""
+    ``vector_width``'s over its tensors' width and alignment, at most
+    ``SUM_MAX_VALUES``, the second at most the first."""
     vec = vector_width(F, raw, g, w if w is not None and w.dim() == 2
-                       else None)
+                       else None, max_values=SUM_MAX_VALUES)
     return vec, min(vec, vector_width(x.shape[1], x))
 
 
@@ -221,8 +255,9 @@ def segment_max_bwd(csr_indptr: Tensor, dst_csr: Tensor, csr_eids: Tensor,
                     want_dw: bool = True, *, plan: Optional[RowPlan] = None
                     ) -> Tuple[Tensor, Optional[Tensor]]:
     """K5 wrapper; arguments and results as ``segment_max_bwd_plain``.
-    x (N_src, Fx), raw and g (N_dst, F) float32, Fx <= F; index arrays
-    int32.  ``plan`` is ``row_plan(csr_indptr)``, built here when None."""
+    x (N_src, Fx), raw and g (N_dst, F) of one dtype, float32 or bf16, Fx
+    <= F; index arrays int32.  ``plan`` is ``row_plan(csr_indptr)``, built
+    here when None."""
     if x.device.type == "cpu":
         return segment_max_bwd_plain(csr_indptr, dst_csr, csr_eids, x, w,
                                      raw, g, want_dw)
@@ -230,7 +265,7 @@ def segment_max_bwd(csr_indptr: Tensor, dst_csr: Tensor, csr_eids: Tensor,
         raise ValueError(f"segment_max_bwd: unsupported device {x.device}")
     launch = segment_max_bwd_launcher(csr_indptr, dst_csr, csr_eids, x, w,
                                       raw, g, want_dw, plan)
-    LAUNCHES.add("segment_max.bwd")
+    LAUNCHES.add(f"{counted('segment_max', x.dtype)}.bwd")
     return launch(None)
 
 
@@ -239,9 +274,11 @@ def segment_max_bwd_launcher(csr_indptr: Tensor, dst_csr: Tensor,
                              w: Optional[Tensor], raw: Tensor, g: Tensor,
                              want_dw: bool = True,
                              plan: Optional[RowPlan] = None):
-    """Check K5's arguments on CUDA and return ``launch(slice_cols)``,
-    which runs the kernel at that slice width, or at
-    ``max_bwd_slice_width``'s when None, and returns (dx, dw)."""
+    """Check K5's arguments on CUDA and return ``launch(slice_cols,
+    vec)``, which runs the kernel at that slice width and load width (of
+    raw and g; x's is the narrower of it and x's own), or at
+    ``max_bwd_slice_width``'s and ``max_bwd_load_widths``' where None, and
+    returns (dx, dw)."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"segment_max_bwd takes x of shape (rows, F), got "
@@ -252,9 +289,9 @@ def segment_max_bwd_launcher(csr_indptr: Tensor, dst_csr: Tensor,
     require(csr_indptr, "csr_indptr", torch.int32, dev, Ns + 1)
     require(dst_csr, "dst_csr", torch.int32, dev, E)
     require(csr_eids, "csr_eids", torch.int32, dev)
-    require(x, "x", torch.float32, dev)
-    require(raw, "raw", torch.float32, dev)
-    require(g, "g", torch.float32, dev, raw.numel())
+    require(x, "x", FEATURE_DTYPES, dev)
+    require(raw, "raw", x.dtype, dev)
+    require(g, "g", x.dtype, dev, raw.numel())
     if raw.dim() != 2 or Fx > F:
         raise ValueError(f"raw of shape {tuple(raw.shape)} for x of "
                          f"{Fx} columns")
@@ -262,28 +299,37 @@ def segment_max_bwd_launcher(csr_indptr: Tensor, dst_csr: Tensor,
     if w_kind == 2 and Fx != F:
         raise ValueError(f"an (E, F) weight needs x at raw's {F} columns, "
                          f"got {Fx}")
+    w_dtype = None if w is None else w.dtype
     if w is not None:
-        require(w, "w", torch.float32, dev)
+        require(w, "w", FEATURE_DTYPES, dev)
+        w = kernel_weight(w)
     if max(Ns, E, raw.shape[0]) > _I32_MAX:
         raise ValueError("segment_max_bwd: sizes exceed the int32 index "
                          "range")
     want_dw = want_dw and w is not None
     plan = checked_plan(plan, csr_indptr, "segment_max_bwd")
-    vec, vec_x = max_bwd_load_widths(F, x, w, raw, g)
+    vec_rule, vec_x_rule = max_bwd_load_widths(F, x, w, raw, g)
+    reuse = edges_per_row(E, raw.shape[0], Ns)
+    entry = "segment_max_bwd_f32" if x.dtype == torch.float32 \
+        else "segment_max_bwd_bf16"
 
-    def launch(slice_cols: Optional[int]
+    def launch(slice_cols: Optional[int], vec: Optional[int] = None
                ) -> Tuple[Tensor, Optional[Tensor]]:
+        vec_x = vec_x_rule if vec is None else \
+            min(vec, vector_width(Fx, x))
+        vec = vec or vec_rule
         if slice_cols is None:
-            slice_cols = max_bwd_slice_width(raw.shape[0], F, w_kind, want_dw)
-        dx = torch.empty((Ns, Fx), dtype=torch.float32, device=dev)
+            slice_cols = max_bwd_slice_width(raw.shape[0], F, w_kind, want_dw,
+                                             raw.element_size(), reuse)
+        dx = torch.empty((Ns, Fx), dtype=x.dtype, device=dev)
         dw = torch.empty(w.shape, dtype=torch.float32, device=dev) \
             if want_dw else None
-        check("segment_max_bwd", library().segment_max_bwd_f32(
+        check("segment_max_bwd", getattr(library(), entry)(
             ptr(csr_indptr), ptr(dst_csr), ptr(csr_eids), ptr(x), ptr(w),
             w_kind, ptr(raw), ptr(g), ptr(dx), ptr(dw), Ns, F, Fx, vec,
             vec_x, slice_cols, *plan_args(plan, plan_scratch(plan, Fx)),
             stream_ptr(dev)))
-        return dx, dw
+        return dx, None if dw is None else dw.to(w_dtype)
     return launch
 
 
@@ -295,7 +341,7 @@ class GspmmMax(torch.autograd.Function):
     CSC direction (K4); the backward walks the CSR direction (K5).
 
     x (N_src, F); w None, (E,) or (E, F) in internal edge order.  Returns
-    (N_dst, ``run_width(x, w)``): K4 runs over a padded copy of x, and the
+    (N_dst, ``run_width(x, w, g)``): K4 runs over a padded copy of x, and the
     caller cuts the result back to F columns, so that autograd hands the
     backward a padded cotangent.  What is saved is the caller's x, which
     K5 takes as it is, so the padded copy lives through the forward
@@ -303,7 +349,7 @@ class GspmmMax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: Tensor, w: Optional[Tensor], g) -> Tensor:
-        raw = segment_max(g.csc_indptr, pad_columns(x, run_width(x, w)),
+        raw = segment_max(g.csc_indptr, pad_columns(x, run_width(x, w, g)),
                           g.src, w, plan=graph_row_plan(g, "csc"))
         ctx.g = g
         ctx.save_for_backward(x, w, raw)

@@ -23,6 +23,20 @@ direction (``graph_row_plan``).  On the card ``GspmmSum`` runs K1 over a
 copy of x whose columns are padded to whole 128-byte L2 lines where K1
 will slice them (``run_width``); the copy lives through the forward only.
 
+K1 takes float32 or bf16 rows (``FEATURE_DTYPES``), as the JAX
+package's packed bf16 path does: bf16 loads widen to float, the sums run
+in float32 and round once to x's dtype (or stay float32 where the caller
+asks: ``out_dtype``); weights are float32 (``kernel_weight``).  The line
+and slice rules count the rows' own bytes (``line_cols``: 64 bf16 columns
+to a 128-byte line), and ``segment_sum_plain`` has the same float32
+accumulation.
+
+The dense-hub hybrid (``select_dense_windows`` ... ``gspmm_hybrid``, the
+JAX package's ``spmm_kernel.py:1315-1555``) sums the hub dst windows as a
+dense bf16 count matrix C times x (``torch.mm``, outside any kernel, as
+JAX leaves it to XLA) and the rest with K1 over the sparse remainder's
+own CSC/CSR arrays; ``prepare_spmm`` builds it.
+
 A masked (padded) graph reaches every kernel through its real-edge view
 (``real_edges``), the counterpart of the JAX package's mask-aware plans
 (``_prepare_spmm_masked``): an unmasked graph over the real edges alone,
@@ -43,7 +57,8 @@ import numpy as np
 import torch
 
 from ...core.graph import Graph
-from .build import LAUNCHES, check, library, ptr, require, stream_ptr
+from .build import (LAUNCHES, check, counted, library, ptr, require,
+                    stream_ptr)
 
 Tensor = torch.Tensor
 
@@ -83,25 +98,53 @@ def local_rows(indptr: Tensor, r0: int, r1: int) -> Tensor:
         torch.arange(r1 - r0, device=indptr.device), deg)
 
 
+# The dtypes K1, K4 and K5 take for their rows (x, and K5's raw and g).
+# Weights are cast to float32 at the kernel boundary (``kernel_weight``).
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def accumulate_dtype(dtype: torch.dtype) -> torch.dtype:
+    """What a sum over data of ``dtype`` accumulates in: float32 for a
+    floating dtype narrower than it (bf16, float16), else the dtype itself,
+    as the JAX package's Pallas sums do (``gspmm_pallas``: float32 sums
+    cast once to x's dtype)."""
+    if dtype.is_floating_point and torch.finfo(dtype).bits < 32:
+        return torch.float32
+    return dtype
+
+
+def kernel_weight(w: Optional[Tensor]) -> Optional[Tensor]:
+    """An edge weight as the kernels read it: float32 (a bf16 weight is
+    cast up, as the JAX package's ``_run_direction`` casts its weights,
+    ``edge_weights`` and ``apply_full_w``)."""
+    if w is None or w.dtype == torch.float32:
+        return w
+    return w.float()
+
+
 def segment_sum_plain(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
                       eid: Optional[Tensor] = None,
-                      w: Optional[Tensor] = None) -> Tensor:
+                      w: Optional[Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None) -> Tensor:
     """out[r] = sum_{j in [indptr[r], indptr[r+1])} x[gidx[j]] * w[eid[j]].
 
     gidx None reads x row j (edge-row mode); eid None means eid[j] = j; w
-    is None, (E,) or (E, F).  Empty rows give 0.  Rows go in blocks of
-    ``row_chunks``."""
+    is None, (E,) or (E, F).  Empty rows give 0.  The products and sums
+    run in ``accumulate_dtype(x.dtype)`` (float32 for bf16 x), and the
+    result is rounded once to ``out_dtype`` (x's dtype when None), as K1
+    does.  Rows go in blocks of ``row_chunks``."""
     if x.is_cuda:
         LAUNCHES.add("plain.segment_sum")
+    acc = accumulate_dtype(x.dtype)
     num_rows = indptr.numel() - 1
-    out = x.new_zeros((num_rows, x.shape[1]))
+    out = torch.zeros((num_rows, x.shape[1]), dtype=acc, device=x.device)
     for r0, r1, j0, j1 in row_chunks(indptr, x.shape[1]):
-        m = x[gidx[j0:j1]] if gidx is not None else x[j0:j1]
+        m = (x[gidx[j0:j1]] if gidx is not None else x[j0:j1]).to(acc)
         if w is not None:
-            we = w[eid[j0:j1]] if eid is not None else w[j0:j1]
+            we = (w[eid[j0:j1]] if eid is not None else w[j0:j1]).to(acc)
             m = m * (we[:, None] if we.dim() == 1 else we)
         out[r0:r1].index_add_(0, local_rows(indptr, r0, r1), m)
-    return out
+    return out.to(out_dtype or x.dtype)
 
 
 # Rows of more than K1_PIECE edges are cut into pieces of at most
@@ -122,16 +165,35 @@ L2_BYTES = 50 * 10 ** 6
 SLICE_BUDGET = L2_BYTES * 3 // 5
 SLICE_WIDTHS = (64, 32, 16)
 
+# Each pass over a slice walks every row again, so slices pay only where
+# the edges far outnumber the rows walked and the rows gathered.  On an
+# H100 80GB HBM3 at 700 W (chip_smoke.py's slice sweeps, PERF.md) slicing
+# won at synthetic Reddit (101 edges a row: K1 at F = 608 7.6 ms in
+# 32-column slices, 18.2 unsliced) and lost on the sampled GraphSAGE's
+# masked layer-0 block: unsliced, K1 dx took 0.880 ms for 2.065 in
+# 64-column slices and K5 1.880 for 2.915 (0.43 edges a walked row), and
+# bf16 K1 forward 0.169 for 0.536 in 16-column slices (6.9 edges a
+# gathered row).  Below SLICE_MIN_REUSE edges a row the kernels take no
+# slices; the value lies between those cases, which are all that was
+# measured.
+SLICE_MIN_REUSE = 16
 
-# An L2 line holds 128 bytes, LINE_COLS float32 columns.  A feature slice
-# gathered from a row-major array costs one line per edge where it starts
-# on a line boundary and two where it straddles one.  Rows of 602 floats
-# (2,408 bytes) start on a line boundary once in 16, so gspmm pads the
-# columns of a sliced x with zeros to the next multiple of LINE_COLS and
-# cuts the result back.  On an H100 80GB HBM3 at 700 W (chip_smoke.py,
-# PERF.md), K4 over synthetic Reddit in 32-column slices took 16.2 ms at
-# F = 602 and 7.9 at 608, K1 16.2 and 7.8, K5 24.4 and 16.5.
-LINE_COLS = 32
+
+# An L2 line holds LINE_BYTES bytes: 32 float32 columns, 64 bf16 ones
+# (``line_cols``).  A feature slice gathered from a row-major array costs
+# one line per edge where it starts on a line boundary and two where it
+# straddles one.  Rows of 602 floats (2,408 bytes) start on a line
+# boundary once in 16, so gspmm pads the columns of a sliced x with zeros
+# to the next multiple of a line's columns and cuts the result back.  On
+# an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md), K4 over synthetic
+# Reddit in 32-column slices took 16.2 ms at F = 602 and 7.9 at 608, K1
+# 16.2 and 7.8, K5 24.4 and 16.5 (float32).
+LINE_BYTES = 128
+
+
+def line_cols(elem_bytes: int = 4) -> int:
+    """Columns of ``elem_bytes`` bytes in one L2 line."""
+    return LINE_BYTES // elem_bytes
 
 # Only the card's kernels gain from the padding: the plain versions that a
 # CPU tensor takes read whole rows.
@@ -224,46 +286,85 @@ def plan_args(plan: RowPlan, partial: Optional[Tensor]) -> tuple:
             plan.pieces.shape[0], ptr(partial))
 
 
-def vector_width(F: int, *tensors: Optional[Tensor]) -> int:
-    """Floats per load of K1, K4 and K5: 4 where 4 | F and every tensor's
-    data is 16-byte aligned, 2 where 2 | F and it is 8-byte aligned, else
-    1."""
-    for v in (4, 2):
-        if F % v == 0 and all(t is None or t.data_ptr() % (4 * v) == 0
-                              for t in tensors):
+# The most values a lane of K1 and K5 loads at a time.  In bf16 their
+# 16-byte loads (8 values) cost registers (K1 70 a thread against 48 at 4
+# values, K5 93-128 against 64) and took longer on an H100 80GB HBM3 at
+# 700 W (chip_smoke.py's load-width sweeps, PERF.md): at bench.py's shape
+# K1 1.655 ms against 1.486 at 4 values, K1 dx 0.847 against 0.757, K5
+# 2.399 against 1.787; at synthetic Reddit (F = 640) K1 6.176 against
+# 4.954 and K5 30.86 against 17.41.  K4 keeps 16-byte loads (1.596
+# against 1.704 ms, 6.905 against 8.646).
+SUM_MAX_VALUES = 4
+
+
+def vector_width(F: int, *tensors: Optional[Tensor],
+                 max_values: int = 8) -> int:
+    """Values per load of K1, K4 and K5: the most, v, that a 16-byte load
+    of the narrowest tensor holds (4 of float32, 8 of bf16), at most
+    ``max_values``, halved until v | F and every tensor's data is aligned
+    for v of its own values (at most 16 bytes: 8 float32 weights beside
+    bf16 rows are two 16-byte loads).  So float32 rows take 4 where 4 | F
+    and the data is 16-byte aligned, 2 where 2 | F and it is 8-byte
+    aligned, else 1."""
+    sizes = [t.element_size() for t in tensors if t is not None]
+    v = min(16 // min(sizes, default=4), max_values)
+    while v > 1:
+        if F % v == 0 and all(
+                t is None or t.data_ptr() % min(16, t.element_size() * v) == 0
+                for t in tensors):
             return v
+        v //= 2
     return 1
 
 
-def slice_width(rows: int, F: int, edge_rows: bool) -> int:
-    """Columns per feature slice of K1 over a gathered x of ``rows`` rows:
-    F (no slicing) where x has no reuse (edge-row mode) or fits in
-    ``SLICE_BUDGET`` whole; else the widest of ``SLICE_WIDTHS`` whose slice
-    of x fits; F where none does."""
-    if edge_rows or rows * F * 4 <= SLICE_BUDGET:
+def edges_per_row(edges: int, *rows: int) -> float:
+    """Edges over the most rows of ``rows`` (walked and gathered): the
+    reuse that ``slice_width`` weighs."""
+    return edges / max(max(rows), 1)
+
+
+def slice_width(rows: int, F: int, edge_rows: bool,
+                elem_bytes: int = 4, reuse: Optional[float] = None) -> int:
+    """Columns per feature slice of K1 over a gathered x of ``rows`` rows
+    of ``elem_bytes``-byte values: F (no slicing) where x has no reuse
+    (edge-row mode, or ``reuse``, the edges a row from ``edges_per_row``,
+    under ``SLICE_MIN_REUSE``) or fits in ``SLICE_BUDGET`` whole; else the
+    widest of ``SLICE_WIDTHS`` whose slice of x fits; F where none
+    does."""
+    if edge_rows or rows * F * elem_bytes <= SLICE_BUDGET or (
+            reuse is not None and reuse < SLICE_MIN_REUSE):
         return F
     for s in SLICE_WIDTHS:
-        if s < F and rows * s * 4 <= SLICE_BUDGET:
+        if s < F and rows * s * elem_bytes <= SLICE_BUDGET:
             return s
     return F
 
 
-def padded_width(rows: int, F: int, w: Optional[Tensor]) -> int:
-    """The width gspmm pads an x of ``rows`` rows and F columns to before
-    K1 or K4 gathers it: the next multiple of ``LINE_COLS`` where the
-    kernel cuts the columns into slices (``slice_width``); F (no padding)
+def padded_width(rows: int, F: int, w: Optional[Tensor],
+                 elem_bytes: int = 4, reuse: Optional[float] = None) -> int:
+    """The width gspmm pads an x of ``rows`` rows and F columns of
+    ``elem_bytes``-byte values to before K1 or K4 gathers it: the next
+    multiple of a line's columns (``line_cols``) where the kernel cuts the
+    columns into slices (``slice_width``, with ``reuse``); F (no padding)
     where it does not, and under an (E, F) weight, which would need the
     same padding."""
-    if (w is not None and w.dim() == 2) or slice_width(rows, F, False) >= F:
+    if (w is not None and w.dim() == 2) or \
+            slice_width(rows, F, False, elem_bytes, reuse) >= F:
         return F
-    return -(-F // LINE_COLS) * LINE_COLS
+    cols = line_cols(elem_bytes)
+    return -(-F // cols) * cols
 
 
-def run_width(x2: Tensor, w: Optional[Tensor]) -> int:
-    """The width at which gspmm runs its kernels over x2 (rows, F):
-    ``padded_width`` on a device of ``PAD_DEVICES``, else F."""
+def run_width(x2: Tensor, w: Optional[Tensor], g=None) -> int:
+    """The width at which gspmm runs its kernels over x2 (rows, F) on the
+    graph g: ``padded_width`` on a device of ``PAD_DEVICES`` (with g's
+    edges a row as the reuse, when g is given), else F."""
     rows, F = x2.shape
-    return padded_width(rows, F, w) if x2.device.type in PAD_DEVICES else F
+    if x2.device.type not in PAD_DEVICES:
+        return F
+    reuse = None if g is None else edges_per_row(
+        g.num_edges(), g.num_src_nodes, g.num_dst_nodes)
+    return padded_width(rows, F, w, x2.element_size(), reuse)
 
 
 def pad_columns(x2: Tensor, width: int) -> Tensor:
@@ -275,17 +376,20 @@ def pad_columns(x2: Tensor, width: int) -> Tensor:
 
 def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
                 eid: Optional[Tensor] = None, w: Optional[Tensor] = None, *,
-                site: str = "fwd", plan: Optional[RowPlan] = None) -> Tensor:
-    """K1 wrapper.  x (rows, F) float32; indptr, gidx, eid int32; w None,
-    (E,) or (E, F).  ``site`` names the call site in the launch count
-    (fwd, rev, edge, rows).  ``plan`` is ``row_plan(indptr)``, built here
-    when None."""
+                site: str = "fwd", plan: Optional[RowPlan] = None,
+                out_dtype: Optional[torch.dtype] = None) -> Tensor:
+    """K1 wrapper.  x (rows, F) float32 or bf16; indptr, gidx, eid int32;
+    w None, (E,) or (E, F).  Sums run in float32; the result is x's dtype,
+    or ``out_dtype`` (float32 under bf16 x, for a caller that adds more to
+    it before it rounds).  ``site`` names the call site in the launch
+    count (fwd, rev, edge, rows).  ``plan`` is ``row_plan(indptr)``, built
+    here when None."""
     if x.device.type == "cpu":
-        return segment_sum_plain(indptr, x, gidx, eid, w)
+        return segment_sum_plain(indptr, x, gidx, eid, w, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {x.device}")
-    launch = segment_sum_launcher(indptr, x, gidx, eid, w, plan)
-    LAUNCHES.add(f"segment_sum.{site}")
+    launch = segment_sum_launcher(indptr, x, gidx, eid, w, plan, out_dtype)
+    LAUNCHES.add(f"{counted('segment_sum', x.dtype)}.{site}")
     return launch(None)
 
 
@@ -293,17 +397,23 @@ def segment_sum_launcher(indptr: Tensor, x: Tensor,
                          gidx: Optional[Tensor] = None,
                          eid: Optional[Tensor] = None,
                          w: Optional[Tensor] = None,
-                         plan: Optional[RowPlan] = None):
-    """Check K1's arguments on CUDA and return ``launch(slice_cols)``,
-    which runs the kernel at that slice width, or at ``slice_width``'s when
-    None, and returns the result.  ``segment_sum`` launches through it;
-    ``chip_smoke.py`` times the slice widths with it."""
+                         plan: Optional[RowPlan] = None,
+                         out_dtype: Optional[torch.dtype] = None):
+    """Check K1's arguments on CUDA and return ``launch(slice_cols,
+    vec)``, which runs the kernel at that slice width and load width, or
+    at ``slice_width``'s and ``vector_width``'s where None, and returns
+    the result.  ``segment_sum`` launches through it; ``chip_smoke.py``
+    times the slice and load widths with it."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"segment_sum takes x of shape (rows, F), got "
                          f"{tuple(x.shape)}")
     num_rows, F = indptr.numel() - 1, x.shape[1]
-    require(x, "x", torch.float32, dev)
+    require(x, "x", FEATURE_DTYPES, dev)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"segment_sum of {x.dtype} x returns {x.dtype} or "
+                        f"float32, not {out_dtype}")
     require(indptr, "indptr", torch.int32, dev)
     E = x.shape[0] if gidx is None else gidx.numel()
     if gidx is not None:
@@ -312,7 +422,8 @@ def segment_sum_launcher(indptr: Tensor, x: Tensor,
         require(eid, "eid", torch.int32, dev, E)
     w_kind = 0
     if w is not None:
-        require(w, "w", torch.float32, dev)
+        require(w, "w", FEATURE_DTYPES, dev)
+        w = kernel_weight(w)
         if w.dim() == 1:
             w_kind = 1
         elif w.dim() == 2 and w.shape[1] == F:
@@ -325,16 +436,27 @@ def segment_sum_launcher(indptr: Tensor, x: Tensor,
     if max(num_rows, E, x.shape[0]) > _I32_MAX:
         raise ValueError("segment_sum: sizes exceed the int32 index range")
     plan = checked_plan(plan, indptr, "segment_sum")
-    vec = vector_width(F, x, w if w_kind == 2 else None)
+    vec_rule = vector_width(F, x, w if w_kind == 2 else None,
+                            max_values=SUM_MAX_VALUES)
+    reuse = edges_per_row(E, x.shape[0], num_rows)
 
-    def launch(slice_cols: Optional[int]) -> Tensor:
+    def launch(slice_cols: Optional[int], vec: Optional[int] = None
+               ) -> Tensor:
+        vec = vec or vec_rule
         if slice_cols is None:
-            slice_cols = slice_width(x.shape[0], F, gidx is None)
-        out = torch.empty((num_rows, F), dtype=torch.float32, device=dev)
-        check("segment_sum", library().segment_sum_f32(
-            ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind,
-            ptr(out), num_rows, F, vec, slice_cols,
-            *plan_args(plan, plan_scratch(plan, F)), stream_ptr(dev)))
+            slice_cols = slice_width(x.shape[0], F, gidx is None,
+                                     x.element_size(), reuse)
+        out = torch.empty((num_rows, F), dtype=out_dtype, device=dev)
+        head = (ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind,
+                ptr(out))
+        tail = (num_rows, F, vec, slice_cols,
+                *plan_args(plan, plan_scratch(plan, F)), stream_ptr(dev))
+        if x.dtype == torch.float32:
+            err = library().segment_sum_f32(*head, *tail)
+        else:
+            err = library().segment_sum_bf16(
+                *head, int(out_dtype == torch.float32), *tail)
+        check("segment_sum", err)
         return out
     return launch
 
@@ -355,7 +477,7 @@ class GspmmSum(torch.autograd.Function):
     """out[v] = sum_{e=(u,v)} x[u] * w[e] over the graph's CSC direction.
 
     x (N_src, F); w None, (E,) or (E, F) in internal edge order.  Returns
-    (N_dst, ``run_width(x, w)``): K1 runs over a padded copy of x that is
+    (N_dst, ``run_width(x, w, g)``): K1 runs over a padded copy of x that is
     dropped after the forward (the backward needs x only for dw, and
     takes the caller's), and the caller cuts the result back to F
     columns, so that autograd hands the backward a padded cotangent."""
@@ -364,7 +486,7 @@ class GspmmSum(torch.autograd.Function):
     def forward(ctx, x: Tensor, w: Optional[Tensor], g) -> Tensor:
         ctx.g = g
         ctx.save_for_backward(x, w)
-        return segment_sum(g.csc_indptr, pad_columns(x, run_width(x, w)),
+        return segment_sum(g.csc_indptr, pad_columns(x, run_width(x, w, g)),
                            gidx=g.src, w=w, site="fwd",
                            plan=graph_row_plan(g, "csc"))
 
@@ -381,16 +503,21 @@ class GspmmSum(torch.autograd.Function):
                              eid=g.csr_eids, w=w, site="rev",
                              plan=graph_row_plan(g, "csr"))[:, :F]
         if w is not None and ctx.needs_input_grad[1]:
-            # dw[e] = <x[src_e], dout[dst_e]>, elementwise for (E, F) w
-            prod = x[g.src] * dout[:, :F][g.dst]
-            dw = prod.sum(-1) if w.dim() == 1 else prod
+            # dw[e] = <x[src_e], dout[dst_e]>, elementwise for (E, F) w,
+            # in float32 under bf16 and cast to w's dtype (spmm_kernel.py
+            # _gspmm_fused_bwd)
+            acc = accumulate_dtype(x.dtype)
+            prod = x[g.src].to(acc) * dout[:, :F][g.dst].to(acc)
+            dw = (prod.sum(-1) if w.dim() == 1 else prod).to(w.dtype)
         return dx, dw, None
 
 
-def check_cuda_call(x: Tensor, what: str) -> None:
-    """What the gspmm kernels do not take on CUDA raises, naming the
-    ROADMAP item that will port it."""
-    if x.is_cuda and x.dtype != torch.float32:
+def check_cuda_call(x: Tensor, what: str,
+                    dtypes: tuple = FEATURE_DTYPES) -> None:
+    """What a kernel does not take on CUDA raises, naming the ROADMAP item
+    that will port it: K1, K4 and K5 take float32 and bf16 rows
+    (``FEATURE_DTYPES``, the default), K6 float32 alone."""
+    if x.is_cuda and x.dtype not in dtypes:
         raise _unsupported(f"{what} in {x.dtype}", "bf16")
 
 
@@ -585,6 +712,257 @@ def gspmm_rows(g, data: Tensor, reduce_op: str) -> Tensor:
     return segment_sum_rows(data, seg)
 
 
+# ---------------------------------------------------------------------------
+# The dense-hub hybrid: a dense count matrix for hub dst windows, K1 for
+# the rest (the JAX package's select_dense_windows ... gspmm_hybrid,
+# spmm_kernel.py:1315-1555)
+# ---------------------------------------------------------------------------
+# What the default breakeven weighs, measured on an H100 80GB HBM3 at
+# 700.00 W (chip_smoke.py's bf16_kernels and hybrid phases, PERF.md): K1's
+# forward time per edge at bench.py's shape (float32, F = 128: 2.94 ms
+# over 16M edges), and the rate of the hybrid's float32 dense product,
+# its C chunks cast to float32 included, over (2,304, 1M) x (1M, 128):
+# 31.1 TFLOP/s.  The C read counts at the card's 3.35 TB/s (H100 SXM data
+# sheet).  With these the default densifies bench.py's one hub window
+# (9.5M of its 16M edges), which took bench.py's loop from 3.085 to 2.780
+# ms an iteration in float32 and from 1.653 to 1.097 in bf16 on that
+# card; bench.py's own threshold (18 windows) took it to 19.57 and 2.186.
+K1_NS_PER_EDGE = 0.18
+K1_NS_WIDTH = 128
+DENSE_FP32_OPS_PER_S = 31e12
+CARD_BYTES_PER_S = 3.35e12
+# rows of C cast to float32 at a time by the float32 product (1 GiB of
+# float32 at 1M sources)
+DENSE_CHUNK_ROWS = 256
+# bf16 holds every integer up to 256 exactly (8 significant bits)
+BF16_EXACT_INT = 256
+
+
+def _dense_breakeven(num_src: int, tr: int, flat_width: int = 128) -> int:
+    """Edges in a window of ``tr`` dst rows above which its dense product
+    (reading a (tr, num_src) bf16 block of C, and a float32 product at
+    ``flat_width`` columns) takes less time than K1 over those edges
+    (``K1_NS_PER_EDGE`` at ``K1_NS_WIDTH`` columns, scaled to
+    ``flat_width``); at least 4 tr, as in the JAX package."""
+    read_s = tr * num_src * 2 / CARD_BYTES_PER_S
+    gemm_s = 2.0 * tr * num_src * max(flat_width, 1) / DENSE_FP32_OPS_PER_S
+    k1_s = K1_NS_PER_EDGE * 1e-9 * max(flat_width, 1) / K1_NS_WIDTH
+    return max(4 * tr, int(max(read_s, gemm_s) / k1_s))
+
+
+def select_dense_windows(csc_indptr: np.ndarray, num_src: int, num_dst: int,
+                         tr: int, threshold: Optional[int] = None,
+                         budget_bytes: int = 3 << 30,
+                         flat_width: int = 128) -> np.ndarray:
+    """Ids of the windows of ``tr`` consecutive dst rows to densify: those
+    of at least ``threshold`` edges (``_dense_breakeven``'s when None), the
+    heaviest first as far as ``budget_bytes`` of bf16 C holds them, in
+    ascending order.  Host numpy, as in the JAX package."""
+    W = max(1, -(-num_dst // tr))
+    bounds = np.minimum(np.arange(W + 1) * tr, num_dst)
+    ip = np.asarray(csc_indptr)
+    cnt = (ip[bounds[1:]] - ip[bounds[:-1]]).astype(np.int64)
+    thr = _dense_breakeven(num_src, tr, flat_width) if threshold is None \
+        else threshold
+    max_wins = int(budget_bytes // max(tr * num_src * 2, 1))
+    cand = np.nonzero(cnt >= max(thr, 1))[0]
+    if cand.size == 0 or max_wins == 0:
+        return np.zeros(0, np.int64)
+    order = cand[np.argsort(cnt[cand], kind="stable")[::-1]]
+    return np.sort(order[:max_wins])
+
+
+def _check_dense_exact(g, wins: np.ndarray, tr: int) -> np.ndarray:
+    """``wins`` without the windows where some (dst, src) pair repeats more
+    than ``BF16_EXACT_INT`` times: C's bf16 counts would not be exact."""
+    if wins.size == 0:
+        return wins
+    dst = g.host("dst").astype(np.int64)
+    src = g.host("src").astype(np.int64)
+    win = dst // tr
+    dense = np.zeros(max(1, -(-g.num_dst_nodes // tr)), bool)
+    dense[wins] = True
+    sel = dense[win]
+    keys, counts = np.unique(dst[sel] * g.num_src_nodes + src[sel],
+                             return_counts=True)
+    bad = np.unique(keys[counts > BF16_EXACT_INT] // g.num_src_nodes // tr)
+    return wins[~np.isin(wins, bad)]
+
+
+def _window_rows(wins: np.ndarray, tr: int, num_dst: int) -> np.ndarray:
+    """The dst rows of the windows, in order (int64)."""
+    if wins.size == 0:
+        return np.zeros(0, np.int64)
+    return np.concatenate([np.arange(w * tr, min((w + 1) * tr, num_dst))
+                           for w in wins]).astype(np.int64)
+
+
+def _build_dense_C(g, wins: np.ndarray, tr: int,
+                   rows_per_chunk: int = DENSE_CHUNK_ROWS):
+    """(C, rows) on g's device: C (R, num_src) bf16 counts of the edges
+    into each dense row from each source, rows (R,) int64 the dst rows.
+    Built a chunk of ``rows_per_chunk`` rows at a time through a float32
+    staging buffer (``index_put_`` with accumulate)."""
+    dev = g.device
+    rows = torch.from_numpy(_window_rows(wins, tr, g.num_dst_nodes)).to(dev)
+    R, num_src = rows.numel(), g.num_src_nodes
+    row_map = torch.full((g.num_dst_nodes,), -1, dtype=torch.int64,
+                         device=dev)
+    row_map[rows] = torch.arange(R, device=dev)
+    local = row_map[g.dst.long()]                # dense row of each edge
+    src = g.src.long()
+    C = torch.empty((R, num_src), dtype=torch.bfloat16, device=dev)
+    for r0 in range(0, R, rows_per_chunk):
+        cr = min(rows_per_chunk, R - r0)
+        sel = (local >= r0) & (local < r0 + cr)
+        stage = torch.zeros((cr, num_src), dtype=torch.float32, device=dev)
+        stage.index_put_((local[sel] - r0, src[sel]),
+                         torch.ones((), device=dev), accumulate=True)
+        C[r0:r0 + cr] = stage.to(torch.bfloat16)
+    return C, rows
+
+
+def build_hybrid_plan(g, wins: np.ndarray, tr: int) -> Graph:
+    """The sparse remainder: an unmasked graph over the edges outside the
+    dense windows, with its own CSC and CSR arrays and K1's row plans in
+    both directions (the real-edge view of the mask of kept edges, built
+    with torch ops on g's device).  Its rows in the dense windows are
+    empty."""
+    W = max(1, -(-g.num_dst_nodes // tr))
+    dense = torch.zeros(W, dtype=torch.bool, device=g.device)
+    dense[torch.from_numpy(np.asarray(wins, np.int64)).to(g.device)] = True
+    keep = ~dense[g.dst.long() // tr]
+    rem = real_edges(g.structure_only().replace(edge_mask=keep)).graph
+    rev_gidx(rem)
+    graph_row_plan(rem, "csc")
+    graph_row_plan(rem, "csr")
+    return rem
+
+
+class HybridPlan(NamedTuple):
+    """A graph's dense-hub hybrid (``prepare_spmm``): ``rem`` the sparse
+    remainder (``build_hybrid_plan``), ``C`` (R, num_src) bf16 the dense
+    rows' counts, ``rows`` (R,) int64 those rows, ``windows`` the dense
+    windows' ids and ``tr`` their rows."""
+    rem: Graph
+    C: Tensor
+    rows: Tensor
+    windows: Tensor
+    tr: int
+
+    def to(self, device) -> "HybridPlan":
+        return HybridPlan(self.rem.to(device), self.C.to(device),
+                          self.rows.to(device), self.windows.to(device),
+                          self.tr)
+
+
+def _mm_float(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b with a float32 result: on the card a bf16 x bf16 product with
+    float32 output (``out_dtype``), each sum taken before any rounding
+    (the JAX package's bf16 dot with preferred_element_type float32);
+    else a product in ``accumulate_dtype`` (float32 for bf16), which for
+    float32 is a full-float32 product: the port leaves TF32 off, PyTorch's
+    default."""
+    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    acc = accumulate_dtype(b.dtype)
+    return torch.mm(a.to(acc), b.to(acc))
+
+
+def _dense_matmul(C: Tensor, x: Tensor) -> Tensor:
+    """C @ x: (R, N) counts @ (N, F) -> (R, F) in float32 (in float64 for
+    a float64 x).  A bf16 x takes one bf16 product of C as it is stored;
+    a float32 x a float32 product over C cast up ``DENSE_CHUNK_ROWS`` rows
+    at a time."""
+    if x.dtype == torch.bfloat16:
+        return _mm_float(C, x)
+    return torch.cat([_mm_float(C[r0:r0 + DENSE_CHUNK_ROWS], x)
+                      for r0 in range(0, C.shape[0], DENSE_CHUNK_ROWS)])
+
+
+def _dense_matmul_t(C: Tensor, g: Tensor) -> Tensor:
+    """Cᵀ @ g: (R, N)ᵀ @ (R, F) -> (N, F) in float32 (the backward), with
+    ``_dense_matmul``'s precision."""
+    if g.dtype == torch.bfloat16:
+        return _mm_float(C.t(), g)
+    out = None
+    for r0 in range(0, C.shape[0], DENSE_CHUNK_ROWS):
+        part = _mm_float(C[r0:r0 + DENSE_CHUNK_ROWS].t(),
+                         g[r0:r0 + DENSE_CHUNK_ROWS])
+        out = part if out is None else out.add_(part)
+    return out
+
+
+class DenseCountMatmul(torch.autograd.Function):
+    """C @ x in float32 with its transpose as the backward, the JAX
+    package's ``dense_count_matmul`` (a plain matmul there too, outside
+    any Pallas kernel).  The gradient comes back in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, C: Tensor, x: Tensor) -> Tensor:
+        ctx.save_for_backward(C)
+        ctx.x_dtype = x.dtype
+        return _dense_matmul(C, x)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        (C,) = ctx.saved_tensors
+        return None, _dense_matmul_t(C, g).to(ctx.x_dtype)
+
+
+def dense_count_matmul(C: Tensor, x: Tensor) -> Tensor:
+    """Differentiable (R, N) count matrix @ (N, F) features -> (R, F)
+    float32."""
+    return DenseCountMatmul.apply(C, x)
+
+
+class GspmmHybrid(torch.autograd.Function):
+    """out[v] = sum_{u->v} x[u] through the hybrid: K1 over the remainder
+    plus, at the dense rows, C @ x added in float32 and rounded once to x's
+    dtype (``_gspmm_hybrid``).  The backward is K1 over the remainder's
+    CSR direction, returned in float32, plus Cᵀ @ g[rows], rounded once.
+    Returns (N_dst, ``run_width(x, None, rem)``), as ``GspmmSum``
+    does."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, hyb: HybridPlan) -> Tensor:
+        ctx.hyb = hyb
+        ctx.x_meta = (x.dtype, x.shape[1])
+        rem = hyb.rem
+        out = segment_sum(rem.csc_indptr,
+                          pad_columns(x, run_width(x, None, rem)),
+                          gidx=rem.src, site="fwd",
+                          plan=graph_row_plan(rem, "csc"))
+        F = x.shape[1]
+        acc = accumulate_dtype(x.dtype)
+        d = _dense_matmul(hyb.C, x)
+        out[hyb.rows, :F] = (out[hyb.rows, :F].to(acc) + d).to(out.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: Tensor):
+        hyb = ctx.hyb
+        rem = hyb.rem
+        dtype, F = ctx.x_meta
+        dout = dout.contiguous()
+        acc = accumulate_dtype(dtype)
+        dx = segment_sum(rem.csr_indptr, dout, gidx=rev_gidx(rem),
+                         site="rev", plan=graph_row_plan(rem, "csr"),
+                         out_dtype=acc)[:, :F]
+        dx = dx + _dense_matmul_t(hyb.C, dout[hyb.rows, :F])
+        return dx.to(dtype), None
+
+
+def gspmm_hybrid(g, x: Tensor) -> Tensor:
+    """copy_u sum through the graph's dense-hub hybrid
+    (``g.derived["hybrid"]``).  x (N, ...) -> (N_dst, ...)."""
+    check_cuda_call(x, "gspmm")
+    shape = x.shape
+    x2 = x.reshape(shape[0], -1)
+    out = GspmmHybrid.apply(x2, g.derived["hybrid"])[:, :x2.shape[1]]
+    return out.reshape((out.shape[0],) + tuple(shape[1:]))
+
+
 def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
                  wc: Optional[int] = None, *, weighted: bool = True,
                  dense_hub: bool = True, dense_threshold: Optional[int] = None,
@@ -594,15 +972,28 @@ def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
     """Ready a graph for the kernels: its CSC and CSR arrays are the plan.
 
     Places ``csc_indptr``, ``src``, ``csr_indptr``, ``csr_eids`` and
-    ``dst[csr_eids]`` on ``device`` (the graph's own device when None),
-    builds K1's row plans of both directions there and returns the
-    graph.  The TPU plan knobs (tr, te, bc, wc, weighted,
-    dense_hub, dense_threshold, dense_budget, flat, flat_width, sddmm,
-    bucket_rows, bucket_rows_rev) are accepted for signature parity with
-    the JAX package and ignored: the port's kernels read the graph's own
-    index arrays.  A masked graph gets the same over its real-edge view
-    (``real_edges``).  A graph does not need this call to run the kernels:
-    what it builds is otherwise built at first use."""
+    ``dst[csr_eids]`` on ``device`` (the graph's own device when None) and
+    builds K1's row plans of both directions there.  A masked graph gets
+    the same over its real-edge view (``real_edges``) and no hybrid.
+
+    ``dense_hub`` builds the dense-hub hybrid as the JAX package does: the
+    windows of ``tr`` dst rows that ``select_dense_windows`` picks with
+    ``dense_threshold`` and ``dense_budget`` (the default threshold from
+    ``_dense_breakeven`` at ``flat_width`` columns, the card's own
+    numbers), less those whose counts bf16 cannot hold
+    (``_check_dense_exact``), go dense; copy_u sum and mean then run
+    through ``gspmm_hybrid`` on either device.  The returned graph carries
+    the hybrid in its ``derived`` cache, a new dict: ``g``'s cache is not
+    changed by it.  On an H100 the default threshold picks bench.py's one
+    hub window, which beat K1 alone, and not the 17 more that bench.py's
+    own threshold adds, which lost to it (``K1_NS_PER_EDGE``, PERF.md);
+    ``dense_hub=False`` keeps K1 alone.  ``weighted`` is
+    accepted and the full plan built either way (weighted=False without
+    a dense window keeps it, as in the JAX package); te, bc, wc, flat,
+    sddmm, bucket_rows and bucket_rows_rev are the TPU plan's and are
+    ignored: the port's kernels read the graph's own index arrays.  A
+    graph does not need this call to run the kernels: the row plans are
+    otherwise built at first use."""
     if g.csr_indptr is None or g.csr_eids is None:
         raise ValueError("prepare_spmm requires the graph's CSR format")
     if device is not None:
@@ -611,4 +1002,21 @@ def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
     rev_gidx(kg)
     graph_row_plan(kg, "csc")
     graph_row_plan(kg, "csr")
-    return g
+    hyb = None
+    if dense_hub and g.edge_mask is None:
+        wins = select_dense_windows(
+            g.host("csc_indptr"), g.num_src_nodes, g.num_dst_nodes, tr,
+            threshold=dense_threshold, budget_bytes=dense_budget,
+            flat_width=flat_width)
+        wins = _check_dense_exact(g, wins, tr)
+        if wins.size:
+            C, rows = _build_dense_C(g, wins, tr)
+            hyb = HybridPlan(build_hybrid_plan(g, wins, tr), C, rows,
+                             torch.from_numpy(wins).to(g.device), tr)
+    if hyb is None and "hybrid" not in g.derived:
+        return g
+    out = g.replace()
+    out.derived = {k: v for k, v in g.derived.items() if k != "hybrid"}
+    if hyb is not None:
+        out.derived["hybrid"] = hyb
+    return out

@@ -28,7 +28,22 @@ Dispatch by device:
   of a dst-side operand, a masked graph's dst-side operand) take the
   composed path;
 * CPU tensors: otherwise the composed path (gather, combine, segment
-  reduce).
+  reduce);
+* a graph that carries a dense-hub hybrid (``prepare_spmm`` with
+  ``dense_hub``) takes ``gspmm_hybrid`` for copy_u sum/mean of floating
+  data without a mask, on either device (the JAX package's
+  ``_hybrid_eligible``): K1 over the sparse remainder (its plain version
+  on the CPU) plus a dense count matrix times x.
+
+Sums and means of floating data narrower than float32 (bf16, float16)
+accumulate in float32 and round once to the data's dtype on every route
+(copy_u, u_mul_e, copy_e), as K1 does on the card and the JAX package's
+``gspmm_pallas`` does on a prepared graph (spmm_kernel.py:1284-1288); mean
+then divides that sum by the in-degree in the data's dtype, as
+``gspmm_pallas`` does.  The JAX package's bare graph sums bf16 messages in
+bf16 (``jax.ops.segment_sum``), so the port departs from it there, by up
+to a few bf16 ulps of a row's sum.  ``segment.py`` stays a mirror of
+``jax.ops.segment_*``.
 
 A masked graph reaches K1 and K4/K5 through its real-edge view
 (``ops/cuda/spmm_kernel.py:real_edges``), and mean divides by the count
@@ -45,7 +60,8 @@ from . import segment
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
 from .cuda.segment_max_kernel import gspmm_max
-from .cuda.spmm_kernel import gspmm_rows, gspmm_sum, real_in_degrees
+from .cuda.spmm_kernel import (accumulate_dtype, gspmm_hybrid, gspmm_rows,
+                               gspmm_sum, real_in_degrees)
 
 Tensor = torch.Tensor
 
@@ -69,6 +85,23 @@ def _kernel_shaped(op, lhs_data, rhs_data, lhs_target, rhs_target) -> bool:
 
 def _expand_like(x: Tensor, ref: Tensor) -> Tensor:
     return x.reshape(x.shape + (1,) * (ref.dim() - 1))
+
+
+def _hybrid_eligible(g, op: str, reduce_op: str, lhs_data,
+                     lhs_target: str) -> bool:
+    """copy_u sum/mean of floating data on a graph that carries a hybrid
+    and no mask (the JAX package's ``_hybrid_eligible``)."""
+    return ("hybrid" in g.derived and g.edge_mask is None
+            and op == "copy_lhs" and lhs_target == "u"
+            and reduce_op in ("sum", "mean")
+            and lhs_data.is_floating_point())
+
+
+def _mean(g, out: Tensor) -> Tensor:
+    """A sum divided by the in-degree counting real edges (clamped to 1),
+    in the sum's dtype."""
+    deg = real_in_degrees(g).to(out.dtype).clamp(min=1)
+    return out / deg.reshape((-1,) + (1,) * (out.dim() - 1))
 
 
 def _v_side_decompose(g, op: str, reduce_op: str, lhs_data, rhs_data,
@@ -151,6 +184,9 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
                                 lhs_target, rhs_target)
         if out is not None:
             return out
+    if _hybrid_eligible(g, op, reduce_op, lhs_data, lhs_target):
+        out = gspmm_hybrid(g, lhs_data)
+        return _mean(g, out) if reduce_op == "mean" else out
     copied = (lhs_target if op == "copy_lhs" else
               rhs_target if op == "copy_rhs" else None)
     if copied == "e" and reduce_op in ("sum", "mean") \
@@ -164,16 +200,27 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
         return gspmm_max(g, lhs_data, w, reduce_op)
     if kernel and data.is_cuda and reduce_op in ("sum", "mean"):
         out = gspmm_sum(g, lhs_data, w)
-        if reduce_op == "mean":
-            deg = real_in_degrees(g).to(out.dtype).clamp(min=1)
-            out = out / deg.reshape((-1,) + (1,) * (out.dim() - 1))
-        return out
+        return _mean(g, out) if reduce_op == "mean" else out
     if data.is_cuda:
         LAUNCHES.add("plain.gspmm_composed")
+    acc = accumulate_dtype(data.dtype)
+    narrow = reduce_op in ("sum", "mean") and acc != data.dtype
+    if narrow:
+        # narrow floats: the operands are cast up before the gather, so
+        # that the message, its sum and the gather's backward (a scatter-
+        # add) all run in float32, and the result rounds once
+        lhs_data, rhs_data = (
+            t.to(acc) if t is not None and t.is_floating_point() else t
+            for t in (lhs_data, rhs_data))
     lhs = None if op == "copy_rhs" else gather_edge_operand(g, lhs_data,
                                                             lhs_target)
     rhs = None if op == "copy_lhs" else gather_edge_operand(g, rhs_data,
                                                             rhs_target)
+    if narrow:
+        out = segment.segment_reduce("sum", apply_binary(op, lhs, rhs),
+                                     g.dst, g.num_dst_nodes,
+                                     mask=g.edge_mask).to(data.dtype)
+        return _mean(g, out) if reduce_op == "mean" else out
     msg = apply_binary(op, lhs, rhs)
     return segment.segment_reduce(reduce_op, msg, g.dst, g.num_dst_nodes,
                                   mask=g.edge_mask)

@@ -443,6 +443,7 @@ def test_gspmm_padded_equals_unpadded(monkeypatch, reducer, wkind):
     monkeypatch.setattr(sk, "segment_sum", lambda i, xx, *a, **k: (
         widths.append(xx.shape[1]), real_sum(i, xx, *a, **k))[1])
     monkeypatch.setattr(sk, "SLICE_BUDGET", n * 16 * 4)
+    monkeypatch.setattr(sk, "SLICE_MIN_REUSE", 0)    # slice a small graph
     assert sk.padded_width(n, F, None) == 64
     run()
     assert widths and set(widths) == {F}        # a CPU tensor is not padded
@@ -470,6 +471,7 @@ def test_padded_gspmm_vs_jax_prepared(monkeypatch, reducer, wkind):
                           wc=2)
     g = dt.graph((src, dst), num_nodes=n)
     monkeypatch.setattr(sk, "SLICE_BUDGET", n * 16 * 4)
+    monkeypatch.setattr(sk, "SLICE_MIN_REUSE", 0)    # slice a small graph
     monkeypatch.setattr(sk, "PAD_DEVICES", ("cuda", "cpu"))
     rng = np.random.default_rng(10)
     E, F = g.num_edges(), 41
