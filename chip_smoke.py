@@ -167,15 +167,44 @@ Phases, one JSON line each:
      build ms, peak memory; one iteration of each hybrid against K1 alone;
  29. the hybrid's parts (``hybrid``) at bench.py's shape, forward and
      backward, in float32 and bf16, against K1 alone, with the inputs of
-     the port's default breakeven as this run measures them.
+     the port's default breakeven as this run measures them;
+ 30. bf16 rows in K2/K3 and K6 (``bf16_attention``, after phase 27):
+     gat_attention_fused over bf16 operands on phase 3's graph (both
+     softmax modes) and the masked layer-0 block, K6 in every op, dot
+     shape and gradient, each against its plain version in float64; K6 at
+     bench.py's shape (u_dot_v, u_sub_v, F = 128) timed beside the float32
+     kernel and sampled_addmm in bf16; then bf16 gsddmm through dt.gsddmm
+     at that shape, forward and backward, with its launches (K6's bf16
+     path); phase 27 also checks that bf16 calls of K2/K3 and K6 reach
+     their bf16 kernels;
+ 31. ``bf16_attention_reddit`` (after phase 5): K2/K3 over a bf16 Wh at
+     both GAT layer shapes on synthetic Reddit, against float64, timed
+     beside the float32 kernels and swept over floats per lane and values
+     per load; a bf16 dt.gat_attention forward and backward there;
+ 32. ``gat_train_packed``: phase 5's GAT training with
+     DGL_TPU_GAT_PACKED=1 (the hidden layer on bf16 Wh, the odd-width
+     output layer unpacked), 5 steps, the first loss against phase 5's,
+     epoch ms, peak memory, launches, and a packed GATConv on the card
+     against the CPU;
+ 33. the HAN, capsule and GraphWriter twins (``han``, ``capsule``,
+     ``graphwriter``) at their CLI defaults, 40, 20 and 20 epochs: losses
+     falling, the first against the CPU's, epoch ms, launches (K2/K3; K6
+     and K1).
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
 Tolerances (max abs error / max |reference|): bf16 sums (K1, K5 dx
 under a weight, the hybrid) within one bf16 ulp of the float64 sum of the
 same values plus K1_TOL * max|reference| (``BF16_ULPS``: the order of the
-float32 sums); bf16 max/min and K5's dx of an integer cotangent equal to
-their plain versions; a float32 hybrid within 1e-5 of K1 alone.  K1 (its
+float32 sums); bf16 results of K2/K3 and K6's dot and gradients the same
+with the float32 kernel's tolerance in place of K1_TOL, K6's bf16
+elementwise ops equal to their plain versions, and K2/K3's float32
+outputs over a bf16 Wh within GAT_TOL of float64; bf16 max/min and K5's
+dx of an integer cotangent equal to their plain versions; a float32
+hybrid within 1e-5 of K1 alone; the packed GAT's first loss within 2^-8
+of the unpacked one, a packed GATConv within 2^-8 + GAT_TOL of the CPU
+(``PACKED_LOSS_TOL``, ``PACKED_LAYER_TOL``); a twin's first loss within
+LAYER_TOL of the CPU's.  K1 (its
 rows route too)
 and K5 <= 2e-5 against their plain versions run in float64 (the kernels'
 f32 sums); the slice's layers <= 1e-4 against the CPU (``LAYER_TOL``);
@@ -249,14 +278,17 @@ def reset_peak_memory() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def cuda_ms(fn, reps: int = 10, one_launch: bool = False) -> float:
+def cuda_ms(fn, reps: int = 10, one_launch: bool = False,
+            queued: bool = False) -> float:
     """Median milliseconds of one fn() from CUDA events, after one warm-up.
     A call of under 2 ms is timed as a batch of up to 20 launches queued
     behind ``keep_busy``, so that the events bracket device time alone:
     with one launch per pair of events the wrapper's host time counts too,
     and it alone spread such a reading by +-15% between processes.
     ``one_launch`` times every call that second way, as this script timed
-    all calls before it batched the short ones."""
+    all calls before it batched the short ones; ``queued`` queues a longer
+    call too (one a batch), so that two forms of a kernel on either side
+    of 2 ms are read the same way."""
     def timed(batch):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -272,6 +304,8 @@ def cuda_ms(fn, reps: int = 10, one_launch: bool = False) -> float:
     torch.cuda.synchronize()
     batch = 0 if one_launch else \
         int(min(20, 2.0 // max(timed(0), 1e-3)))        # 0: one, no queue
+    if queued:
+        batch = max(batch, 1)
     return float(np.median([timed(batch) for _ in range(reps)]))
 
 
@@ -616,7 +650,10 @@ def composed_gat(g, fsrc, el, er, w, slope):
     from dgl_hack_tpu_torch.ops import segment
     src, dst = g.src.long(), g.dst.long()
     N = g.num_dst_nodes
-    logit = torch.nn.functional.leaky_relu(el[src] + er[dst], slope)
+    raw = el[src] + er[dst]
+    # jax.nn.leaky_relu's where(x >= 0): slope 1 at 0, as K3 (bf16 logits
+    # hit 0; F.leaky_relu's slope there is the negative slope)
+    logit = torch.where(raw >= 0, raw, slope * raw)
     a = segment.segment_softmax(logit, dst, N)
     if w is not None:
         a = a * w
@@ -653,6 +690,18 @@ def _gat_case(gk, g, H, D, mode, checks, rng, tag, scale=1.0):
     return errs
 
 
+def _gat_hub_graph(dt, dev, rng):
+    """20,000 nodes, 400,000 edges: 1000 isolated dst rows, a dst hub of
+    15,000 in-edges (K2's pieces) and a src hub of 15,000 out-edges
+    (K3's)."""
+    N = 20_000
+    src = rng.integers(0, N, 400_000)
+    dst = rng.integers(0, N - 1000, 400_000)      # 1000 isolated dst rows
+    dst[:15_000] = 3                              # a dst hub: K2's pieces
+    src[15_000:30_000] = 5                        # a src hub: K3's pieces
+    return dt.graph((src, dst), num_nodes=N, device=dev)
+
+
 def phase_gat(dt, gk, sk, checks, dev):
     """K2/K3 through gat_attention_fused and its gradients against the
     composed plain version, in both softmax modes, on a graph with a dst
@@ -661,12 +710,8 @@ def phase_gat(dt, gk, sk, checks, dev):
     D = 3,100 (H*D + H > 6,144, wider than the first K3 took) on a graph
     small enough for the composed reference."""
     rng = np.random.default_rng(1)
-    N = 20_000
-    src = rng.integers(0, N, 400_000)
-    dst = rng.integers(0, N - 1000, 400_000)      # 1000 isolated dst rows
-    dst[:15_000] = 3                              # a dst hub: K2's pieces
-    src[15_000:30_000] = 5                        # a src hub: K3's pieces
-    g = dt.graph((src, dst), num_nodes=N, device=dev)
+    g = _gat_hub_graph(dt, dev, rng)
+    N = g.num_src_nodes
     res = {}
     for H, D in ((8, 8), (1, 7)):
         for mode in ("shift", "exact"):
@@ -774,20 +819,30 @@ def phase_gcn(dt, build, sk, ds, g, checks, dev, timings):
 
 
 def _gat_kernels_at(gk, sk, g, H, D, checks, rng, tag, timed=False,
-                    sweep=False):
+                    sweep=False, bf16=False):
     """K2, K3 and K1's edge-row (der) call on a graph at head shape (H, D)
     with attn_w, against their plain versions, each repeated bitwise.
     With ``timed`` returns K2's and K3's timing records (shift mode), with
     ``sweep`` also their sweeps of floats per lane (4, 8), each held to
-    the plain version."""
+    the plain version.  ``bf16``: Wh in bf16 (the packed GAT's rows; el,
+    er, w and dout float32), held to the plain versions run in float64 on
+    the same values, timed beside the float32 kernel on the same shape
+    (``f32_ms``) and swept over values per load too."""
     dev = g.device
     N, E = g.num_src_nodes, g.num_edges()
+    kf, kb = ("gat_fwd_bf16", "gat_bwd_bf16") if bf16 else ("gat_fwd",
+                                                            "gat_bwd")
 
     def t(shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
                                 ).to(dev)
 
+    def wide(*a):          # float64 copies for a bf16 run's references
+        return [x.double() if bf16 else x for x in a]
+
     wh, el, er, dout = t((N, H * D)), t((N, H)), t((N, H)), t((N, H * D))
+    if bf16:
+        wh = wh.to(BF16)
     w = torch.from_numpy((rng.random((E, H)) > 0.6).astype(np.float32)
                          / 0.4).to(dev)
     shift = gk.shift_bound(el, er, 0.2).contiguous()
@@ -795,9 +850,10 @@ def _gat_kernels_at(gk, sk, g, H, D, checks, rng, tag, timed=False,
     fwd_args = (g.csc_indptr, g.src, wh, el, er, w, shift, 0.2, False)
     rst, den, sh = gk.gat_fwd(*fwd_args, plan=p_fwd)
     again = gk.gat_fwd(*fwd_args, plan=p_fwd)
-    ref = gk.gat_fwd_plain(*fwd_args)
+    ref = gk.gat_fwd_plain(g.csc_indptr, g.src, wh, *wide(el, er, w, shift),
+                           0.2, False)
     for i, name in enumerate(("rst", "den")):
-        checks.compare("gat_fwd", f"{tag} H={H} D={D} {name}",
+        checks.compare(kf, f"{tag} H={H} D={D} {name}",
                        (rst, den)[i], ref[i], GAT_TOL, again[i])
     del again
     sds = (rst.view(N, H, D) * dout.view(N, H, D)).sum(-1).contiguous()
@@ -805,9 +861,9 @@ def _gat_kernels_at(gk, sk, g, H, D, checks, rng, tag, timed=False,
                 den, sds, dout, w, 0.2)
     outs = gk.gat_bwd(*bwd_args, plan=p_rev)
     outs2 = gk.gat_bwd(*bwd_args, plan=p_rev)
-    refs = gk.gat_bwd_plain(*bwd_args)
+    refs = gk.gat_bwd_plain(*bwd_args[:4], *wide(*bwd_args[4:11]), 0.2)
     for name, a, b, r in zip(("dwh", "del", "draw", "dw"), outs, outs2, refs):
-        checks.compare("gat_bwd", f"{tag} H={H} D={D} {name}", a, r,
+        checks.compare(kb, f"{tag} H={H} D={D} {name}", a, r,
                        GAT_TOL, b)
     del outs2
     draw = outs[2]
@@ -817,53 +873,70 @@ def _gat_kernels_at(gk, sk, g, H, D, checks, rng, tag, timed=False,
                    sk.segment_sum(g.csc_indptr, draw, site="edge",
                                   plan=p_fwd))
     res = {}
+    # a bf16 run and its float32 form on the same shape are both read
+    # behind a queue (cuda_ms ``queued``): their times straddle 2 ms
+    tm = (lambda fn: (cuda_ms(fn, queued=True), None)) if bf16 else both_ms
     if timed:
-        shape = f"{tag}, H={H}, D={D}, attn_w"
+        shape = f"{tag}, H={H}, D={D}, attn_w" + (", bf16 Wh" if bf16 else "")
         # per edge and head: logit, leaky, exp, weight, den (~8) and D
         # multiply-adds forward; about twice that backward
         res["gat_fwd"] = timing(
-            both_ms(lambda: gk.gat_fwd(*fwd_args, plan=p_fwd)),
+            tm(lambda: gk.gat_fwd(*fwd_args, plan=p_fwd)),
             cuda_ms(lambda: gk.gat_fwd_plain(*fwd_args), reps=3),
             nbytes(g.csc_indptr, g.src, wh, el, er, w, shift, rst, den),
             E * H * (8 + 2 * D), shape + ", shift mode")
         # as the main path runs it: attn_w is a dropout mask, so no dw;
         # with dw beside it
         res["gat_bwd"] = timing(
-            both_ms(lambda: gk.gat_bwd(*bwd_args, False, plan=p_rev)),
+            tm(lambda: gk.gat_bwd(*bwd_args, False, plan=p_rev)),
             cuda_ms(lambda: gk.gat_bwd_plain(*bwd_args, False), reps=3),
             nbytes(*bwd_args[:11], *outs[:3]), E * H * (12 + 4 * D),
             shape + ", no dw")
-        dw_ms, dw_one = both_ms(lambda: gk.gat_bwd(*bwd_args, plan=p_rev))
+        dw_ms, dw_one = tm(lambda: gk.gat_bwd(*bwd_args, plan=p_rev))
         res["gat_bwd"].update(with_dw_ms=dw_ms, with_dw_one_launch_ms=dw_one,
                               with_dw_bound_ms=bound(
                                   nbytes(*bwd_args[:11], *outs),
                                   E * H * (12 + 4 * D))[0])
+        if bf16:               # the float32 kernels on the same shape
+            wh32 = wh.float()
+            res["gat_fwd"]["f32_ms"] = tm(lambda: gk.gat_fwd(
+                *fwd_args[:2], wh32, *fwd_args[3:], plan=p_fwd))[0]
+            res["gat_bwd"]["f32_ms"] = tm(lambda: gk.gat_bwd(
+                *bwd_args[:3], wh32, *bwd_args[4:], False, plan=p_rev))[0]
+            del wh32
     if sweep:
         res["lane_sweep"] = gat_lane_sweep(
             gk, checks, f"{tag} H={H} D={D}",
             gk.gat_fwd_launcher(*fwd_args, p_fwd)[0],
-            gk.gat_bwd_launcher(*bwd_args, plan=p_rev), ref[:2], refs)
+            gk.gat_bwd_launcher(*bwd_args, plan=p_rev), ref[:2], refs,
+            names=(kf, kb), settings=((4, 4), (8, 4), (8, 8)) if bf16
+            else ((4, None), (8, None)), queued=bf16)
     del ref, refs, outs, fwd_args, bwd_args
     torch.cuda.empty_cache()
     return res
 
 
 def gat_lane_sweep(gk, checks, what, launch_fwd, launch_bwd, ref_fwd,
-                   ref_bwd, reps=5):
-    """ms of K2 and K3 at 4 and 8 floats per lane (the rules:
-    ``K2_LANE_FLOATS``, ``K3_LANE_FLOATS``), each setting's results and
-    their repeat held to the plain versions."""
+                   ref_bwd, reps=5, names=("gat_fwd", "gat_bwd"),
+                   settings=((4, None), (8, None)), queued=False):
+    """ms of K2 and K3 at each (floats per lane, values per load) of
+    ``settings`` (None: the wrapper's rule; the rules: ``K2_LANE_FLOATS``,
+    ``K3_LANE_FLOATS``, and for bf16 Wh ``K2_BF16_VALUES``,
+    ``K3_BF16_VALUES``), each setting's results and their repeat held to
+    the plain versions; ``queued``: see ``cuda_ms``."""
     res = {"k2": {}, "k3": {}}
-    for f in (4, 8):
-        for key, kernel, launch, refs, names in (
-                ("k2", "gat_fwd", launch_fwd, ref_fwd, ("rst", "den")),
-                ("k3", "gat_bwd", launch_bwd, ref_bwd,
+    for f, v in settings:
+        label = f"lane_floats {f}" + ("" if v is None else f" values {v}")
+        for key, kernel, launch, refs, outs in (
+                ("k2", names[0], launch_fwd, ref_fwd, ("rst", "den")),
+                ("k3", names[1], launch_bwd, ref_bwd,
                  ("dwh", "del", "draw", "dw"))):
-            for name, a, b, r in zip(names, launch(f), launch(f), refs):
-                checks.compare(kernel, f"{what} lane_floats {f} {name}", a,
-                               r, GAT_TOL, b)
-            res[key][f"lane_floats {f}"] = cuda_ms(lambda: launch(f),
-                                                   reps=reps)
+            for name, a, b, r in zip(outs, launch(f, v), launch(f, v),
+                                     refs):
+                checks.compare(kernel, f"{what} {label} {name}", a, r,
+                               GAT_TOL, b)
+            res[key][label] = cuda_ms(lambda: launch(f, v), reps=reps,
+                                      queued=queued)
     return res
 
 
@@ -916,7 +989,7 @@ def phase_gat_train(dt, build, gk, sk, ds, g, checks, dev, timings):
           "device_busy_share": profile["device_ms"] / epoch_ms})
     _check_training("gat_train", res, counts,
                     ("gat_fwd", "gat_bwd", "segment_sum.edge"))
-    return counts
+    return counts, res["losses"]
 
 
 def phase_gat_bench(gk, sk, gb, checks):
@@ -3672,24 +3745,25 @@ def bf16_ulp(v):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def bf16_err(out, ref):
+def bf16_err(out, ref, tol=K1_TOL):
     """max over elements of |out - ref| / (one bf16 ulp at the larger of
-    the two + K1_TOL * max|ref|): <= 1 is ``BF16_ULPS``'s pass."""
+    the two + tol * max|ref|): <= 1 is ``BF16_ULPS``'s pass."""
     if not ref.numel():
         return 0.0
     o, r = out.double(), ref.double()
-    allow = bf16_ulp(torch.maximum(o.abs(), r.abs())) + K1_TOL * float(
+    allow = bf16_ulp(torch.maximum(o.abs(), r.abs())) + tol * float(
         r.abs().max())
     return float(((o - r).abs() / allow).max())
 
 
-def bf16_check(checks, kernel, what, out, ref, again):
-    """A bf16 sum (``BF16_ULPS``): within one bf16 ulp of the float64 sum
-    of the same bf16 values, plus the float32 kernels' own tolerance
-    (K1_TOL of max|ref|) for the order of the float32 sums; repeated
-    bitwise."""
+def bf16_check(checks, kernel, what, out, ref, again, tol=K1_TOL):
+    """A bf16 result rounded once (``BF16_ULPS``): within one bf16 ulp of
+    the float64 result of the same bf16 values, plus the float32 kernel's
+    own tolerance (``tol`` of max|ref|: K1_TOL for the order of the
+    float32 sums; GAT_TOL, K6_DOT_TOL, K6_BWD_TOL for K2/K3 and K6);
+    repeated bitwise."""
     out, ref = out.detach(), ref.detach()
-    err = bf16_err(out, ref)
+    err = bf16_err(out, ref, tol)
     checks.max_abs[kernel] = max(checks.max_abs.get(kernel, 0.0),
                                  abs_err(out.double(), ref.double()))
     if not (err <= BF16_ULPS) or not bool(out.isfinite().all()):
@@ -3699,15 +3773,21 @@ def bf16_check(checks, kernel, what, out, ref, again):
     return err
 
 
-def bf16_csr_mm_ms(A32, x):
-    """torch.sparse.mm over a bf16 copy of the CSR matrix A32 and bf16 x:
-    its ms, or torch's message where it does not take bf16 (timed only)."""
-    A = torch.sparse_csr_tensor(A32.crow_indices(), A32.col_indices(),
-                                A32.values().to(BF16), size=A32.shape)
+def bf16_library_ms(call):
+    """ms of a library call on bf16 data, or torch's message where it does
+    not take bf16 (timed only)."""
     try:
-        return cuda_ms(lambda: torch.sparse.mm(A, x), reps=5)
+        return cuda_ms(call, reps=5)
     except (RuntimeError, NotImplementedError, TypeError) as exc:
         return f"torch raised: {str(exc).splitlines()[0][:160]}"
+
+
+def bf16_csr_mm_ms(A32, x):
+    """torch.sparse.mm over a bf16 copy of the CSR matrix A32 and bf16 x
+    (``bf16_library_ms``)."""
+    A = torch.sparse_csr_tensor(A32.crow_indices(), A32.col_indices(),
+                                A32.values().to(BF16), size=A32.shape)
+    return bf16_library_ms(lambda: torch.sparse.mm(A, x))
 
 
 def _bf16_k1_cases(sk, g, F, checks, tag, rng, modes=("fwd", "rev", "edge"),
@@ -3809,7 +3889,7 @@ def _bf16_sweeps(sk, sm, g, x, gout, raw, xb, vecs=(), slices=()):
     return res
 
 
-def _bf16_timings(sk, sm, g, x, gout, shape, cols=None, library=True):
+def _bf16_timings(sk, sm, g, x, gout, shape, cols=None):
     """K1 forward and dx, K4 and K5 over bf16 x on g, each timed beside
     its plain version and the float32 kernel on the same shape (float32
     copies of x and gout), with its bound at bf16 widths (``cols``: the
@@ -3836,12 +3916,11 @@ def _bf16_timings(sk, sm, g, x, gout, shape, cols=None, library=True):
             nbytes(*idx) + rows(*arrays), E * cols, shape + f", {name}")
         rec["f32_ms"] = cuda_ms(lambda: sk.segment_sum(*f32args, site=site,
                                                        plan=plan))
-        if library:
-            A = csr_matrix(g, reverse=name == "k1_dx")
-            rec["library_ms"] = bf16_csr_mm_ms(A, args[1])
-            rec["library_f32_ms"] = cuda_ms(
-                lambda: torch.sparse.mm(A, f32args[1]), reps=5)
-            del A
+        A = csr_matrix(g, reverse=name == "k1_dx")
+        rec["library_ms"] = bf16_csr_mm_ms(A, args[1])
+        rec["library_f32_ms"] = cuda_ms(
+            lambda: torch.sparse.mm(A, f32args[1]), reps=5)
+        del A
         res[name] = rec
     raw = sm.segment_max(g.csc_indptr, x, g.src, plan=p_fwd)
     raw32 = sm.segment_max(g.csc_indptr, x32, g.src, plan=p_fwd)
@@ -3870,34 +3949,45 @@ def _bf16_timings(sk, sm, g, x, gout, shape, cols=None, library=True):
     return res
 
 
-def _bf16_still_raises(dt, g, rng):
-    """K2 (GAT) and K6 (gSDDMM) take float32 alone: bf16 rows on the card
-    raise NotImplementedError naming ROADMAP's 'bf16'.  True per kernel
-    where they do."""
+def _launched(counts, name):
+    """Launches of kernel ``name`` in a LAUNCHES snapshot, over its sites
+    (``name`` itself or ``name.<site>``)."""
+    return sum(v for k, v in counts.items()
+               if k == name or k.startswith(name + "."))
+
+
+def _bf16_reaches_kernels(dt, build, g, rng):
+    """K2/K3 (GAT) and K6 (gSDDMM) take bf16 rows: a bf16 gat_attention
+    forward and backward and a bf16 gsddmm dot forward and backward on the
+    card raise nothing and reach the bf16 kernels.  Returns each kernel's
+    launches in those calls, and the plain launches (none expected)."""
     from dgl_hack_tpu_torch.ops.cuda import gat_kernel as gk
     N, H, D = g.num_src_nodes, 2, 8
     z = torch.from_numpy(rng.normal(size=(N, H, D)).astype(np.float32)).to(
-        g.device, BF16)
+        g.device, BF16).requires_grad_(True)
     a = torch.zeros((N, H), device=g.device, dtype=BF16)
-    calls = {"gat_fwd": lambda: gk.gat_attention_fused(g, z, a, a),
-             "sddmm": lambda: dt.gsddmm(g, "dot", z, z, "u", "v")}
-    res = {}
-    for name, call in calls.items():
-        try:
-            call()
-            res[name] = False
-        except NotImplementedError as exc:
-            res[name] = "'bf16'" in str(exc)
+    before = dict(build.LAUNCHES.counts)
+    gk.gat_attention_fused(g, z, a, a).float().sum().backward()
+    dt.gsddmm(g, "dot", z, z.detach(), "u", "v").float().sum().backward()
+    torch.cuda.synchronize()
+    after = build.LAUNCHES.counts
+    delta = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    res = {n: _launched(delta, n)
+           for n in ("gat_fwd_bf16", "gat_bwd_bf16", "sddmm_bf16")}
+    res["plain"] = sum(v for k, v in delta.items() if k.startswith("plain."))
     return res
 
 
-def phase_bf16_kernels(dt, sk, sm, g_small, gb, checks, dev, timings):
+def phase_bf16_kernels(dt, build, sk, sm, g_small, gb, checks, dev,
+                       timings):
     """K1, K4 and K5 over bf16 rows (``bf16_kernels``): every K1 mode and
     weight kind at F = 7 and 1 on the small graph (hub in pieces) and at
     bench.py's graph (F = 128) with its times; K4/K5 at both, exact; K1's
     edge-row mode at the GIN readout (1,024 graphs of 24 nodes, F = 32);
     and every kernel on the masked layer-0 block through the real-edge
-    view (F = 602, as the sampled GraphSAGE runs it)."""
+    view (F = 602, as the sampled GraphSAGE runs it); and that bf16 calls
+    of K2/K3 and K6 reach their bf16 kernels (``_bf16_reaches_kernels``)."""
     rng = np.random.default_rng(21)
     errs = {}
     for F in (7, 1):
@@ -3926,11 +4016,14 @@ def phase_bf16_kernels(dt, sk, sm, g_small, gb, checks, dev, timings):
         checks, "segment_sum_bf16", "GIN readout rows", out,
         sk.segment_sum_plain(seg.indptr, xr.double()),
         sk.segment_sum_rows(xr, seg))
+    lengths = (seg.indptr[1:] - seg.indptr[:-1]).long()
     rows_t = timing(
         both_ms(lambda: sk.segment_sum_rows(xr, seg)),
         cuda_ms(lambda: sk.segment_sum_plain(seg.indptr, xr), reps=3),
         nbytes(seg.indptr, xr, out), xr.numel(),
-        "readout 1,024 x 24, F=32, bf16")
+        "readout 1,024 x 24, F=32, bf16",
+        library_ms=bf16_library_ms(lambda: torch.segment_reduce(
+            xr, "sum", lengths=lengths)))
     rows_t["f32_ms"] = cuda_ms(lambda: sk.segment_sum_rows(xr.float(), seg))
     mb = _masked_block(dt, dev, np.random.default_rng(22))
     view = sk.real_edges(mb).graph
@@ -3941,17 +4034,18 @@ def phase_bf16_kernels(dt, sk, sm, g_small, gb, checks, dev, timings):
                                     modes=("fwd", "rev"), weights=False)
     _bf16_k4k5_case(sm, sk, view, xm, None, gm, checks, "masked F=602")
     t_masked = _bf16_timings(sk, sm, view, xm, gm,
-                             "masked layer-0 block, F=602", library=False)
+                             "masked layer-0 block, F=602")
     t_masked["slice_sweep"] = _bf16_sweeps(
         sk, sm, view, xm, gm, sm.segment_max(view.csc_indptr, xm, view.src),
         xm, slices=(16, 64, 602))
-    raised = _bf16_still_raises(dt, g_small, rng)
-    if not all(raised.values()):
-        checks.failures.append(f"bf16 on K2/K6 did not raise 'bf16': "
-                               f"{raised}")
+    reached = _bf16_reaches_kernels(dt, build, g_small, rng)
+    if reached["plain"] or not all(reached[k] > 0 for k in (
+            "gat_fwd_bf16", "gat_bwd_bf16", "sddmm_bf16")):
+        checks.failures.append(f"bf16 on K2/K3/K6 did not reach the bf16 "
+                               f"kernels: {reached}")
     emit({"phase": "bf16_kernels", "err": errs, "bench": t_bench,
           "gin_readout_rows": rows_t, "masked": t_masked,
-          "k2_k6_raise_bf16": raised,
+          "k2_k3_k6_bf16_launches": reached,
           "ulp_rule": "bf16 sums within 1 ulp + K1_TOL*max|ref| of float64"})
     del xm, gm, mb, view
     checks.raise_if_failed("bf16_kernels")
@@ -4227,6 +4321,460 @@ def phase_hybrid(dt, sk, gb, gh, checks, dev):
     checks.raise_if_failed("hybrid")
 
 
+# ---------------------------------------------------------------------------
+# bf16 rows and the packed z in K2/K3 and K6; the attention twins
+# ---------------------------------------------------------------------------
+# The first packed loss against the unpacked one, relative: the packed
+# hidden layer reads each feature rounded to nearest bf16, at most 2^-9 of
+# itself away, with the same weights and dropout draws at the first step;
+# the loss moves by less than 2^-8 of itself (relative changes of the
+# logits times a softmax cross-entropy's sensitivity, below 2 at
+# initialisation).  Later steps' weights drift apart: reported only.
+PACKED_LOSS_TOL = 2.0 ** -8
+# A packed GATConv on the card against the CPU: both round the same float32
+# features, which their float32 matmuls may give one ulp apart, so an
+# element may round to the neighbouring bf16 value (2^-8 of the largest
+# feature) beyond the float32 tolerance.
+PACKED_LAYER_TOL = 2.0 ** -8 + GAT_TOL
+
+
+def _bf16(rng, shape, dev, scale=1.0):
+    """Standard normal values (times ``scale``) rounded to bf16."""
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+        np.float32)).to(dev, BF16)
+
+
+def _bf16_gat_case(gk, g, H, D, mode, checks, rng, tag, view=None):
+    """gat_attention_fused over bf16 fsrc, el, er and attn_w: the bf16
+    result and gradients (float32 sums rounded once) against the composed
+    plain version in float64 over the same bf16 values (``bf16_check``
+    with GAT_TOL), each repeated bitwise.  ``view``: a masked g's
+    real-edge view, over which the reference runs."""
+    dev = g.device
+    N, Nd, E = g.num_src_nodes, g.num_dst_nodes, g.num_edges()
+    keep = (rng.random((E, H)) > 0.3).astype(np.float32) / 0.7
+    ins = [_bf16(rng, (N, H, D), dev), _bf16(rng, (N, H), dev),
+           _bf16(rng, (Nd, H), dev), torch.from_numpy(keep).to(dev, BF16)]
+    dout = _bf16(rng, (Nd, H, D), dev)
+    runs = []
+    for _ in range(2):
+        kin = [v.clone().requires_grad_(True) for v in ins]
+        out = gk.gat_attention_fused(g, *kin[:3], 0.2, kin[3], softmax=mode)
+        runs.append((out, torch.autograd.grad(out, kin, dout)))
+    ins64 = [v.double().requires_grad_(True) for v in ins]
+    kg, w64 = (g, ins64[3]) if view is None else (view.graph,
+                                                  ins64[3][view.eid])
+    ref = composed_gat(kg, *ins64[:3], w64, 0.2)
+    grefs = torch.autograd.grad(ref, ins64, dout.double())
+    (out, grads), (out2, grads2) = runs
+    what = f"{tag} H={H} D={D} {mode}"
+    if out.dtype != BF16 or any(x.dtype != BF16 for x in grads):
+        checks.failures.append(f"gat bf16 {what}: result or gradient "
+                               "not bf16")
+    errs = {"fwd": bf16_check(checks, "gat_fwd_bf16", what, out, ref, out2,
+                              tol=GAT_TOL)}
+    for name, a, b, r in zip(("dfsrc", "del", "der", "dattn_w"), grads,
+                             grads2, grefs):
+        errs[name] = bf16_check(checks, "gat_bwd_bf16", f"{what} {name}", a,
+                                r, b, tol=GAT_TOL)
+    return errs
+
+
+def _bf16_k6_cases(k6, g, checks, tag, rng):
+    """K6 over bf16 operands: the elementwise ops with an 'u' and an 'e'
+    lhs at F = 7 and 41 equal to the plain version bitwise (both take the
+    float32 op and round once); dot at (H, D) in (1, 16), (4, 16), (2, 7),
+    (1, 41), (1, 128) against the plain version in float64 (``bf16_check``
+    with K6_DOT_TOL); GsddmmFn's bf16 gradients (K6 and K1 in float32,
+    rounded once) against autograd through the plain version in float64
+    (``bf16_check`` with K6_BWD_TOL); each repeated bitwise."""
+    dev = g.device
+    Ns, Nd, E = g.num_src_nodes, g.num_dst_nodes, g.num_edges()
+
+    def sg(shape):
+        return _signed(rng, shape, dev).to(BF16)
+    errs = {}
+    for F in (7, 41):
+        lhs_u, lhs_e, rhs = sg((Ns, F)), sg((E, F)), sg((Nd, F))
+        for op in K6_ELEM_OPS:
+            for kind in (("u",) if op == "copy_rhs" else ("u", "e")):
+                lhs, src = _k6_lhs(g, kind, lhs_u, lhs_e)
+                args = (op, g.dst, rhs, lhs, src)
+                out = k6.sddmm(*args)
+                if out.dtype != BF16:
+                    checks.failures.append(f"sddmm bf16 {op}: {out.dtype}")
+                checks.exact("sddmm_bf16", f"{tag} F={F} {op} {kind}", out,
+                             k6.sddmm_plain(*args), k6.sddmm(*args))
+    for H, D in ((1, 16), (4, 16), (2, 7), (1, 41), (1, 128)):
+        for kind in ("u", "e"):
+            lhs, src = _k6_lhs(g, kind, sg((Ns, H * D)), sg((E, H * D))
+                               if kind == "e" else None)
+            rhs = sg((Nd, H * D))
+            errs[f"dot.H{H}D{D}.{kind}"] = bf16_check(
+                checks, "sddmm_bf16", f"{tag} dot H={H} D={D} {kind}",
+                k6.sddmm("dot", g.dst, rhs, lhs, src, D),
+                k6.sddmm_plain("dot", g.dst, rhs.double(), lhs.double(),
+                               src, D),
+                k6.sddmm("dot", g.dst, rhs, lhs, src, D), tol=K6_DOT_TOL)
+    for op, F, D in [(op, 7, 0) for op in K6_ELEM_OPS] + [("dot", 64, 16)]:
+        for kind in (("u",) if op == "copy_rhs" else ("u", "e")):
+            lhs, src = _k6_lhs(g, kind, sg((Ns, F)), sg((E, F)))
+            lhs = None if op == "copy_rhs" else lhs
+            rhs = sg((Nd, F))
+            gout = sg((E, F // D if op == "dot" else F))
+            ins = [t for t in (lhs, rhs) if t is not None]
+            ins64 = [t.double().requires_grad_() for t in ins]
+            ref = k6.sddmm_plain(op, g.dst, ins64[-1], ins64[0]
+                                 if lhs is not None else None, src, D)
+            grefs = torch.autograd.grad(ref, ins64, gout.double())
+            runs = []
+            for _ in range(2):
+                a = [t.clone().requires_grad_() for t in ins]
+                out = k6.GsddmmFn.apply(a[0] if lhs is not None else None,
+                                        a[-1], g, op, kind, D)
+                runs.append(torch.autograd.grad(out, a, gout))
+            names = ("dlhs", "drhs") if lhs is not None else ("drhs",)
+            for n, r1, r2, r in zip(names, *runs, grefs):
+                if r1.dtype != BF16:
+                    checks.failures.append(f"sddmm bf16 {op} {n}: "
+                                           f"{r1.dtype}")
+                errs[f"bwd.{op}.{kind}.{n}"] = bf16_check(
+                    checks, "sddmm_bf16", f"{tag} bwd {op} {kind} {n}", r1,
+                    r, r2, tol=K6_BWD_TOL)
+    return errs
+
+
+def bf16_sddmm_lib_ms(g, lhs, rhs):
+    """``sampled_addmm`` over a bf16 CSR and bf16 operands (u_dot_v, one
+    head): its ms, or torch's message where it does not take bf16 (timed
+    only)."""
+    A32 = csr_matrix(g)
+    A = torch.sparse_csr_tensor(A32.crow_indices(), A32.col_indices(),
+                                A32.values().to(BF16), size=A32.shape)
+    return bf16_library_ms(lambda: torch.sparse.sampled_addmm(
+        A, rhs, lhs.t(), beta=0.0))
+
+
+def phase_bf16_attention(dt, build, gk, k6, sk, gb, checks, dev, timings):
+    """K2/K3 and K6 over bf16 rows (``bf16_attention``): gat_attention_fused
+    over bf16 operands on phase 3's graph (a dst hub and a src hub, both
+    softmax modes) and on the masked layer-0 block (through its real-edge
+    view); K6 on that graph in every op, dot shape and gradient; K6 at
+    bench.py's graph (u_dot_v and u_sub_v, F = 128) checked and timed
+    beside the float32 kernel on the same shape, its plain version and
+    ``sampled_addmm`` in bf16; then bf16 gsddmm through ``dt.gsddmm`` at
+    bench.py's graph (H = 8, D = 16, forward and backward; u_sub_v forward)
+    with the launches counted: K6's bf16 main path."""
+    rng = np.random.default_rng(31)
+    g = _gat_hub_graph(dt, dev, rng)
+    errs = {f"gat.H{H}D{D}.{mode}": _bf16_gat_case(gk, g, H, D, mode,
+                                                   checks, rng, "hub graph")
+            for H, D in ((8, 8), (1, 7)) for mode in ("shift", "exact")}
+    errs["k6"] = _bf16_k6_cases(k6, g, checks, "hub graph", rng)
+    del g
+    mb = _masked_block(dt, dev, np.random.default_rng(22))
+    errs["gat.masked"] = _bf16_gat_case(gk, mb, 8, 8, "shift", checks, rng,
+                                        "masked", view=sk.real_edges(mb))
+    del mb
+    torch.cuda.empty_cache()
+    F, E = 128, gb.num_edges()
+    lhs = _signed(rng, (gb.num_src_nodes, F), dev).to(BF16)
+    rhs = _signed(rng, (gb.num_dst_nodes, F), dev).to(BF16)
+    args = (gb.dst, rhs, lhs, gb.src)
+    out = k6.sddmm("dot", *args, F)
+    errs["bench.dot"] = bf16_check(
+        checks, "sddmm_bf16", "bench dot F=128", out,
+        k6.sddmm_plain("dot", gb.dst, rhs.double(), lhs.double(), gb.src,
+                       F), k6.sddmm("dot", *args, F), tol=K6_DOT_TOL)
+    # read behind a queue, as their float32 forms beside them
+    bench = {"dot": timing(
+        cuda_ms(lambda: k6.sddmm("dot", *args, F), queued=True),
+        cuda_ms(lambda: k6.sddmm_plain("dot", *args, F), reps=3),
+        nbytes(gb.src, gb.dst, lhs, rhs, out), 2 * E * F,
+        "bench.py graph, u_dot_v, F=128, bf16",
+        library_ms=bf16_sddmm_lib_ms(gb, lhs, rhs))}
+    l32, r32 = lhs.float(), rhs.float()
+    bench["dot"]["f32_ms"] = cuda_ms(
+        lambda: k6.sddmm("dot", gb.dst, r32, l32, gb.src, F), queued=True)
+    del out
+    out = k6.sddmm("sub", *args)
+    checks.exact("sddmm_bf16", "bench sub F=128", out,
+                 k6.sddmm_plain("sub", *args), k6.sddmm("sub", *args))
+    bench["sub"] = timing(
+        cuda_ms(lambda: k6.sddmm("sub", *args), queued=True),
+        cuda_ms(lambda: k6.sddmm_plain("sub", *args), reps=3),
+        nbytes(gb.src, gb.dst, lhs, rhs, out), E * F,
+        "bench.py graph, u_sub_v, F=128, bf16")
+    bench["sub"]["f32_ms"] = cuda_ms(
+        lambda: k6.sddmm("sub", gb.dst, r32, l32, gb.src), queued=True)
+    timings["sddmm_bf16"] = bench["dot"]
+    del out, l32, r32
+    torch.cuda.empty_cache()
+    # K6's bf16 main path: gsddmm through the public entry point
+    lh = lhs.view(-1, 8, 16).detach().requires_grad_(True)
+    rh = rhs.view(-1, 8, 16).detach().requires_grad_(True)
+    build.LAUNCHES.reset()
+    dot = dt.gsddmm(gb, "dot", lh, rh, "u", "v")
+    dot.float().sum().backward()
+    with torch.no_grad():
+        sub = dt.gsddmm(gb, "sub", lhs, rhs, "u", "v")
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    if dot.dtype != BF16 or sub.dtype != BF16 or lh.grad.dtype != BF16 \
+            or not (bool(dot.isfinite().all())
+                    and bool(lh.grad.isfinite().all())):
+        checks.failures.append("bf16 gsddmm main path: dtypes or values")
+    plain = {k: v for k, v in counts.items() if k.startswith("plain.")}
+    if plain or not _launched(counts, "sddmm_bf16"):
+        checks.failures.append(f"bf16 gsddmm main path launches: {counts}")
+    del lh, rh, dot, sub, lhs, rhs
+    torch.cuda.empty_cache()
+    emit({"phase": "bf16_attention", "err": errs, "bench": bench,
+          "main_path_launches": counts,
+          "rule": "bf16 results within 1 bf16 ulp + the float32 kernel's "
+                  "tolerance of float64; K6's elementwise ops equal"})
+    checks.raise_if_failed("bf16_attention")
+    return counts
+
+
+def phase_bf16_gat_reddit(dt, build, gk, sk, g, checks, dev, timings):
+    """K2/K3 over bf16 Wh (the packed GAT's rows) at synthetic Reddit's
+    two GAT layer shapes (H = 8, D = 8 and H = 1, D = 41, attn_w), against
+    their plain versions in float64, timed beside the float32 kernels on
+    the same shapes and swept over floats per lane and values per load;
+    then a bf16 gat_attention forward and backward through
+    ``dt.gat_attention`` at H = 8, D = 8 (launches counted)."""
+    rng = np.random.default_rng(32)
+    hidden = _gat_kernels_at(gk, sk, g, 8, 8, checks, rng,
+                             "synthetic Reddit", timed=True, sweep=True,
+                             bf16=True)
+    timings["gat_fwd_bf16"] = hidden["gat_fwd"]
+    timings["gat_bwd_bf16"] = hidden["gat_bwd"]
+    out = _gat_kernels_at(gk, sk, g, 1, 41, checks, rng, "synthetic Reddit",
+                          timed=True, sweep=True, bf16=True)
+    N, H, D = g.num_src_nodes, 8, 8
+    ins = [_bf16(rng, (N, H, D), dev), _bf16(rng, (N, H), dev),
+           _bf16(rng, (N, H), dev)]
+    ins = [v.requires_grad_(True) for v in ins]
+    build.LAUNCHES.reset()
+    res = dt.gat_attention(g, *ins, 0.2)
+    res.float().sum().backward()
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    if res.dtype != BF16 or not all(v.grad.dtype == BF16 and bool(
+            v.grad.isfinite().all()) for v in ins) \
+            or not bool(res.isfinite().all()):
+        checks.failures.append("bf16 gat_attention on Reddit: dtypes or "
+                               "values")
+    if _launched(counts, "plain") or not (
+            _launched(counts, "gat_fwd_bf16") and _launched(counts,
+                                                            "gat_bwd_bf16")):
+        checks.failures.append(f"bf16 gat_attention launches: {counts}")
+    del ins, res
+    torch.cuda.empty_cache()
+    emit({"phase": "bf16_attention_reddit", "k2_H8D8": hidden["gat_fwd"],
+          "k3_H8D8": hidden["gat_bwd"], "k2_H1D41": out["gat_fwd"],
+          "k3_H1D41": out["gat_bwd"], "sweep_H8D8": hidden["lane_sweep"],
+          "sweep_H1D41": out["lane_sweep"],
+          "gat_attention_launches": counts})
+    checks.raise_if_failed("bf16_attention_reddit")
+    return counts
+
+
+def _packed_gatconv_vs_cpu(dt, rng, dev):
+    """One forward and backward of GATConv(8, 8) with packing on, on the
+    card against the same module on the CPU (phase 3's graph, 64 input
+    features): the output within ``PACKED_LAYER_TOL`` of the largest
+    projected feature, every gradient within it of its own max|ref|.
+    Returns the errors and the card's launches."""
+    from dgl_hack_tpu_torch.nn import GATConv
+    from dgl_hack_tpu_torch.ops.cuda import build
+    g = _gat_hub_graph(dt, "cpu", rng)
+    x = torch.from_numpy(rng.normal(size=(g.num_src_nodes, 64)).astype(
+        np.float32))
+    t = torch.from_numpy(rng.normal(size=(g.num_dst_nodes, 8, 8)).astype(
+        np.float32))
+    torch.manual_seed(5)
+    mod_c = GATConv(8, 8)
+    with torch.no_grad():
+        mod_c(g, x)                                 # materialise fc
+        scale = float(mod_c.fc(x).abs().max())
+    mod_d = copy.deepcopy(mod_c).to(dev)
+    x_c, x_d = x.clone().requires_grad_(True), x.to(dev).requires_grad_(True)
+    out_c = mod_c(g, x_c)
+    (out_c * t).sum().backward()
+    build.LAUNCHES.reset()
+    out_d = mod_d(g.to(dev), x_d)
+    (out_d * t.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    errs = {"out": float((out_d.detach().cpu() - out_c.detach()).abs().max())
+            / scale}
+    pairs = [("x", x_d.grad, x_c.grad)] + [
+        (n, p.grad, dict(mod_c.named_parameters())[n].grad)
+        for n, p in mod_d.named_parameters()]
+    for n, a, r in pairs:
+        errs[n] = float((a.cpu() - r).abs().max()) / max(
+            float(r.abs().max()), 1e-30)
+    return errs, counts
+
+
+def phase_gat_train_packed(dt, build, ds, g, checks, dev, ref_losses):
+    """GAT training with ``DGL_TPU_GAT_PACKED=1`` (``gat_train_packed``):
+    the model, seed and steps of phase 5 on full synthetic Reddit; the
+    hidden layer (H * D = 64) reads a bf16 Wh (K2/K3 bf16), the output
+    layer (H * D = 41, odd) runs unpacked (K2/K3 float32).  The epoch ms,
+    peak memory, the first loss against phase 5's (``PACKED_LOSS_TOL``),
+    the launches (both forms at least once a step), and one packed
+    GATConv on the card against the CPU."""
+    from dgl_hack_tpu_torch.models import GAT
+    os.environ["DGL_TPU_GAT_PACKED"] = "1"
+    try:
+        torch.manual_seed(0)
+        model = GAT(hidden_feats=8, out_feats=ds.num_classes, heads=(8, 1),
+                    feat_drop=0.6, attn_drop=0.6)
+        reset_peak_memory()
+        res, counts = _train(build, model, ds, g, 5, 5e-3, dev)
+        peak = torch.cuda.max_memory_allocated()
+        layer, layer_counts = _packed_gatconv_vs_cpu(
+            dt, np.random.default_rng(33), dev)
+    finally:
+        del os.environ["DGL_TPU_GAT_PACKED"]
+    losses = res["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    emit({"phase": "gat_train_packed", "nodes": g.num_src_nodes,
+          "edges": g.num_edges(), "heads": [8, 1], "hidden": 8, "epochs": 5,
+          "losses": losses, "unpacked_losses": ref_losses,
+          "loss_rel_diff": rel, "train_time_s": res["train_time_s"],
+          "epoch_ms": 1e3 * res["train_time_s"] / 4,
+          "test_acc": res["test_acc"], "peak_memory_bytes": peak,
+          "launches": counts, "gatconv_vs_cpu": layer,
+          "gatconv_launches": layer_counts})
+    problems = []
+    if not rel[0] <= PACKED_LOSS_TOL:
+        problems.append(f"first loss {rel[0]:.3g} from the unpacked one")
+    steps = len(losses)
+    for name in ("gat_fwd_bf16", "gat_bwd_bf16", "gat_fwd", "gat_bwd"):
+        if _launched(counts, name) < steps:
+            problems.append(f"{name}: {_launched(counts, name)} launches in "
+                            f"{steps} steps")
+    if not all(v <= PACKED_LAYER_TOL for v in layer.values()):
+        problems.append(f"packed GATConv against the CPU: {layer}")
+    if not _launched(layer_counts, "gat_fwd_bf16"):
+        problems.append(f"packed GATConv launches: {layer_counts}")
+    if problems:
+        raise SystemExit("gat_train_packed failed: " + "; ".join(problems))
+    _check_training("gat_train_packed", res, counts,
+                    ("gat_fwd_bf16", "gat_bwd_bf16", "gat_fwd", "gat_bwd",
+                     "segment_sum.edge"))
+    return counts
+
+
+def _twin_first_loss(name, losses, cpu_losses, checks):
+    """The card's first loss within LAYER_TOL of the CPU's (same data and
+    parameters); the relative difference."""
+    rel = abs(losses[0] - cpu_losses[0]) / max(abs(cpu_losses[0]), 1e-30)
+    if not rel <= LAYER_TOL:
+        checks.failures.append(f"{name}: first loss {losses[0]} vs the "
+                               f"CPU's {cpu_losses[0]}")
+    return rel
+
+
+def phase_han(build, checks, dev):
+    """The HAN twin (examples/train_han_torch.py) at its CLI defaults (300
+    papers, hidden 16, 4 heads, lr 5e-3), 40 epochs on the card: a GATConv
+    per metapath graph (K2, K3 + K1's edge rows), the first loss against
+    the CPU's from the same initial parameters, epoch ms, launches."""
+    twin = _load_twin("train_han_torch")
+    graphs, feats, labels, mask = twin.make_data()
+    torch.manual_seed(0)
+    model = twin.HAN(len(graphs), 16, 4, int(labels.max()) + 1)
+    with torch.no_grad():
+        model(graphs, torch.from_numpy(feats))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    cpu = twin.train(graphs, feats, labels, mask, epochs=2, device="cpu",
+                     state=state)
+    build.LAUNCHES.reset()
+    res = twin.train(graphs, feats, labels, mask, epochs=40, device=dev,
+                     state=state)
+    torch.cuda.synchronize()
+    c = dict(build.LAUNCHES.counts)
+    losses = res["losses"]
+    emit({"phase": "han", "papers": int(feats.shape[0]),
+          "metapath_edges": [gm.num_edges() for gm in graphs],
+          "epochs": len(losses), "losses_first_last": [losses[:3],
+                                                       losses[-3:]],
+          "first_loss_rel_vs_cpu": _twin_first_loss("han", losses,
+                                                    cpu["losses"], checks),
+          "test_acc": res["test_acc"],
+          "epoch_ms_median_after_first": float(np.median(
+              res["epoch_ms"][1:])), "launches": c})
+    checks.raise_if_failed("han")
+    _twin_checks("han", losses, c, need=("gat_fwd", "gat_bwd",
+                                         "segment_sum.edge"))
+    return c
+
+
+def phase_capsule(build, checks, dev):
+    """The capsule twin (examples/train_capsule_torch.py) at its CLI
+    defaults (1,024 training digits, 16 -> 10 capsules of 8 -> 16, 3
+    routing iterations, lr 3e-3), 20 epochs on the card: copy_e sums over
+    (E, B, OD) edge data (K1's rows route) and the e-dot-v agreement (K6,
+    its gradient K6 + K1), the first loss against the CPU's, epoch ms,
+    test accuracy, launches."""
+    twin = _load_twin("train_capsule_torch")
+    xtr, ytr = twin.synthetic_digits(1024, seed=0)
+    xte, yte = twin.synthetic_digits(256, seed=1)
+    params = twin.init_params(16, 10, 8, 16, 0)
+    cpu = twin.train(params, xtr, ytr, epochs=1, device="cpu")
+    build.LAUNCHES.reset()
+    res = twin.train(params, xtr, ytr, epochs=20, device=dev, xte=xte,
+                     yte=yte)
+    torch.cuda.synchronize()
+    c = dict(build.LAUNCHES.counts)
+    losses = res["losses"]
+    emit({"phase": "capsule", "train": 1024, "epochs": len(losses),
+          "losses_first_last": [losses[:3], losses[-3:]],
+          "first_loss_rel_vs_cpu": _twin_first_loss("capsule", losses,
+                                                    cpu["losses"], checks),
+          "test_acc": res["test_acc"],
+          "epoch_ms_median_after_first": float(np.median(
+              res["epoch_ms"][1:])), "launches": c})
+    checks.raise_if_failed("capsule")
+    _twin_checks("capsule", losses, c, need=(
+        "sddmm.fwd", "sddmm.bwd", "segment_sum.rows", "segment_sum.edge"))
+    return c
+
+
+def phase_graphwriter(build, checks, dev):
+    """The GraphWriter twin (examples/train_graphwriter_torch.py) at its
+    CLI defaults (512 training KGs of 8 entities, dim 64, 4 heads, lr
+    3e-3), 20 epochs on the card: u_dot_v gsddmm (K6 dot, D = 16; its
+    gradient K6 + K1), edge_softmax and u_mul_e gspmm with an (E, H, 1)
+    weight (K1), the first loss against the CPU's, epoch ms, launches."""
+    twin = _load_twin("train_graphwriter_torch")
+    params = twin.init_params(64, 4, 0)
+    kgs = twin.make_kgs(512, seed=0)
+    cpu = twin.train(params, kgs, epochs=1, device="cpu")
+    build.LAUNCHES.reset()
+    res = twin.train(params, kgs, epochs=20, device=dev,
+                     test_kgs=twin.make_kgs(128, seed=1))
+    torch.cuda.synchronize()
+    c = dict(build.LAUNCHES.counts)
+    losses = res["losses"]
+    emit({"phase": "graphwriter", "train": 512, "epochs": len(losses),
+          "losses_first_last": [losses[:3], losses[-3:]],
+          "first_loss_rel_vs_cpu": _twin_first_loss(
+              "graphwriter", losses, cpu["losses"], checks),
+          "test_token_acc": res["test_token_acc"],
+          "epoch_ms_median_after_first": float(np.median(
+              res["epoch_ms"][1:])), "launches": c})
+    checks.raise_if_failed("graphwriter")
+    _twin_checks("graphwriter", losses, c, need=(
+        "sddmm.fwd", "sddmm.bwd", "segment_sum.fwd", "segment_sum.rev"))
+    return c
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -4280,7 +4828,10 @@ def main() -> int:
     phase_k6_bench(k6, g_bench, checks)
     phase_k4k5_bench(sm, sk, g_bench, checks)
     phase_gat_bench(gk, sk, g_bench, checks)
-    phase_bf16_kernels(dt, sk, sm, g_small, g_bench, checks, dev, timings)
+    phase_bf16_kernels(dt, build, sk, sm, g_small, g_bench, checks, dev,
+                       timings)
+    c_bf16_sddmm = phase_bf16_attention(dt, build, gk, k6, sk, g_bench,
+                                        checks, dev, timings)
     g_hybrid, c_headline = phase_headline(dt, sk, g_bench, checks, dev)
     phase_hybrid(dt, sk, g_bench, g_hybrid, checks, dev)
     del g_bench, g_hybrid
@@ -4296,8 +4847,12 @@ def main() -> int:
           "edges": g.num_edges(), "seconds": data_s,
           "plan_build_ms": plan_build_ms(sk, g)})
     c_gcn = phase_gcn(dt, build, sk, ds, g, checks, dev, timings)
-    c_gat = phase_gat_train(dt, build, gk, sk, ds, g, checks, dev,
-                            timings)
+    c_gat, gat_losses = phase_gat_train(dt, build, gk, sk, ds, g, checks,
+                                        dev, timings)
+    c_bf16_gat = phase_bf16_gat_reddit(dt, build, gk, sk, g, checks, dev,
+                                       timings)
+    c_packed = phase_gat_train_packed(dt, build, ds, g, checks, dev,
+                                      gat_losses)
     phase_sage_kernels(sm, sk, g, checks, dev, timings)
     c_max_bf16 = phase_bf16_reddit(dt, sk, sm, g, checks, dev, timings)
     c_sage = phase_sage_train(build, ds, g, dev)
@@ -4322,26 +4877,37 @@ def main() -> int:
     c_pinsage = phase_pinsage_rec(build, dev)
     c_cv = phase_sage_cv(build, dev)
     c_adaptive = phase_adaptive_sampling(build, dev)
+    c_han = phase_han(build, checks, dev)
+    c_capsule = phase_capsule(build, checks, dev)
+    c_writer = phase_graphwriter(build, checks, dev)
     phase_entry(dt, dev)
 
     runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled, c_rgcn,
             c_hetero, c_pr, c_sub, c_lstm, c_rmax, c_topo, c_prefetch,
-            c_nodeflow, c_pinsage, c_cv, c_adaptive, *c_headline.values())
+            c_nodeflow, c_pinsage, c_cv, c_adaptive, c_packed, c_han,
+            c_capsule, c_writer, *c_headline.values())
     max_runs = (c_sage, c_sampled, c_hetero, c_rmax, c_nodeflow)
+    gat_runs = (c_gat, c_packed, c_han)
+    sddmm_runs = (c_tf, c_capsule, c_writer)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
                            if k.startswith("segment_sum.")),
-        "gat_fwd": c_gat.get("gat_fwd", 0),
-        "gat_bwd": c_gat.get("gat_bwd", 0),
+        "gat_fwd": sum(_launched(c, "gat_fwd") for c in gat_runs),
+        "gat_bwd": sum(_launched(c, "gat_bwd") for c in gat_runs),
         "segment_max": sum(c.get("segment_max.fwd", 0) for c in max_runs),
         "segment_max_bwd": sum(c.get("segment_max.bwd", 0)
                                for c in max_runs),
-        "sddmm": sum(v for k, v in c_tf.items() if k.startswith("sddmm.")),
+        "sddmm": sum(_launched(c, "sddmm") for c in sddmm_runs),
         "segment_sum_bf16": sum(v for c in c_headline.values()
                                 for k, v in c.items()
                                 if k.startswith("segment_sum_bf16.")),
         "segment_max_bf16": c_max_bf16.get("segment_max_bf16.fwd", 0),
-        "segment_max_bwd_bf16": c_max_bf16.get("segment_max_bf16.bwd", 0)}
+        "segment_max_bwd_bf16": c_max_bf16.get("segment_max_bf16.bwd", 0),
+        "gat_fwd_bf16": sum(_launched(c, "gat_fwd_bf16")
+                            for c in (c_packed, c_bf16_gat)),
+        "gat_bwd_bf16": sum(_launched(c, "gat_bwd_bf16")
+                            for c in (c_packed, c_bf16_gat)),
+        "sddmm_bf16": _launched(c_bf16_sddmm, "sddmm_bf16")}
     tpu = "dgl_hack_tpu/ops/pallas/"
     meta = {
         "segment_sum": ("dgl_hack_tpu_torch/csrc/segment_sum.cu",
@@ -4361,7 +4927,13 @@ def main() -> int:
         "segment_max_bf16": ("dgl_hack_tpu_torch/csrc/segment_max.cu",
                              tpu + "spmm_kernel.py:632"),
         "segment_max_bwd_bf16": ("dgl_hack_tpu_torch/csrc/segment_max.cu",
-                                 tpu + "spmm_kernel.py:1109")}
+                                 tpu + "spmm_kernel.py:1109"),
+        "gat_fwd_bf16": ("dgl_hack_tpu_torch/csrc/gat_fwd.cu",
+                         tpu + "gat_kernel.py:246"),
+        "gat_bwd_bf16": ("dgl_hack_tpu_torch/csrc/gat_bwd.cu",
+                         tpu + "gat_kernel.py:446"),
+        "sddmm_bf16": ("dgl_hack_tpu_torch/csrc/sddmm.cu",
+                       tpu + "sddmm_kernel.py:178")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": n, "route": "cuda", "source": s, "replaces": r,
                 "launches": launches[n], "max_abs_err": checks.max_abs[n],

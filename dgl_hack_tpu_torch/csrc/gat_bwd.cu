@@ -1,4 +1,4 @@
-// K3: fused GAT backward edge phase (float32).
+// K3: fused GAT backward edge phase (float32 sums over float32 or bf16 Wh).
 //
 // For every src u, over its CSR out-edges e = (u -> v) (internal edge id
 // e = csr_eids[k], v = dst_csr[k]), per head h:
@@ -17,7 +17,12 @@
 //
 // Replaces the TPU kernel dgl_hack_tpu/ops/pallas/gat_kernel.py
 // _gat_bwd_kernel, launched by _gat_bwd_call / _run_gat_bwd_fused; the
-// math is that kernel's and the legacy path's (_gat_fused_bwd).  The TPU
+// math is that kernel's and the legacy path's (_gat_fused_bwd).  Wh is
+// float32 or bf16 (gat_bwd_bf16: the packed GAT differentiates the
+// bf16-feature function its forward ran, _gat_fused_bwd's zt, with the
+// same rounded copy of Wh; a bf16 gat_attention its own rows); dout and
+// the dst pack are float32 (the JAX backward casts g up), and dWh, del,
+// draw and dw are written in float32.  The TPU
 // version expanded src windows to slots with one-hot matmuls and sent
 // per-slot outputs back to edge order with an inverse-slot gather; here a
 // warp walks a src row's out-edges and writes per-edge outputs at their
@@ -69,17 +74,18 @@
 // What is left: at H = 1 the per-edge requests (dout, the packed dst row,
 // w, draw) are 4-byte-wide scattered sectors, and the registers of four
 // edges in flight allow 16 warps an SM, so the output layer runs at
-// latency, not bandwidth.  Left for later: bf16 storage; masked graphs (the
-// mask as a zero attn_w).
+// latency, not bandwidth.  bf16 Wh is read once per item, so it saves
+// little here: the gathered rows (dout) stay float32.
 #include "rowwalk.cuh"
 
 namespace {
 
+template <class TW>
 struct Args {
   const int* indptr;    // CSR
   const int* eids;      // csr_eids: internal edge id of each CSR edge
   const int* dst;       // dst of each CSR edge
-  const float* wh;      // (N_src, H*D)
+  const TW* wh;         // (N_src, H*D), float or bf16
   const float* el;      // (N_src, H)
   const float4* dstp;   // (N_dst, H) of (er[v,h], shift, den, sds)
   const float* dout;    // (N_dst, H*D)
@@ -93,10 +99,10 @@ struct Args {
   RowPlan plan;         // partial: (P, H*D) dWh, then (P, H) del
 };
 
-// grid of head_shape; W: attn_w given; NC: s.NC
-template <int V, int W, int NC>
+// grid of head_shape; TW: Wh's type; W: attn_w given; NC: s.NC
+template <class TW, int V, int W, int NC>
 __global__ void __launch_bounds__(kWarps * 32)
-gat_bwd_kernel(Args a, HeadWalk s) {
+gat_bwd_kernel(Args<TW> a, HeadWalk s) {
   WorkItem it;
   if (!work_item(a.plan, a.indptr, a.num_src, it)) return;  // warp-uniform
   const int H = a.H, D = a.D;
@@ -205,22 +211,61 @@ gat_bwd_kernel(Args a, HeadWalk s) {
   }
 }
 
+template <class TW>
 struct Launch {
   template <int V, int W, int NC>
-  static void go(const dim3& grid, const cudaStream_t& stream, const Args& a,
-                 const HeadWalk& s) {
-    gat_bwd_kernel<V, W, NC><<<grid, kWarps * 32, 0, stream>>>(a, s);
+  static void go(const dim3& grid, const cudaStream_t& stream,
+                 const Args<TW>& a, const HeadWalk& s) {
+    gat_bwd_kernel<TW, V, W, NC><<<grid, kWarps * 32, 0, stream>>>(a, s);
   }
 };
 
+template <class TW>
+int gat_bwd(const int* csr_indptr, const int* csr_eids, const int* dst_csr,
+            const TW* wh, const float* el, const float* dst_packed,
+            const float* dout, const float* w, float* dwh, float* del,
+            float* draw_out, float* dw, int num_src, int H, int D,
+            float slope, int vec, int lane_floats, int T,
+            const int* long_rows, const int* piece_ptr, const int* pieces,
+            const int* piece_row, int num_long, int num_pieces,
+            float* partial, cudaStream_t stream) {
+  if (num_src <= 0 || H <= 0 || D <= 0) return (int)cudaGetLastError();
+  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
+                     num_pieces, partial};
+  dim3 grid;
+  HeadWalk s;
+  constexpr bool kWide = sizeof(TW) == 2;
+  const int fbytes = vec_bytes<float>(vec);
+  if (!head_shape(num_src, H, D, vec, kWide ? 8 : 4, lane_floats, plan, grid,
+                  s) ||
+      !aligned(wh, vec_bytes<TW>(vec)) || !aligned(dout, fbytes) ||
+      !aligned(dwh, fbytes) || dst_packed == nullptr ||
+      !aligned(dst_packed, 16) ||
+      (w == nullptr && dw != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args<TW> a{csr_indptr, csr_eids, dst_csr, wh, el,
+                   reinterpret_cast<const float4*>(dst_packed), dout, w, dwh,
+                   del, draw_out, dw, num_src, H, D, slope, plan};
+  head_launch<Launch<TW>, kWide>(vec, w != nullptr, s, grid, stream, a, s);
+  if (num_long > 0) {
+    const int64_t HD = (int64_t)H * D;
+    launch_fixup<false>(plan, dwh, (int)HD, stream);
+    RowPlan del_plan = plan;
+    del_plan.partial = partial + (int64_t)num_pieces * HD;
+    launch_fixup<false>(del_plan, del, H, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// vec: floats per load of Wh and dout and per store of dWh (1, 2, 4;
-// divides D); lane_floats: the most floats of an edge's row a lane holds
-// (head_shape); T, long_rows, piece_ptr, pieces, piece_row, num_long,
-// num_pieces: the CSR row plan of spmm_kernel.py:row_plan; partial:
-// num_pieces * (H*D + H) floats.  dw: NULL, or given with w.  dst_packed:
-// (N_dst, H, 4) of er, shift, den and sds.
+// vec: values per load of Wh and dout and floats per store of dWh (1, 2,
+// 4, and 8 for bf16 Wh; divides D); lane_floats: the most values of an
+// edge's row a lane holds (head_shape); T, long_rows, piece_ptr, pieces,
+// piece_row, num_long, num_pieces: the CSR row plan of
+// spmm_kernel.py:row_plan; partial: num_pieces * (H*D + H) floats.  dw:
+// NULL, or given with w.  dst_packed: (N_dst, H, 4) of er, shift, den and
+// sds.
 extern "C" int gat_bwd_f32(const int* csr_indptr, const int* csr_eids,
                            const int* dst_csr, const float* wh,
                            const float* el, const float* dst_packed,
@@ -232,28 +277,25 @@ extern "C" int gat_bwd_f32(const int* csr_indptr, const int* csr_eids,
                            const int* pieces, const int* piece_row,
                            int num_long, int num_pieces, float* partial,
                            cudaStream_t stream) {
-  if (num_src <= 0 || H <= 0 || D <= 0) return (int)cudaGetLastError();
-  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
-                     num_pieces, partial};
-  dim3 grid;
-  HeadWalk s;
-  const int vbytes = 4 * vec;
-  if (!head_shape(num_src, H, D, vec, lane_floats, plan, grid, s) ||
-      !aligned(wh, vbytes) || !aligned(dout, vbytes) ||
-      !aligned(dwh, vbytes) || dst_packed == nullptr ||
-      !aligned(dst_packed, 16) ||
-      (w == nullptr && dw != nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Args a{csr_indptr, csr_eids, dst_csr, wh, el,
-               reinterpret_cast<const float4*>(dst_packed), dout, w, dwh,
-               del, draw_out, dw, num_src, H, D, slope, plan};
-  head_launch<Launch>(vec, w != nullptr, s, grid, stream, a, s);
-  if (num_long > 0) {
-    const int64_t HD = (int64_t)H * D;
-    launch_fixup<false>(plan, dwh, (int)HD, stream);
-    RowPlan del_plan = plan;
-    del_plan.partial = partial + (int64_t)num_pieces * HD;
-    launch_fixup<false>(del_plan, del, H, stream);
-  }
-  return (int)cudaGetLastError();
+  return gat_bwd<float>(csr_indptr, csr_eids, dst_csr, wh, el, dst_packed,
+                        dout, w, dwh, del, draw_out, dw, num_src, H, D, slope,
+                        vec, lane_floats, T, long_rows, piece_ptr, pieces,
+                        piece_row, num_long, num_pieces, partial, stream);
+}
+
+extern "C" int gat_bwd_bf16(const int* csr_indptr, const int* csr_eids,
+                            const int* dst_csr, const bf16* wh,
+                            const float* el, const float* dst_packed,
+                            const float* dout, const float* w,
+                            float* dwh, float* del,
+                            float* draw_out, float* dw, int num_src, int H,
+                            int D, float slope, int vec, int lane_floats,
+                            int T, const int* long_rows, const int* piece_ptr,
+                            const int* pieces, const int* piece_row,
+                            int num_long, int num_pieces, float* partial,
+                            cudaStream_t stream) {
+  return gat_bwd<bf16>(csr_indptr, csr_eids, dst_csr, wh, el, dst_packed,
+                       dout, w, dwh, del, draw_out, dw, num_src, H, D, slope,
+                       vec, lane_floats, T, long_rows, piece_ptr, pieces,
+                       piece_row, num_long, num_pieces, partial, stream);
 }

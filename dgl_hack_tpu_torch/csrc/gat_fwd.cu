@@ -1,4 +1,4 @@
-// K2: fused GAT forward edge phase (float32).
+// K2: fused GAT forward edge phase (float32 sums over float32 or bf16 Wh).
 //
 // For every dst v, over its CSC in-edges e = (u -> v), per head h:
 //   logit = leaky(el[u,h] + er[v,h])
@@ -20,7 +20,11 @@
 //
 // Replaces the TPU kernels dgl_hack_tpu/ops/pallas/gat_kernel.py
 // _gat_kernel_shift (shift mode) and _gat_kernel (online-max "exact"),
-// launched by _gat_chunk_call.
+// launched by _gat_chunk_call, with their packed z (_unpack_z: bf16
+// features, float32 logits): Wh is float32 or bf16 (gat_fwd_bf16: the
+// packed GAT's rounded copy, or a bf16 gat_attention's own rows), read
+// widened to float; el, er, w, shift, num and den stay float32, and rst is
+// written in float32 (the wrapper rounds a bf16 caller's result once).
 //
 // Bound on the H100: bytes.  Per edge it gathers one Wh row (4*H*D B: 256
 // at H = 8, D = 8) and one el row (4*H B), and streams the index (4 B) and
@@ -50,15 +54,23 @@
 //   bitwise.
 // * No feature slices: slices of whole heads lost on the card at every
 //   width (PERF.md), since Wh at Reddit (60 MB) nearly fits the L2 whole.
-// Left for later: bf16 storage; masked graphs (the mask as a zero attn_w).
+// * bf16 Wh halves the gathered row (128 B at H = 8, D = 8); a lane loads
+//   V = 4 (8 bytes) or 8 (16 bytes) bf16 values (gat_kernel.py:
+//   K2_BF16_VALUES, from chip_smoke.py's sweep).  It bought no time: on
+//   an H100 (80GB HBM3, 700 W) K2 over bf16 Wh took 2.06 ms against
+//   float32's 1.83 at synthetic Reddit's hidden layer, and 2.35 against
+//   2.11 at H = 1, D = 41, where both load one value at a time (PERF.md):
+//   the kernel is held by latency and issue, not bytes, and each value
+//   costs a widening instruction before its fma.
 #include "rowwalk.cuh"
 
 namespace {
 
+template <class TW>
 struct Args {
   const int* indptr;    // CSC
   const int* src;       // src of each CSC edge
-  const float* wh;      // (N_src, H*D)
+  const TW* wh;         // (N_src, H*D), float or bf16
   const float* el;      // (N_src, H)
   const float* er;      // (N_dst, H)
   const float* w;       // (E, H) in CSC order, or NULL
@@ -70,10 +82,10 @@ struct Args {
   RowPlan plan;         // partial: (P, H*D) num, then (P, H) den
 };
 
-// grid of head_shape; W: attn_w given; NC: s.NC
-template <int V, int W, int NC>
+// grid of head_shape; TW: Wh's type; W: attn_w given; NC: s.NC
+template <class TW, int V, int W, int NC>
 __global__ void __launch_bounds__(kWarps * 32)
-gat_fwd_kernel(Args a, HeadWalk s) {
+gat_fwd_kernel(Args<TW> a, HeadWalk s) {
   WorkItem it;
   if (!work_item(a.plan, a.indptr, a.num_dst, it)) return;  // warp-uniform
   const int H = a.H, D = a.D;
@@ -175,21 +187,52 @@ gat_fwd_fixup(RowPlan p, float* rst, float* den, int H, int D) {
   if (f % D == 0) den[r * H + h] = d;
 }
 
+template <class TW>
 struct Launch {
   template <int V, int W, int NC>
-  static void go(const dim3& grid, const cudaStream_t& stream, const Args& a,
-                 const HeadWalk& s) {
-    gat_fwd_kernel<V, W, NC><<<grid, kWarps * 32, 0, stream>>>(a, s);
+  static void go(const dim3& grid, const cudaStream_t& stream,
+                 const Args<TW>& a, const HeadWalk& s) {
+    gat_fwd_kernel<TW, V, W, NC><<<grid, kWarps * 32, 0, stream>>>(a, s);
   }
 };
 
+template <class TW>
+int gat_fwd(const int* indptr, const int* src, const TW* wh, const float* el,
+            const float* er, const float* w, const float* shift, float* rst,
+            float* den, int num_dst, int H, int D, float slope, int vec,
+            int lane_floats, int T, const int* long_rows,
+            const int* piece_ptr, const int* pieces, const int* piece_row,
+            int num_long, int num_pieces, float* partial,
+            cudaStream_t stream) {
+  if (num_dst <= 0 || H <= 0 || D <= 0) return (int)cudaGetLastError();
+  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
+                     num_pieces, partial};
+  dim3 grid;
+  HeadWalk s;
+  constexpr bool kWide = sizeof(TW) == 2;
+  if (!head_shape(num_dst, H, D, vec, kWide ? 8 : 4, lane_floats, plan, grid,
+                  s) ||
+      !aligned(wh, vec_bytes<TW>(vec)) ||
+      !aligned(rst, vec_bytes<float>(vec)) || shift == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Args<TW> a{indptr, src, wh, el, er, w, shift, rst, den, num_dst, H,
+                   D, slope, plan};
+  head_launch<Launch<TW>, kWide>(vec, w != nullptr, s, grid, stream, a, s);
+  const int64_t HD = (int64_t)H * D;
+  if (num_long > 0)
+    gat_fwd_fixup<<<dim3((unsigned)num_long,
+                         (unsigned)((HD + kFixCols - 1) / kFixCols)),
+                    kFixCols, 0, stream>>>(plan, rst, den, H, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// vec: floats per load of Wh and per store of rst (1, 2, 4; divides D);
-// lane_floats: the most floats of an edge's row a lane holds (head_shape);
-// T, long_rows, piece_ptr, pieces, piece_row, num_long, num_pieces: the CSC
-// row plan of spmm_kernel.py:row_plan; partial: num_pieces * (H*D + H)
-// floats.
+// vec: values per load of Wh and floats per store of rst (1, 2, 4, and 8
+// for bf16 Wh; divides D); lane_floats: the most values of an edge's row a
+// lane holds (head_shape); T, long_rows, piece_ptr, pieces, piece_row,
+// num_long, num_pieces: the CSC row plan of spmm_kernel.py:row_plan;
+// partial: num_pieces * (H*D + H) floats.
 extern "C" int gat_fwd_f32(const int* indptr, const int* src, const float* wh,
                            const float* el, const float* er, const float* w,
                            const float* shift, float* rst, float* den,
@@ -199,22 +242,23 @@ extern "C" int gat_fwd_f32(const int* indptr, const int* src, const float* wh,
                            const int* pieces, const int* piece_row,
                            int num_long, int num_pieces, float* partial,
                            cudaStream_t stream) {
-  if (num_dst <= 0 || H <= 0 || D <= 0) return (int)cudaGetLastError();
-  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
-                     num_pieces, partial};
-  dim3 grid;
-  HeadWalk s;
-  const int vbytes = 4 * vec;
-  if (!head_shape(num_dst, H, D, vec, lane_floats, plan, grid, s) ||
-      !aligned(wh, vbytes) || !aligned(rst, vbytes) || shift == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const Args a{indptr, src, wh, el, er, w, shift, rst, den, num_dst, H, D,
-               slope, plan};
-  head_launch<Launch>(vec, w != nullptr, s, grid, stream, a, s);
-  const int64_t HD = (int64_t)H * D;
-  if (num_long > 0)
-    gat_fwd_fixup<<<dim3((unsigned)num_long,
-                         (unsigned)((HD + kFixCols - 1) / kFixCols)),
-                    kFixCols, 0, stream>>>(plan, rst, den, H, D);
-  return (int)cudaGetLastError();
+  return gat_fwd<float>(indptr, src, wh, el, er, w, shift, rst, den, num_dst,
+                        H, D, slope, vec, lane_floats, T, long_rows,
+                        piece_ptr, pieces, piece_row, num_long, num_pieces,
+                        partial, stream);
+}
+
+extern "C" int gat_fwd_bf16(const int* indptr, const int* src, const bf16* wh,
+                            const float* el, const float* er, const float* w,
+                            const float* shift, float* rst, float* den,
+                            int num_dst, int H, int D, float slope, int vec,
+                            int lane_floats, int T,
+                            const int* long_rows, const int* piece_ptr,
+                            const int* pieces, const int* piece_row,
+                            int num_long, int num_pieces, float* partial,
+                            cudaStream_t stream) {
+  return gat_fwd<bf16>(indptr, src, wh, el, er, w, shift, rst, den, num_dst,
+                       H, D, slope, vec, lane_floats, T, long_rows,
+                       piece_ptr, pieces, piece_row, num_long, num_pieces,
+                       partial, stream);
 }

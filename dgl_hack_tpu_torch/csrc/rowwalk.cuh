@@ -404,7 +404,10 @@ inline bool bad_weight(const float* w, int w_kind, int vec) {
 //   a head's lanes are Lh aligned lanes of it, so head_sum reduces over
 //   them with xor shuffles and every lane of the head gets the same bits;
 // * a head wider than 32 lanes of lane_floats goes in nchunk passes of
-//   that many columns (one head a pass).
+//   that many columns (one head a pass);
+// * Wh may be bf16 (the packed GAT, a bf16 gat_attention): its loads widen
+//   to float, up to V = 8 values (16 bytes) a load, and everything else
+//   (el, er, w, dout, the sums, the outputs) stays float32.
 // No feature slices: slices of whole heads lost on the card at every width
 // (PERF.md); K3 pays per edge, not per byte, so each slice costs it about a
 // whole unsliced pass.
@@ -422,13 +425,17 @@ inline int pow2_at_least(int n) {
 
 // The grid and head layout of a head-major kernel over num_rows rows and
 // the plan's pieces.  False where the wrapper's choices do not fit: vec
-// must be 1, 2 or 4 and divide D, lane_floats be a power of two from vec to
-// kLaneFloatsMax, and the plan's scratch be there and aligned for vec.
-inline bool head_shape(int num_rows, int H, int D, int vec, int lane_floats,
-                       const RowPlan& p, dim3& grid, HeadWalk& s) {
-  if (!(vec == 1 || vec == 2 || vec == 4) || H <= 0 || D <= 0 ||
-      D % vec != 0 || lane_floats < vec || lane_floats > kLaneFloatsMax ||
-      (lane_floats & (lane_floats - 1)) != 0 || p.T <= 0 || !aligned(p.partial, 4 * vec) ||
+// must be 1, 2, 4 or 8, at most max_vec (4 for float32 Wh, 8 for bf16),
+// and divide D, lane_floats be a power of two from vec to kLaneFloatsMax,
+// and the plan's scratch be there and aligned for vec floats.
+inline bool head_shape(int num_rows, int H, int D, int vec, int max_vec,
+                       int lane_floats, const RowPlan& p, dim3& grid,
+                       HeadWalk& s) {
+  if (!(vec == 1 || vec == 2 || vec == 4 || vec == 8) || vec > max_vec ||
+      H <= 0 || D <= 0 || D % vec != 0 || lane_floats < vec ||
+      lane_floats > kLaneFloatsMax ||
+      (lane_floats & (lane_floats - 1)) != 0 || p.T <= 0 ||
+      !aligned(p.partial, vec_bytes<float>(vec)) ||
       (p.num_pieces > 0 && p.partial == nullptr))
     return false;
   const int per_head = D / vec;                 // V-column chunks of a head
@@ -495,9 +502,10 @@ __device__ __forceinline__ float leaky(float x, float slope) {
   return x >= 0.0f ? x : slope * x;
 }
 
-// Runs L::go<V, W, NC>(args...) for the run-time vec (1, 2, 4), a weight
-// that is there (W = 1) or not (W = 0) and s.NC, over the cases with
-// NC * V <= kLaneFloatsMax: the kernels are compiled per case.
+// Runs L::go<V, W, NC>(args...) for the run-time vec (1, 2, 4, and 8
+// where kWide: bf16 Wh), a weight that is there (W = 1) or not (W = 0) and
+// s.NC, over the cases with NC * V <= kLaneFloatsMax: the kernels are
+// compiled per case.
 template <class L, int V, int W, class... A>
 void head_launch_nc(const HeadWalk& s, const A&... args) {
   if (s.NC == 1) {
@@ -519,9 +527,11 @@ void head_launch_w(bool w_on, const HeadWalk& s, const A&... args) {
     head_launch_nc<L, V, 0>(s, args...);
 }
 
-template <class L, class... A>
+template <class L, bool kWide, class... A>
 void head_launch(int vec, bool w_on, const HeadWalk& s, const A&... args) {
-  if (vec == 4)
+  if (vec == 8) {
+    if constexpr (kWide) head_launch_w<L, 8>(w_on, s, args...);
+  } else if (vec == 4)
     head_launch_w<L, 4>(w_on, s, args...);
   else if (vec == 2)
     head_launch_w<L, 2>(w_on, s, args...);

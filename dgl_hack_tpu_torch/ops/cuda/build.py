@@ -63,12 +63,20 @@ SIGNATURES = {
     # num_dst, H, D, slope, vec, lane_floats, plan, stream
     "gat_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _F, _I, _I, *_PLAN, _P],
+    # as gat_fwd_f32, with a bf16 wh
+    "gat_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _F, _I, _I, *_PLAN, _P],
     # csr_indptr, csr_eids, dst_csr, wh, el, dst_packed, dout, w, dwh,
     # del, draw, dw, num_src, H, D, slope, vec, lane_floats, plan, stream
     "gat_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _P, _I, _I, _I, _F, _I, _I, *_PLAN, _P],
+    # as gat_bwd_f32, with a bf16 wh
+    "gat_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _I, _I, _I, _F, _I, _I, *_PLAN, _P],
     # src, dst, lhs, rhs, out, op, E, F, D, stream
     "sddmm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # as sddmm_f32, with bf16 lhs, rhs and out
+    "sddmm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -89,8 +97,8 @@ LAUNCHES = Launches()
 
 
 def counted(name: str, dtype: torch.dtype) -> str:
-    """A kernel's name in ``LAUNCHES``: bf16 launches of K1, K4 and K5
-    count apart from float32 ones, as ``<name>_bf16``."""
+    """A kernel's name in ``LAUNCHES``: bf16 launches count apart from
+    float32 ones, as ``<name>_bf16`` (K2 and K3: where Wh is bf16)."""
     return f"{name}_bf16" if dtype == torch.bfloat16 else name
 
 
@@ -194,8 +202,7 @@ def require(t: torch.Tensor, name: str,
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes "
-                        f"{' or '.join(map(str, dtypes))} (other dtypes: "
-                        "ROADMAP: 'bf16')")
+                        f"{' or '.join(map(str, dtypes))}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if numel is not None and t.numel() != numel:

@@ -37,7 +37,18 @@ first with K4 over el (``exact_shift``), so its pieces need no rescaling.
 A masked graph runs both kernels over its real-edge view
 (``on_real_edges``), attn_w gathered into the view's order: the padded
 edges are left out of the softmax and the sum, and attn_w's gradient is
-0 there.  Left for later: bf16 storage (ROADMAP: 'bf16').
+0 there.
+
+Wh may be bf16 (``gat_fwd_bf16``, ``gat_bwd_bf16``; launches counted as
+``gat_fwd_bf16.*`` and ``gat_bwd_bf16.*``): the JAX package's packed z
+(``_pack_z``: bf16 features, float32 logits) and its bf16
+``gat_attention_pallas`` (bf16 operands upcast into a float32 z, the
+result rounded once to fsrc's dtype).  Both kernels widen Wh on the load;
+el, er, w, dout, the sums and every output stay float32.  ``GatFused``
+rounds Wh to bf16 once in packed mode and saves that copy, so the backward
+differentiates the function the forward ran (``_gat_fused_bwd``'s zt),
+straight through the rounding: dWh is float32.  A bf16 fsrc gets its
+gradient rounded once to bf16.
 """
 from __future__ import annotations
 
@@ -46,11 +57,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .build import LAUNCHES, check, library, ptr, require, stream_ptr
+from .build import (LAUNCHES, check, counted, library, ptr, require,
+                    stream_ptr)
 from .segment_max_kernel import MINMAX_NEG, segment_max
-from .spmm_kernel import (_I32_MAX, RowPlan, _unsupported, checked_plan,
-                          graph_row_plan, on_real_edges, plan_args, rev_gidx,
-                          segment_sum, vector_width)
+from .spmm_kernel import (_I32_MAX, FEATURE_DTYPES, RowPlan,
+                          check_cuda_call, checked_plan, graph_row_plan,
+                          on_real_edges, plan_args, rev_gidx, segment_sum,
+                          vector_width, widened)
 
 Tensor = torch.Tensor
 
@@ -61,6 +74,20 @@ NEG = -1e30               # shift of an empty row in 'exact' mode
 # (PERF.md): K2 8, K3 4.
 K2_LANE_FLOATS = 8
 K3_LANE_FLOATS = 4
+# Values per load of a bf16 Wh (8: one 16-byte load; 4: 8 bytes).  K2's
+# from chip_smoke.py's sweep on an H100 (80GB HBM3, 700 W): at synthetic
+# Reddit's hidden layer 4 took 2.071 ms and 8 2.095 (PERF.md).
+# K3 reads Wh once per src row and gathers float32 dout, so it keeps
+# float32's width.
+K2_BF16_VALUES = 4
+K3_BF16_VALUES = 4
+
+
+def _widened(wh: Tensor, like: Tensor) -> Tensor:
+    """wh (float32 or bf16) in the plain versions' working dtype: that of
+    ``like`` (el), at least float32, so a bf16 Wh is summed in float32 (or
+    float64 where a reference runs so)."""
+    return wh.to(torch.promote_types(like.dtype, torch.float32))
 
 
 def _rows(indptr: Tensor) -> Tensor:
@@ -99,11 +126,13 @@ def _scratch(plan: RowPlan, HD: int, H: int, dev) -> Optional[Tensor]:
 def gat_fwd_plain(indptr: Tensor, src: Tensor, wh: Tensor, el: Tensor,
                   er: Tensor, w: Optional[Tensor], shift: Optional[Tensor],
                   slope: float, exact: bool) -> Tuple[Tensor, Tensor, Tensor]:
-    """Plain version of K2.  wh (N_src, H*D), el (N_src, H), er (N_dst, H),
-    w (E, H) or None, shift (N_dst, H) ('shift' mode) or None ('exact').
-    Returns rst (N_dst, H*D), den (N_dst, H), shift (N_dst, H)."""
+    """Plain version of K2.  wh (N_src, H*D), float32 or bf16, el (N_src,
+    H), er (N_dst, H), w (E, H) or None, shift (N_dst, H) ('shift' mode)
+    or None ('exact').  Returns rst (N_dst, H*D), den (N_dst, H), shift
+    (N_dst, H), in el's dtype (a bf16 wh is widened first)."""
     if wh.is_cuda:
         LAUNCHES.add("plain.gat_fwd")
+    wh = _widened(wh, el)
     N, H = er.shape
     D = wh.shape[1] // H
     rows = _rows(indptr)
@@ -135,7 +164,7 @@ def gat_fwd(indptr: Tensor, src: Tensor, wh: Tensor, el: Tensor, er: Tensor,
         raise ValueError(f"gat_fwd: unsupported device {wh.device}")
     launch, shift = gat_fwd_launcher(indptr, src, wh, el, er, w, shift, slope,
                                      exact, plan)
-    LAUNCHES.add("gat_fwd")
+    LAUNCHES.add(counted("gat_fwd", wh.dtype))
     rst, den = launch()
     return rst, den, shift
 
@@ -145,10 +174,11 @@ def gat_fwd_launcher(indptr: Tensor, src: Tensor, wh: Tensor, el: Tensor,
                      slope: float, exact: bool,
                      plan: Optional[RowPlan] = None):
     """Check K2's arguments on CUDA, take the 'exact' shift (K4), and
-    return ``(launch, shift)``: ``launch(lane_floats)`` runs the kernel at
-    that many floats per lane (None: ``K2_LANE_FLOATS``) and returns (rst,
-    den).  ``gat_fwd`` launches through it; ``chip_smoke.py`` sweeps the
-    lane budget with it."""
+    return ``(launch, shift)``: ``launch(lane_floats, values)`` runs the
+    kernel at that many values per lane (None: ``K2_LANE_FLOATS``) and at
+    most ``values`` per load (None: 4 of float32, ``K2_BF16_VALUES`` of
+    bf16) and returns (rst, den).  ``gat_fwd`` launches through it;
+    ``chip_smoke.py`` sweeps both with it."""
     dev = wh.device
     N, H = er.shape
     HD = wh.shape[1]
@@ -158,7 +188,7 @@ def gat_fwd_launcher(indptr: Tensor, src: Tensor, wh: Tensor, el: Tensor,
     E = src.numel()
     require(indptr, "indptr", torch.int32, dev, N + 1)
     require(src, "src", torch.int32, dev)
-    require(wh, "wh", torch.float32, dev)
+    require(wh, "wh", FEATURE_DTYPES, dev)
     require(el, "el", torch.float32, dev, wh.shape[0] * H)
     require(er, "er", torch.float32, dev)
     if w is not None:
@@ -171,13 +201,18 @@ def gat_fwd_launcher(indptr: Tensor, src: Tensor, wh: Tensor, el: Tensor,
                                         plan=plan), er, slope)
     else:
         require(shift, "shift", torch.float32, dev, N * H)
-    vec = vector_width(D, wh)            # a lane's columns lie in one head
+    bf16 = wh.dtype == torch.bfloat16
+    entry = library().gat_fwd_bf16 if bf16 else library().gat_fwd_f32
+    max_values = K2_BF16_VALUES if bf16 else 4
 
-    def launch(lane_floats: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    def launch(lane_floats: Optional[int] = None,
+               values: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+        # a lane's columns lie in one head; ``values`` caps the load width
+        vec = vector_width(D, wh, max_values=values or max_values)
         lane_floats = max(lane_floats or K2_LANE_FLOATS, vec)
         rst = torch.empty((N, HD), dtype=torch.float32, device=dev)
         den = torch.empty((N, H), dtype=torch.float32, device=dev)
-        check("gat_fwd", library().gat_fwd_f32(
+        check("gat_fwd", entry(
             ptr(indptr), ptr(src), ptr(wh), ptr(el), ptr(er), ptr(w),
             ptr(shift), ptr(rst), ptr(den), N, H, D, float(slope), vec,
             lane_floats, *plan_args(plan, _scratch(plan, HD, H, dev)),
@@ -196,9 +231,10 @@ def gat_bwd_plain(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
     """Plain version of K3.  Per CSR edge e=(u->v): recompute a, daw,
     dlogit and draw; returns dwh (N_src, H*D), del (N_src, H), draw (E, H)
     and dw (E, H), None without w or ``want_dw``; per-edge outputs at
-    internal edge ids."""
+    internal edge ids, all in el's dtype (a bf16 wh is widened first)."""
     if wh.is_cuda:
         LAUNCHES.add("plain.gat_bwd")
+    wh = _widened(wh, el)
     Ns, HD = wh.shape
     H = el.shape[1]
     D = HD // H
@@ -241,7 +277,7 @@ def gat_bwd(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
         raise ValueError(f"gat_bwd: unsupported device {wh.device}")
     launch = gat_bwd_launcher(csr_indptr, csr_eids, dst_csr, wh, el, er,
                               shift, den, sds, dout, w, slope, want_dw, plan)
-    LAUNCHES.add("gat_bwd")
+    LAUNCHES.add(counted("gat_bwd", wh.dtype))
     return launch()
 
 
@@ -252,9 +288,10 @@ def gat_bwd_launcher(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
                      want_dw: bool = True, plan: Optional[RowPlan] = None):
     """Check K3's arguments on CUDA, pack er, shift, den and sds into one
     (N_dst, H, 4) array, which K3 reads with one 16-byte load per (edge,
-    head), and return ``launch(lane_floats)``, which runs the kernel as
-    ``gat_fwd_launcher``'s does (None: ``K3_LANE_FLOATS``) and returns
-    (dwh, del, draw, dw)."""
+    head), and return ``launch(lane_floats, values)``, which runs the
+    kernel as ``gat_fwd_launcher``'s does (None: ``K3_LANE_FLOATS``; 4
+    values, ``K3_BF16_VALUES`` of a bf16 wh) and returns (dwh, del, draw,
+    dw)."""
     dev = wh.device
     Ns, HD = wh.shape
     Nd, H = er.shape
@@ -265,7 +302,7 @@ def gat_bwd_launcher(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
     require(csr_indptr, "csr_indptr", torch.int32, dev, Ns + 1)
     require(csr_eids, "csr_eids", torch.int32, dev)
     require(dst_csr, "dst_csr", torch.int32, dev, E)
-    require(wh, "wh", torch.float32, dev)
+    require(wh, "wh", FEATURE_DTYPES, dev)
     require(el, "el", torch.float32, dev, Ns * H)
     for name, t in (("er", er), ("shift", shift), ("den", den),
                     ("sds", sds)):
@@ -276,17 +313,22 @@ def gat_bwd_launcher(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
     if max(Ns, Nd, E) > _I32_MAX:
         raise ValueError("gat_bwd: sizes exceed the int32 index range")
     plan = checked_plan(plan, csr_indptr, "gat_bwd")
-    vec = vector_width(D, wh, dout)      # a lane's columns lie in one head
     dstp = torch.stack([er, shift, den, sds], -1).contiguous()
+    bf16 = wh.dtype == torch.bfloat16
+    entry = library().gat_bwd_bf16 if bf16 else library().gat_bwd_f32
+    max_values = K3_BF16_VALUES if bf16 else 4
 
-    def launch(lane_floats: Optional[int] = None):
+    def launch(lane_floats: Optional[int] = None,
+               values: Optional[int] = None):
+        # a lane's columns lie in one head
+        vec = vector_width(D, wh, dout, max_values=values or max_values)
         lane_floats = max(lane_floats or K3_LANE_FLOATS, vec)
         dwh = torch.empty((Ns, HD), dtype=torch.float32, device=dev)
         del_ = torch.empty((Ns, H), dtype=torch.float32, device=dev)
         draw = torch.empty((E, H), dtype=torch.float32, device=dev)
         dw = torch.empty((E, H), dtype=torch.float32, device=dev) \
             if w is not None and want_dw else None
-        check("gat_bwd", library().gat_bwd_f32(
+        check("gat_bwd", entry(
             ptr(csr_indptr), ptr(csr_eids), ptr(dst_csr), ptr(wh), ptr(el),
             ptr(dstp), ptr(dout), ptr(w), ptr(dwh), ptr(del_), ptr(draw),
             ptr(dw), Ns, H, D, float(slope), vec, lane_floats,
@@ -300,13 +342,19 @@ def gat_bwd_launcher(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
 # ---------------------------------------------------------------------------
 class GatFused(torch.autograd.Function):
     """out[v] = sum_{e=(u,v)} softmax_v(leaky(el[u]+er[v]))_e * w[e] * fsrc[u]
-    through K2 (forward) and K3 + K1 (backward)."""
+    through K2 (forward) and K3 + K1 (backward).  fsrc float32 or bf16;
+    el, er and w float32.  ``packed``: Wh rounded to bf16 once here, and
+    that copy is what K2 and K3 read.  The result is float32; fsrc's
+    gradient comes back in fsrc's dtype."""
 
     @staticmethod
     def forward(ctx, fsrc: Tensor, el: Tensor, er: Tensor,
-                w: Optional[Tensor], g, slope: float, softmax: str) -> Tensor:
+                w: Optional[Tensor], g, slope: float, softmax: str,
+                packed: bool = False) -> Tensor:
         N, H, D = fsrc.shape
         wh = fsrc.reshape(N, H * D).contiguous()
+        if packed:
+            wh = wh.to(torch.bfloat16)
         el = el.contiguous()
         er = er.contiguous()
         exact = softmax == "exact"
@@ -314,6 +362,7 @@ class GatFused(torch.autograd.Function):
         rst, den, shift = gat_fwd(g.csc_indptr, g.src, wh, el, er, w, shift,
                                   slope, exact, plan=graph_row_plan(g, "csc"))
         ctx.g, ctx.slope, ctx.HD = g, slope, (H, D)
+        ctx.fdtype = fsrc.dtype
         ctx.save_for_backward(wh, el, er, w, rst, den, shift)
         return rst.view(-1, H, D)
 
@@ -331,22 +380,33 @@ class GatFused(torch.autograd.Function):
                                       plan=graph_row_plan(g, "csr"))
         der = segment_sum(g.csc_indptr, draw, site="edge",
                           plan=graph_row_plan(g, "csc"))
-        return (dwh.view(-1, H, D), del_, der,
-                dw, None, None, None)
+        return (dwh.view(-1, H, D).to(ctx.fdtype), del_, der,
+                dw, None, None, None, None)
 
 
 def gat_attention_fused(g, fsrc: Tensor, el: Tensor, er: Tensor,
                         negative_slope: float = 0.2,
                         attn_w: Optional[Tensor] = None,
-                        softmax: str = "shift") -> Tensor:
+                        softmax: str = "shift",
+                        packed: bool = False) -> Tensor:
     """Fused GAT edge phase.  fsrc (N_src, H, D), el (N_src, H), er (N_dst,
     H), attn_w (E, H) in internal edge order or None.  Returns (N_dst, H,
-    D).  On CUDA: float32 only.  A masked graph runs over its real-edge
-    view."""
-    if fsrc.is_cuda and fsrc.dtype != torch.float32:
-        raise _unsupported(f"gat_attention in {fsrc.dtype}", "bf16")
+    D) in fsrc's dtype.  On CUDA each is float32 or bf16 (another dtype
+    raises).  As ``gat_attention_pallas``: a bf16 el, er or attn_w is
+    upcast (their gradients come back rounded once to bf16), the sums run
+    in float32 and a bf16 fsrc's result is rounded once.  ``packed`` (the
+    JAX ``DGL_TPU_GAT_PACKED``) reads Wh rounded to bf16 where H * D is
+    even, and is off for an odd H * D (``gat_kernel.py:940``).  A masked
+    graph runs over its real-edge view."""
+    for name, t in (("fsrc", fsrc), ("el", el), ("er", er),
+                    ("attn_w", attn_w)):
+        if t is not None:
+            check_cuda_call(t, f"gat_attention {name}")
     g, attn_w = on_real_edges(g, attn_w)
     if attn_w is not None:
-        attn_w = attn_w.contiguous()
-    return GatFused.apply(fsrc, el, er, attn_w, g, float(negative_slope),
-                          softmax)
+        attn_w = widened(attn_w).contiguous()
+    H, D = fsrc.shape[1], fsrc.shape[2]
+    out = GatFused.apply(fsrc, widened(el), widened(er), attn_w, g,
+                         float(negative_slope), softmax,
+                         packed and (H * D) % 2 == 0)
+    return out.to(fsrc.dtype)

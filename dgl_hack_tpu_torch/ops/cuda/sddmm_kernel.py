@@ -12,6 +12,18 @@ dst-side one over the CSC direction and an src-side lhs's over the CSR
 direction, and the per-edge lhs cotangent of mul/div/dot is K6 itself
 (``g * rhs[dst]``).  ``gsddmm_kernel`` mirrors ``gsddmm_pallas``, with
 DGL's output shapes.
+
+bf16 (``sddmm_bf16``, counted as ``sddmm_bf16.*``): K6 reads bf16 lhs and
+rhs, computes in float32 and rounds the result once, as ``_sddmm_kernel``
+upcasts its operands and ``gsddmm_pallas`` casts its result.  The result's
+dtype is JAX's (``result_dtype``): rhs's for copy_rhs and dot, lhs's for
+add, sub, mul and div.  So two bf16 operands give bf16; a bf16 lhs beside a
+float32 rhs gives bf16 for the elementwise ops and float32 for dot; a
+float32 lhs beside a bf16 rhs gives float32 for the elementwise ops and
+bf16 for dot and copy_rhs.  A mix runs the float32 kernel over the
+operands cast up (exact) and rounds its result once.  The backward runs
+in float32 (g and the operands cast up, K6 and K1 in float32) and rounds
+each gradient once to its operand's dtype (``_gsddmm_fused_bwd``).
 """
 from __future__ import annotations
 
@@ -20,14 +32,23 @@ from typing import Optional
 import torch
 
 from ..common import apply_binary
-from .build import LAUNCHES, check, library, ptr, require, stream_ptr
-from .spmm_kernel import (_I32_MAX, PLAIN_CHUNK_ELEMS, check_cuda_call,
-                          graph_row_plan, segment_sum)
+from .build import (LAUNCHES, check, counted, library, ptr, require,
+                    stream_ptr)
+from .spmm_kernel import (_I32_MAX, FEATURE_DTYPES, PLAIN_CHUNK_ELEMS,
+                          check_cuda_call, graph_row_plan, segment_sum,
+                          widened)
 
 Tensor = torch.Tensor
 
 # op codes of csrc/sddmm.cu
 OPS = {"copy_rhs": 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "dot": 5}
+
+
+def result_dtype(op: str, lhs: Optional[Tensor],
+                 rhs: Tensor) -> torch.dtype:
+    """The dtype of K6's result, as ``gsddmm_pallas`` casts it: rhs's for
+    copy_rhs and dot, lhs's for the elementwise ops."""
+    return rhs.dtype if op in ("copy_rhs", "dot") else lhs.dtype
 
 
 def _combine(op: str, lhs: Optional[Tensor], rhs: Tensor,
@@ -44,19 +65,23 @@ def sddmm_plain(op: str, dst: Tensor, rhs: Tensor,
     """out[e] = op(lhs[src[e]], rhs[dst[e]]) for every edge e, with lhs[e]
     when src is None (an edge operand); copy_rhs reads no lhs.  lhs and rhs
     are (rows, F); out is (E, F), or (E, F // dot_d) for dot, whose every
-    head sums dot_d consecutive lanes.  Edges go in blocks of at most
-    ``PLAIN_CHUNK_ELEMS`` (edge, feature) elements."""
+    head sums dot_d consecutive lanes.  Operands narrower than float32
+    (bf16) are computed on in float32 and the result rounded once to
+    ``result_dtype``.  Edges go in blocks of at most ``PLAIN_CHUNK_ELEMS``
+    (edge, feature) elements."""
     if rhs.is_cuda:
         LAUNCHES.add("plain.sddmm")
     E, F = dst.numel(), rhs.shape[1]
-    out = rhs.new_empty((E, F // dot_d if op == "dot" else F))
+    out = rhs.new_empty((E, F // dot_d if op == "dot" else F),
+                        dtype=result_dtype(op, lhs, rhs))
     per = max(1, PLAIN_CHUNK_ELEMS // max(F, 1))
     for j0 in range(0, E, per):
         j1 = min(E, j0 + per)
         lhs_e = None
         if op != "copy_rhs":
             lhs_e = lhs[src[j0:j1]] if src is not None else lhs[j0:j1]
-        out[j0:j1] = _combine(op, lhs_e, rhs[dst[j0:j1]], dot_d)
+            lhs_e = widened(lhs_e)
+        out[j0:j1] = _combine(op, lhs_e, widened(rhs[dst[j0:j1]]), dot_d)
     return out
 
 
@@ -64,8 +89,8 @@ def sddmm(op: str, dst: Tensor, rhs: Tensor, lhs: Optional[Tensor] = None,
           src: Optional[Tensor] = None, dot_d: int = 0, *,
           site: str = "fwd") -> Tensor:
     """K6 wrapper; arguments and result as ``sddmm_plain``.  rhs and lhs
-    float32 (rows, F); dst and src int32 (E,).  ``site`` names the call
-    site in the launch count (fwd, bwd)."""
+    float32 or bf16 (rows, F); dst and src int32 (E,).  ``site`` names the
+    call site in the launch count (fwd, bwd)."""
     if rhs.device.type == "cpu":
         return sddmm_plain(op, dst, rhs, lhs, src, dot_d)
     if rhs.device.type != "cuda":
@@ -78,14 +103,14 @@ def sddmm(op: str, dst: Tensor, rhs: Tensor, lhs: Optional[Tensor] = None,
         raise ValueError(f"sddmm takes rhs of shape (rows, F), got "
                          f"{tuple(rhs.shape)}")
     E, F = dst.numel(), rhs.shape[1]
-    require(rhs, "rhs", torch.float32, dev)
+    require(rhs, "rhs", FEATURE_DTYPES, dev)
     require(dst, "dst", torch.int32, dev)
     rows = 0
     if op != "copy_rhs":
         if lhs is None or lhs.dim() != 2 or lhs.shape[1] != F:
             raise ValueError(f"sddmm {op} takes lhs of shape (rows, {F}), "
                              f"got {None if lhs is None else tuple(lhs.shape)}")
-        require(lhs, "lhs", torch.float32, dev)
+        require(lhs, "lhs", FEATURE_DTYPES, dev)
         rows = lhs.shape[0]
         if src is not None:
             require(src, "src", torch.int32, dev, E)
@@ -95,14 +120,22 @@ def sddmm(op: str, dst: Tensor, rhs: Tensor, lhs: Optional[Tensor] = None,
         raise ValueError(f"dot head width {dot_d} does not divide F={F}")
     if max(E, rows, rhs.shape[0], F) > _I32_MAX:
         raise ValueError("sddmm: sizes exceed the int32 index range")
-    out = torch.empty((E, F // dot_d if op == "dot" else F),
-                      dtype=torch.float32, device=dev)
+    want = result_dtype(op, lhs, rhs)
+    kind = rhs.dtype if lhs is None or lhs.dtype == rhs.dtype \
+        else torch.float32
+    if kind != rhs.dtype:                # a mix: cast up, round once below
+        rhs = rhs.float()
+    if lhs is not None and kind != lhs.dtype:
+        lhs = lhs.float()
+    out = torch.empty((E, F // dot_d if op == "dot" else F), dtype=kind,
+                      device=dev)
     lib = library()
-    LAUNCHES.add(f"sddmm.{site}")
-    check("sddmm", lib.sddmm_f32(
+    LAUNCHES.add(f"{counted('sddmm', kind)}.{site}")
+    entry = lib.sddmm_bf16 if kind == torch.bfloat16 else lib.sddmm_f32
+    check("sddmm", entry(
         ptr(src), ptr(dst), ptr(lhs), ptr(rhs), ptr(out), OPS[op], E, F,
         dot_d, stream_ptr(dev)))
-    return out
+    return out.to(want)
 
 
 class GsddmmFn(torch.autograd.Function):
@@ -122,6 +155,9 @@ class GsddmmFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: Tensor):
         lhs, y = ctx.saved_tensors
+        dtypes = (None if lhs is None else lhs.dtype, y.dtype)
+        # in float32, rounded once to each operand's dtype at the end
+        grad, lhs, y = widened(grad), widened(lhs), widened(y)
         g, op = ctx.g, ctx.op
         node_lhs = ctx.lhs_target == "u"
         need_lhs = op != "copy_rhs" and ctx.needs_input_grad[0]
@@ -156,7 +192,9 @@ class GsddmmFn(torch.autograd.Function):
         if need_lhs:
             dlhs = (segment_sum(g.csr_indptr, dlhs_e, g.csr_eids, site="rev",
                                 plan=graph_row_plan(g, "csr"))
-                    if node_lhs else dlhs_e)
+                    if node_lhs else dlhs_e).to(dtypes[0])
+        if dy is not None:
+            dy = dy.to(dtypes[1])
         return dlhs, dy, None, None, None, None
 
 
@@ -167,8 +205,10 @@ def gsddmm_kernel(g, op: str, lhs_data: Optional[Tensor], rhs_data: Tensor,
     for 'e', None for copy_rhs, with rhs's feature shape; rhs (N_dst, ...).
     Returns internal-order edge values with DGL's shapes: (E, ...) for the
     elementwise ops, and for dot (E, 1) from 2-D operands and (E, H, 1)
-    from (N, H, D) ones."""
-    check_cuda_call(rhs_data, "gsddmm", (torch.float32,))
+    from (N, H, D) ones, in ``result_dtype``."""
+    check_cuda_call(rhs_data, "gsddmm")
+    if op != "copy_rhs":
+        check_cuda_call(lhs_data, "gsddmm")
     if rhs_data.shape[0] != g.num_dst_nodes:
         raise ValueError(f"rhs has {rhs_data.shape[0]} rows, the graph "
                          f"{g.num_dst_nodes} dst nodes")

@@ -65,11 +65,6 @@ Tensor = torch.Tensor
 _I32_MAX = 2 ** 31 - 1
 
 
-def _unsupported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to CUDA yet (ROADMAP: '{item}')")
-
-
 # The plain versions gather one row block at a time, at most this many
 # (edge, feature) elements (1 GiB of float32), so that they can be held
 # against the kernels at full width (Reddit, F = 602: 14 G elements).
@@ -111,6 +106,12 @@ def accumulate_dtype(dtype: torch.dtype) -> torch.dtype:
     if dtype.is_floating_point and torch.finfo(dtype).bits < 32:
         return torch.float32
     return dtype
+
+
+def widened(t: Optional[Tensor]) -> Optional[Tensor]:
+    """t cast to its ``accumulate_dtype`` (a bf16 tensor to float32, exact;
+    autograd rounds its gradient back once), None as it is."""
+    return None if t is None else t.to(accumulate_dtype(t.dtype))
 
 
 def kernel_weight(w: Optional[Tensor]) -> Optional[Tensor]:
@@ -514,11 +515,12 @@ class GspmmSum(torch.autograd.Function):
 
 def check_cuda_call(x: Tensor, what: str,
                     dtypes: tuple = FEATURE_DTYPES) -> None:
-    """What a kernel does not take on CUDA raises, naming the ROADMAP item
-    that will port it: K1, K4 and K5 take float32 and bf16 rows
-    (``FEATURE_DTYPES``, the default), K6 float32 alone."""
+    """A dtype that the kernels do not take raises on CUDA (there is no
+    plain fallback there): K1-K6 take float32 and bf16 rows
+    (``FEATURE_DTYPES``)."""
     if x.is_cuda and x.dtype not in dtypes:
-        raise _unsupported(f"{what} in {x.dtype}", "bf16")
+        raise TypeError(f"{what} in {x.dtype}: the CUDA kernels take "
+                        f"{' or '.join(map(str, dtypes))}")
 
 
 class RealEdges(NamedTuple):

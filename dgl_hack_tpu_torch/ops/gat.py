@@ -6,16 +6,24 @@ path gsddmm -> leaky_relu -> edge_softmax -> gspmm.  Both are
 differentiable and agree to kernel tolerance.  Operands of any other shape
 than (N_src, H, D), (N_src, H) and (N_dst, H) raise on either device,
 before the dispatch (the JAX package's composed path fails on them too).
+
+Both routes compute the function of the JAX package's fused path
+(``gat_attention_pallas``): operands narrower than float32 (bf16) are
+upcast, the edge phase runs in float32, and the result is rounded once to
+fsrc's dtype; each operand's gradient comes back in its own dtype, rounded
+once.  With ``DGL_TPU_GAT_PACKED=1`` the features are read rounded to bf16
+(round to nearest even) where H * D is even, the logits exact, and the
+gradient goes straight through the rounding (``_gat_fused_bwd``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..utils.env import get_config
 from .cuda.gat_kernel import gat_attention_fused
+from .cuda.spmm_kernel import widened
 from .edge_softmax import edge_softmax
 from .sddmm import gsddmm
 from .spmm import gspmm
@@ -41,6 +49,19 @@ def check_operands(g, fsrc: Tensor, el: Tensor, er: Tensor) -> None:
             f"{tuple(el.shape)}, er {tuple(er.shape)}")
 
 
+class RoundToBf16(torch.autograd.Function):
+    """x rounded to bf16 (to nearest even) and back to x's dtype, with the
+    gradient passed straight through: the packed GAT's features."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor) -> Tensor:
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: Tensor) -> Tensor:
+        return g
+
+
 def gat_attention(g, fsrc: Tensor, el: Tensor, er: Tensor,
                   negative_slope: float = 0.2,
                   attn_w: Optional[Tensor] = None) -> Tensor:
@@ -49,17 +70,27 @@ def gat_attention(g, fsrc: Tensor, el: Tensor, er: Tensor,
 
     fsrc (N_src, H, D), el (N_src, H), er (N_dst, H); ``attn_w`` is an
     optional post-softmax per-edge multiplier (attention dropout) of shape
-    (E, H) in internal edge order.  Returns (N_dst, H, D).  The softmax
-    shift of the fused path follows ``DGL_TPU_GAT_SOFTMAX``."""
+    (E, H) in internal edge order.  Returns (N_dst, H, D) in fsrc's dtype.
+    The softmax shift of the fused path follows ``DGL_TPU_GAT_SOFTMAX``,
+    the packed features ``DGL_TPU_GAT_PACKED``."""
     check_operands(g, fsrc, el, er)
     if attn_w is not None and g.edge_mask is not None:
         attn_w = attn_w * g.edge_mask[:, None].to(attn_w.dtype)
+    cfg = get_config()
     if fsrc.is_cuda:
         return gat_attention_fused(g, fsrc, el, er, negative_slope, attn_w,
-                                   softmax=get_config().gat_softmax)
+                                   softmax=cfg.gat_softmax,
+                                   packed=cfg.gat_packed)
+    out_dtype = fsrc.dtype
+    fsrc, el, er, attn_w = map(widened, (fsrc, el, er, attn_w))
+    H, D = fsrc.shape[1], fsrc.shape[2]
+    if cfg.gat_packed and (H * D) % 2 == 0:
+        fsrc = RoundToBf16.apply(fsrc)
     e = gsddmm(g, "add", el[:, :, None], er[:, :, None], "u", "v")
-    e = F.leaky_relu(e, negative_slope)
+    # jax.nn.leaky_relu's where(x >= 0): its slope at 0 is 1, as in K3
+    # (F.leaky_relu's is negative_slope; bf16 logits hit 0 often)
+    e = torch.where(e >= 0, e, negative_slope * e)
     a = edge_softmax(g, e)                                   # (E, H, 1)
     if attn_w is not None:
         a = a * attn_w[:, :, None]
-    return gspmm(g, "mul", "sum", fsrc, a, "u", "e")
+    return gspmm(g, "mul", "sum", fsrc, a, "u", "e").to(out_dtype)

@@ -5,8 +5,12 @@
       softmax is shift-invariant, so the result is exact unless the
       per-dst logit spread exceeds ~80 (exp underflow).  'exact' subtracts
       the exact per-dst max, taken in a first pass over the in-edges.
+  DGL_TPU_GAT_PACKED  "1": the fused GAT reads its features rounded to bf16
+      (round to nearest even) where H*D is even, with float32 logits; the
+      backward differentiates that function straight through (dWh in
+      float32).  Anything else: off.
 
-The variable is the JAX package's own, so one setting drives both
+The variables are the JAX package's own, so one setting drives both
 packages in the parity tests.  The port has no switch that turns a kernel
 off: a CUDA tensor reaches the kernel or an error.
 """
@@ -21,6 +25,7 @@ GAT_SOFTMAX_MODES = ("shift", "exact")
 @dataclass
 class Config:
     gat_softmax: str = "shift"
+    gat_packed: bool = False
 
 
 def get_config() -> Config:
@@ -28,4 +33,5 @@ def get_config() -> Config:
     if mode not in GAT_SOFTMAX_MODES:
         raise ValueError(f"DGL_TPU_GAT_SOFTMAX={mode!r}; expected one of "
                          f"{GAT_SOFTMAX_MODES}")
-    return Config(gat_softmax=mode)
+    return Config(gat_softmax=mode,
+                  gat_packed=os.environ.get("DGL_TPU_GAT_PACKED", "0") == "1")

@@ -49,6 +49,11 @@ CLI_CASES = [
                                     "--items", "50"]),
     ("train_sage_cv_torch.py", ["--epochs", "1"]),
     ("train_adaptive_sampling_torch.py", ["--epochs", "3"]),
+    ("train_han_torch.py", ["--epochs", "3"]),
+    ("train_capsule_torch.py", ["--epochs", "2", "--train", "64",
+                                "--test", "32"]),
+    ("train_graphwriter_torch.py", ["--epochs", "2", "--train", "16",
+                                    "--test", "8"]),
 ]
 # the dataset name each CLI prints (the JAX twin's)
 DATASETS = {"train_gin_torch.py": "SBM-mixture",
@@ -62,6 +67,15 @@ OTHER_LINES = {
                                     "train_time_s"},
     "train_pinsage_rec_torch.py": {"dataset", "model", "hits10", "mrr",
                                    "train_time_s"}}
+# the attention twins' lines: the JAX CLI's keys and its model's name
+ATTENTION_LINES = {
+    "train_han_torch.py": ({"model", "epochs", "test_acc", "train_time_s"},
+                           "model", "HAN"),
+    "train_capsule_torch.py": ({"example", "epochs", "loss", "test_acc",
+                                "train_s"}, "example", "capsule"),
+    "train_graphwriter_torch.py": ({"example", "epochs", "train_loss",
+                                    "train_token_acc", "test_token_acc",
+                                    "train_s"}, "example", "graphwriter")}
 SCRIPTS = [script for script, _ in CLI_CASES]
 REFUSE_ARGS = {"pagerank_torch.py": ["--iters", "1"]}
 
@@ -123,6 +137,11 @@ def test_example_cli(runs, script, args):
         assert out.get("model") in ("metapath2vec", "pinsage")
         assert all(np.isfinite(v) for k, v in out.items()
                    if k not in ("model", "dataset"))
+        return
+    if script in ATTENTION_LINES:
+        keys, key, name = ATTENTION_LINES[script]
+        assert set(out) == keys and out[key] == name
+        assert all(np.isfinite(v) for k, v in out.items() if k != key)
         return
     if script == "train_sage_cv_torch.py":
         assert set(out) == {"dataset", "test_acc", "epochs", "loss"}
