@@ -189,7 +189,21 @@ Phases, one JSON line each:
  33. the HAN, capsule and GraphWriter twins (``han``, ``capsule``,
      ``graphwriter``) at their CLI defaults, 40, 20 and 20 epochs: losses
      falling, the first against the CPU's, epoch ms, launches (K2/K3; K6
-     and K1).
+     and K1);
+ 34. the chemistry model zoo (``chem_train``): SchNet, MGCN, MPNN,
+     AttentiveFP, the GCN and GAT classifiers, Weave and WLN at the JAX
+     classes' default widths, each through examples/train_chem_torch.py's
+     pieces on one batch of 1,024 synthetic molecules (about 16.5 k atoms,
+     33 k directed bonds): the batch's host build, copy and plan build
+     apart, 2 warm-up and 5 timed Adam steps, peak memory, launches (K1;
+     K2/K3; K6), one step's device ms by kernel family, and the first
+     step's forward and gradients on the whole batch against a CPU copy
+     of the same model, which takes the card's relu gates;
+ 35. ``chem_twins``: the chem twin for gcn and schnet, MoNet and DiffPool
+     at their CLI defaults; ``small_twins``: GGNN, DGI, GCMC, RRN and the
+     point cloud at theirs, LGNN at 200 nodes a graph (line graphs of
+     about 0.88 M edges): the first loss against the CPU's, losses
+     falling, step ms, launches.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -201,8 +215,9 @@ with the float32 kernel's tolerance in place of K1_TOL, K6's bf16
 elementwise ops equal to their plain versions, and K2/K3's float32
 outputs over a bf16 Wh within GAT_TOL of float64; bf16 max/min and K5's
 dx of an integer cotangent equal to their plain versions; a float32
-hybrid within 1e-5 of K1 alone; the packed GAT's first loss within 2^-8
-of the unpacked one, a packed GATConv within 2^-8 + GAT_TOL of the CPU
+hybrid within 1e-5 of K1 alone; a chemistry model's output and
+gradients within LAYER_TOL of the CPU's; the packed GAT's first loss
+within 2^-8 of the unpacked one, a packed GATConv within 2^-8 + GAT_TOL of the CPU
 (``PACKED_LOSS_TOL``, ``PACKED_LAYER_TOL``); a twin's first loss within
 LAYER_TOL of the CPU's.  K1 (its
 rows route too)
@@ -224,6 +239,7 @@ for its rows route, ``torch.sparse.sampled_addmm``
 on a CSR matrix, batched over heads, for K6's dot, the masked block's
 too), timed only.
 """
+import contextlib
 import copy
 import json
 import os
@@ -233,6 +249,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 K1_TOL, GAT_TOL, K5_TOL = 2e-5, 1e-4, 2e-5
@@ -2459,16 +2476,19 @@ def _layer_cases(dt, g):
     ]
 
 
-def _grads_close(checks, name, mod_d, mod_c, x_d, x_c):
-    """The input's and every parameter's gradient on the card within
-    LAYER_TOL of the CPU's, relative to the larger of the tensor's max|ref|
-    and 1e-3 of the module's largest gradient: a gradient that is 0 up to
-    rounding (a softmax's shift invariance: the attention's key biases, a
-    gate's bias) is held to 1e-7 of that.  Returns the largest error and
-    the tensor it was found in."""
-    pairs = [("input", x_d.grad, x_c.grad)] + [
-        (n, p.grad, dict(mod_c.named_parameters())[n].grad)
-        for n, p in mod_d.named_parameters()]
+def _grads_close(checks, name, mod_d, mod_c, x_d=None, x_c=None):
+    """The input's (where given) and every parameter's gradient on the card
+    within LAYER_TOL of the CPU's, relative to the larger of the tensor's
+    max|ref| and 1e-3 of the module's largest gradient: a gradient that is
+    0 up to rounding (a softmax's shift invariance: the attention's key
+    biases, a gate's bias) is held to 1e-7 of that.  A parameter that no
+    output reads (MGCN's last edge update) has no gradient on either side
+    and is skipped.  Returns the largest error and the tensor it was found
+    in."""
+    ref = dict(mod_c.named_parameters())
+    pairs = ([] if x_d is None else [("input", x_d.grad, x_c.grad)]) + [
+        (n, p.grad, ref[n].grad) for n, p in mod_d.named_parameters()
+        if ref[n].grad is not None or p.grad is not None]
     top = max(float(r.abs().max()) for _, _, r in pairs)
     worst = (0.0, "")
     for what, out, ref in pairs:
@@ -4775,6 +4795,415 @@ def phase_graphwriter(build, checks, dev):
     return c
 
 
+# ---------------------------------------------------------------------------
+# chemistry (nn/conv_extra, models/chem, data/chem) and the last twins
+# ---------------------------------------------------------------------------
+CHEM_MOLS = 1024
+CHEM_MODELS = ("schnet", "mgcn", "mpnn", "attentivefp", "gcn", "gat",
+               "weave", "wln")
+# kernels each chemistry model must launch on the card in a training step
+# (copy_e sums and sum readouts launch K1 at its ``rows`` site)
+CHEM_NEED = {
+    "schnet": ("segment_sum.fwd", "segment_sum.rows"),
+    "mgcn": ("segment_sum.fwd", "segment_sum.rows"),
+    "mpnn": ("segment_sum.rows",),
+    "attentivefp": ("segment_sum.fwd", "segment_sum.rows"),
+    "gcn": ("segment_sum.fwd", "segment_sum.rev", "segment_sum.rows"),
+    "gat": ("gat_fwd", "gat_bwd", "segment_sum.rows"),
+    "weave": ("segment_sum.rows", "sddmm.fwd"),
+    "wln": ("segment_sum.fwd", "segment_sum.rows")}
+# the gathers the JAX dispatch composes too: a copy of a node operand onto
+# the edges with no other operand (AttentiveFP's src and dst copies, WLN's
+# src copy: gsddmm copy_lhs with the rhs target left at 'v')
+CHEM_COMPOSED = {"attentivefp": "plain.gsddmm_composed",
+                 "wln": "plain.gsddmm_composed"}
+
+
+def _kernel_families(step):
+    """Device ms of one ``step()`` from torch.profiler (CUDA activity), in
+    total and by kernel family: the port's K1 (``segment_sum``), K2/K3
+    (``gat_``), K6 (``sddmm``) and the rest (torch's)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    fam = {"k1": 0.0, "k2_k3": 0.0, "k6": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if not str(e.device_type).endswith("CUDA") or ms <= 0:
+            continue
+        key = ("k1" if "segment_sum" in e.key else
+               "k2_k3" if "gat_" in e.key else
+               "k6" if "sddmm" in e.key else "other")
+        fam[key] += ms
+    return {"device_ms": sum(fam.values()), **fam}
+
+
+class _ReluGates:
+    """``F.relu`` for one forward, with each call's gate (x > 0):
+    ``use(record=True)`` keeps the gates in call order; ``use(record=False)``
+    applies them in the same order in place of the input's own sign (every
+    one must be used) and keeps in ``flips`` the inputs whose own sign
+    differs (up to 8 a call).  The CPU copy replays the card's gates, so
+    that a pre-activation within rounding of 0 takes the same side of the
+    kink on both and the two gradients are of one function (MPNN at 1,024
+    molecules has one such element; the phase prints it, and the gradient
+    error without the replay).  Leaky relus (AttentiveFP's, and GAT's
+    inside K2/K3) are not replayed."""
+
+    def __init__(self):
+        self.gates, self.flips = [], []
+
+    @contextlib.contextmanager
+    def use(self, record):
+        fn = F.relu
+        it = iter(self.gates)
+
+        def relu(x, inplace=False):
+            if record:
+                self.gates.append((x > 0).cpu())
+                return fn(x, inplace)
+            gate = next(it).to(x.device)
+            self.flips += x[(x > 0) != gate][:8].tolist()
+            return x * gate
+        F.relu = relu
+        try:
+            yield
+        finally:
+            F.relu = fn
+        if not record and next(it, None) is not None:
+            raise RuntimeError("relu gates: the CPU run called F.relu "
+                               "fewer times than the card's")
+
+
+def _chem_batch_data(n, seed):
+    """``n`` synthetic molecules from ``np.random.default_rng(seed)`` (the
+    port's generator, not the datasets' seeds: Alchemy's salts its seed
+    with hash(mode)), their graphs and both label kinds: standardised
+    regression targets (12 Alchemy tasks) and binary targets with a 15%
+    missing mask (12 Tox21 tasks)."""
+    from dgl_hack_tpu_torch.data import chem as cd
+    rng = np.random.default_rng(seed)
+    mols = [cd._synthetic_molecule(rng) for _ in range(n)]
+    graphs = [cd._mol_to_graph(m) for m in mols]
+    reg = np.stack([cd._structure_labels(m, 12, "reg", rng) for m in mols])
+    reg = ((reg - reg.mean(0)) / (reg.std(0) + 1e-8)).astype(np.float32)
+    binary = np.stack([cd._structure_labels(m, 12, "binary", rng)
+                       for m in mols])
+    mask = (rng.random(binary.shape) >= 0.15).astype(np.float32)
+    return graphs, {"reg": (reg, np.ones_like(reg)),
+                    "binary": (binary * mask, mask)}
+
+
+def _chem_plans_ms(sk, g):
+    """Milliseconds to build every plan a chemistry step reads on the
+    card graph: K1's row plans of both directions, the dx gather index and
+    the readout segments of the nodes and edges."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sk.graph_row_plan(g, "csc")
+    sk.graph_row_plan(g, "csr")
+    sk.rev_gidx(g)
+    sk.graph_segments(g, "nodes")
+    sk.graph_segments(g, "edges")
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def phase_chem_train(dt, build, sk, checks, dev):
+    """The chemistry model zoo at the JAX classes' default widths (DGL
+    0.4's model_zoo/chem: SchNet 64 x 3 convs, MGCN 128 x 3, MPNN 64/128
+    with 6 + 6 steps, AttentiveFP 200, the GCN classifier (64, 64), the GAT
+    classifier (32, 32) x 4 heads, Weave 2 x 32, WLN 32 x 2), each trained
+    through examples/train_chem_torch.py's pieces on one batch of
+    CHEM_MOLS synthetic molecules: the batch's host build, copy and plan
+    build apart, 2 warm-up and 5 timed Adam steps (lr 3e-3) on the squared
+    error of standardised Alchemy-style targets (SchNet, MGCN, MPNN) or the
+    masked sigmoid cross-entropy of Tox21-style ones, peak memory, the
+    launches of each kernel, one more step's device ms by kernel family
+    (torch.profiler) and the busy share, the first and last loss, and the
+    first step's forward and gradients on the whole batch against a CPU
+    copy of the same model made just before it (plain versions, the card's
+    relu gates, ``_ReluGates``; LAYER_TOL of max|ref|, gradients as
+    ``_grads_close``)."""
+    twin = _load_twin("train_chem_torch")
+    t0 = time.perf_counter()
+    graphs, labels = _chem_batch_data(CHEM_MOLS, seed=0)
+    data_s = time.perf_counter() - t0
+    total = {}
+    res = {}
+    for name in CHEM_MODELS:
+        kind = "reg" if name in twin.REGRESSION else "binary"
+        reset_peak_memory()
+        t0 = time.perf_counter()
+        bg_c = dt.batch(graphs)
+        t1 = time.perf_counter()
+        bg = bg_c.to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        plans_ms = _chem_plans_ms(sk, bg)
+        y_c, w_c = (torch.from_numpy(a) for a in labels[kind])
+        y, w = y_c.to(dev), w_c.to(dev)
+        torch.manual_seed(0)
+        model_c = twin.build_model(name, 12, full_width=True)
+        with torch.no_grad():
+            model_c(*twin.model_inputs(name, bg_c))  # materialise on the CPU
+        model = copy.deepcopy(model_c).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=3e-3, eps=1e-8)
+
+        def step():
+            loss = twin.loss_of(name, model(*twin.model_inputs(name, bg)),
+                                y, w)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        build.LAUNCHES.reset()
+        gates = _ReluGates()
+        with gates.use(record=True):                 # the first step, checked
+            out = model(*twin.model_inputs(name, bg))
+        loss = twin.loss_of(name, out, y, w)
+        loss.backward()
+        with gates.use(record=False):
+            out_c = model_c(*twin.model_inputs(name, bg_c))
+        twin.loss_of(name, out_c, y_c, w_c).backward()
+        out_rel = rel_err(out.detach().cpu(), out_c.detach())
+        grad_rel, worst = _grads_close(checks, f"chem {name}", model, model_c)
+        own_gates = None           # the gradient error with the CPU's gates
+        if gates.flips:
+            model_c.zero_grad(set_to_none=True)
+            twin.loss_of(name, model_c(*twin.model_inputs(name, bg_c)),
+                         y_c, w_c).backward()
+            own_gates = _grads_close(Checks(), "", model, model_c)
+        flips = gates.flips
+        opt.step()
+        losses = [loss.detach(), step()]
+        if not out_rel <= LAYER_TOL:
+            checks.failures.append(f"chem {name} forward vs CPU: "
+                                   f"{out_rel:.3g}")
+        del out, out_c, model_c, bg_c, gates
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        losses += [step() for _ in range(5)]
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t3) / 5
+        counts = dict(build.LAUNCHES.counts)
+        peak = torch.cuda.max_memory_allocated()
+        device = _kernel_families(step)
+        losses = [float(v) for v in losses]
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        res[name] = {"params": sum(p.numel() for p in model.parameters()),
+                     "step_ms": step_ms, "host_batch_ms": 1e3 * (t1 - t0),
+                     "copy_ms": 1e3 * (t2 - t1), "plans_ms": plans_ms,
+                     "peak_memory_bytes": peak, "device": device,
+                     "device_busy_share": device["device_ms"] / step_ms,
+                     "loss_first": losses[0],
+                     "loss_last": losses[-1], "losses": losses,
+                     "launches": counts, "fwd_rel_err_vs_cpu": out_rel,
+                     "grad_rel_err_vs_cpu": grad_rel,
+                     "worst_grad": worst, "relu_gate_flips": flips,
+                     "grad_rel_err_vs_cpu_own_gates": own_gates}
+        allowed = CHEM_COMPOSED.get(name)
+        plain = {k: v for k, v in counts.items()
+                 if k.startswith("plain.") and k != allowed}
+        missing = [k for k in CHEM_NEED[name] if _launched(counts, k) <= 0]
+        if not all(np.isfinite(losses)) or plain or missing:
+            checks.failures.append(f"chem {name}: losses {losses}, plain "
+                                   f"{plain}, never launched {missing}")
+        del model, opt, bg
+    emit({"phase": "chem_train", "molecules": CHEM_MOLS,
+          "atoms": sum(g.num_nodes() for g in graphs),
+          "bonds_directed": sum(g.num_edges() for g in graphs),
+          "data_s": data_s,
+          "tolerance": LAYER_TOL, "models": res})
+    checks.raise_if_failed("chem_train")
+    return total
+
+
+def _twin_record(name, res, counts, rel, extra=None):
+    losses = res["losses"]
+    times = res.get("step_ms") or res.get("epoch_ms")
+    return {"steps": len(losses), "losses_first_last": [losses[:3],
+                                                        losses[-3:]],
+            "first_loss_rel_vs_cpu": rel,
+            "ms_median_after_first": float(np.median(times[1:])),
+            "launches": counts, **(extra or {}),
+            **{k: res[k] for k in ("test_acc", "test_mse", "cell_acc",
+                                   "test_rmse") if k in res}}
+
+
+def _run_twin(build, name, run, need, checks, dev, window=3):
+    """``run(device, first_only)`` on the card (launches counted) and its
+    first step on the CPU; the twin's checks (losses finite and falling,
+    ``need`` launched, no plain path)."""
+    cpu = run("cpu", True)
+    build.LAUNCHES.reset()
+    res = run(dev, False)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    rel = _twin_first_loss(name, res["losses"], cpu["losses"], checks)
+    _twin_checks(name, res["losses"], counts, need=need, window=window)
+    return res, counts, rel
+
+
+def _initial_state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase_chem_twins(build, checks, dev):
+    """The chem twin (examples/train_chem_torch.py) at its CLI defaults (128
+    molecules, batches of 32, 30 epochs, lr 3e-3, the example's narrow
+    widths) for gcn and schnet, as tools/regression.py runs them, with the
+    Alchemy molecules drawn from a fixed seed in place of the dataset's
+    hashed one; MoNet (train_monet_torch.py: two GMMConvs, K1's rows
+    route) and DiffPool (train_diffpool_torch.py: dense batched matmuls, no
+    sparse kernel, as in its JAX example) at their CLI defaults.  Each
+    from parameters made on the CPU: the first loss against the CPU's,
+    the losses falling, the step ms and the launches."""
+    twin = _load_twin("train_chem_torch")
+    graphs, labels = _chem_batch_data(128, seed=0)
+    total, rec = {}, {}
+    for name in ("gcn", "schnet"):
+        if name in twin.REGRESSION:
+            graphs_n, (lab, mask) = graphs, labels["reg"]
+        else:
+            graphs_n, lab, mask = twin.load_data(name, 128)
+        batches = twin.make_batches(graphs_n, lab, mask, 0, 102, 32)
+        state = _initial_state(twin.train(name, batches, epochs=0,
+                                          device="cpu")["model"])
+
+        def run(device, first, name=name, batches=batches, state=state):
+            return twin.train(name, batches[:1] if first else batches,
+                              epochs=1 if first else 30, params=state,
+                              device=device)
+        res, counts, rel = _run_twin(build, f"chem {name}", run,
+                                     ("segment_sum.fwd",
+                                      "segment_sum.rows"), checks, dev)
+        rec[f"chem_{name}"] = _twin_record(name, res, counts, rel, {
+            "host_ms_median": float(np.median(res["host_ms"]))})
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    monet = _load_twin("train_monet_torch")
+    data = monet.make_data()
+    state = _initial_state(monet.train(data, epochs=0, device="cpu")["model"])
+    res, counts, rel = _run_twin(
+        build, "monet", lambda d, first: monet.train(
+            data, epochs=1 if first else 60, params=state, device=d),
+        ("segment_sum.rows",), checks, dev)
+    rec["monet"] = _twin_record("monet", res, counts, rel,
+                                {"edges": data[0].num_edges()})
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    diff = _load_twin("train_diffpool_torch")
+    batches, classes = diff.make_batches()
+    state = _initial_state(diff.train(batches, classes, epochs=0,
+                                      device="cpu")["model"])
+    res, counts, rel = _run_twin(
+        build, "diffpool", lambda d, first: diff.train(
+            batches, classes, epochs=1 if first else 25, n_train=4,
+            params=state, device=d), (), checks, dev)
+    rec["diffpool"] = _twin_record("diffpool", res, counts, rel)
+    emit({"phase": "chem_twins", **rec})
+    checks.raise_if_failed("chem_twins")
+    return total
+
+
+SMALL_LGNN = dict(graphs=10, nodes=200, epochs=5)
+
+
+def phase_small_twins(build, checks, dev):
+    """The GGNN, DGI, GCMC, RRN and point-cloud twins at their CLI
+    defaults, and LGNN at 200 nodes a graph (its line graph then carries
+    real work for K1; 10 graphs, 5 epochs), each from parameters made on
+    the CPU: the first loss against the CPU's, the losses falling, the
+    step ms and the launches (GGNN and RRN: K1's rows route; DGI, GCMC and
+    LGNN: K1; point cloud: K6's u_sub_v)."""
+    total, rec = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    ggnn = _load_twin("train_ggnn_torch")
+    task = ggnn.make_task(60, 24, 3, 4, 0)
+    state = _initial_state(ggnn.train(task, epochs=0, device="cpu")["model"])
+    res, counts, rel = _run_twin(
+        build, "ggnn", lambda d, first: ggnn.train(
+            task, epochs=1 if first else 30, n_train=1 if first else None,
+            params=state, device=d), ("segment_sum.rows",), checks, dev,
+        window=48)
+    rec["ggnn"] = _twin_record("ggnn", res, counts, rel)
+    add(counts)
+
+    dgi = _load_twin("train_dgi_torch")
+    data = dgi.make_data()
+    state = _initial_state(dgi.train(data, epochs=0, device="cpu")["model"])
+    res, counts, rel = _run_twin(
+        build, "dgi", lambda d, first: dgi.train(
+            data, epochs=1 if first else 60, params=state, device=d),
+        ("segment_sum.fwd",), checks, dev)
+    acc = dgi.probe(res["embeddings"], *data[2:])
+    rec["dgi"] = _twin_record("dgi", res, counts, rel,
+                              {"probe_test_acc": acc})
+    add(counts)
+
+    gcmc = _load_twin("train_gcmc_torch")
+    data = gcmc.make_data()
+    state = _initial_state(gcmc.train(data, epochs=0, device="cpu")["model"])
+    res, counts, rel = _run_twin(
+        build, "gcmc", lambda d, first: gcmc.train(
+            data, epochs=1 if first else 60, params=state, device=d),
+        ("segment_sum.fwd",), checks, dev)
+    rec["gcmc"] = _twin_record("gcmc", res, counts, rel)
+    add(counts)
+
+    rrn = _load_twin("train_rrn_torch")
+    params = rrn.init_params(np.random.default_rng(0), 64)
+
+    def rrn_run(d, first):
+        rng = np.random.default_rng(0)
+        rrn.init_params(rng, 64)          # the draws the CLI makes first
+        return rrn.train(params, rng, epochs=1 if first else 300,
+                         device=d, log=None)
+    res, counts, rel = _run_twin(build, "rrn", rrn_run,
+                                 ("segment_sum.rows",), checks, dev,
+                                 window=20)
+    rec["rrn"] = _twin_record("rrn", res, counts, rel)
+    add(counts)
+
+    lgnn = _load_twin("train_lgnn_torch")
+    t0 = time.perf_counter()
+    data = lgnn.make_data(SMALL_LGNN["graphs"], SMALL_LGNN["nodes"])
+    data_s = time.perf_counter() - t0
+    state = _initial_state(lgnn.train(data, epochs=0, device="cpu")["model"])
+    res, counts, rel = _run_twin(
+        build, "lgnn", lambda d, first: lgnn.train(
+            data, epochs=1 if first else SMALL_LGNN["epochs"],
+            n_train=1 if first else None,
+            params=state, device=d), ("segment_sum.fwd",), checks, dev,
+        window=8)
+    rec["lgnn"] = _twin_record("lgnn", res, counts, rel, {
+        **SMALL_LGNN, "data_s": data_s,
+        "graph_edges": [g.num_edges() for g, *_ in data[:3]],
+        "line_graph_edges": [lg.num_edges() for _, lg, *_ in data[:3]]})
+    add(counts)
+
+    pc = _load_twin("train_pointcloud_torch")
+    data = pc.make_data()
+    state = _initial_state(pc.train(data, epochs=0, device="cpu")["model"])
+    res, counts, rel = _run_twin(
+        build, "pointcloud", lambda d, first: pc.train(
+            data, epochs=1 if first else 20, n_train=1 if first else None,
+            params=state, device=d), ("sddmm.fwd",), checks, dev,
+        window=72)
+    rec["pointcloud"] = _twin_record("pointcloud", res, counts, rel)
+    add(counts)
+    emit({"phase": "small_twins", **rec})
+    checks.raise_if_failed("small_twins")
+    return total
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -4880,15 +5309,19 @@ def main() -> int:
     c_han = phase_han(build, checks, dev)
     c_capsule = phase_capsule(build, checks, dev)
     c_writer = phase_graphwriter(build, checks, dev)
+    c_chem = phase_chem_train(dt, build, sk, checks, dev)
+    c_chem_twins = phase_chem_twins(build, checks, dev)
+    c_small = phase_small_twins(build, checks, dev)
     phase_entry(dt, dev)
 
     runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled, c_rgcn,
             c_hetero, c_pr, c_sub, c_lstm, c_rmax, c_topo, c_prefetch,
             c_nodeflow, c_pinsage, c_cv, c_adaptive, c_packed, c_han,
-            c_capsule, c_writer, *c_headline.values())
+            c_capsule, c_writer, c_chem, c_chem_twins, c_small,
+            *c_headline.values())
     max_runs = (c_sage, c_sampled, c_hetero, c_rmax, c_nodeflow)
-    gat_runs = (c_gat, c_packed, c_han)
-    sddmm_runs = (c_tf, c_capsule, c_writer)
+    gat_runs = (c_gat, c_packed, c_han, c_chem)
+    sddmm_runs = (c_tf, c_capsule, c_writer, c_chem, c_small)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()
                            if k.startswith("segment_sum.")),

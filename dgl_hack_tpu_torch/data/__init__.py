@@ -1,3 +1,6 @@
+from .chem import (MoleculeCSVDataset, PubChemBioAssayAromaticity,
+                   TencentAlchemyDataset, Tox21, atom_featurizer,
+                   bond_featurizer)
 from .graph_classification import (GraphClassificationDataset,
                                    TUDatasetSynthetic, sbm_mixture)
 from .rdf import (AIFBDataset, AMDataset, BGSDataset, MUTAGDataset,

@@ -10,7 +10,8 @@ A flax params tree, given as nested dicts of numpy arrays (``{"params":
   and their (H, Dh) biases flattened.
 * A LayerNorm ``scale`` becomes ``weight``; an ``Embed``'s ``embedding``
   (num_embeddings, features) becomes ``nn.Embedding``'s ``weight``, same
-  layout.
+  layout.  ``state_dict_to_flax`` takes both back when told which modules
+  they are (``embed_modules``, ``norm_modules``).
 * A flax ``GRUCell`` (``ir``/``iz``/``in`` with biases, ``hr``/``hz``
   without, ``hn`` with) becomes ``nn.GRUCell``'s stacked ``weight_ih``/
   ``weight_hh`` in gate order r, z, n, with ``bias_hh = [0, 0, b_hn]``.
@@ -19,7 +20,15 @@ A flax params tree, given as nested dicts of numpy arrays (``{"params":
   order i, f, g, o, with ``bias_ih = 0``.
 * Every other leaf (``GraphConv.weight (in, out)``, ``bias``,
   ``attn_l``/``attn_r (1, H, D)``, ``eps``, ``RelGraphConv``'s ``weight``,
-  ``w_comp``, ``h_bias`` and ``loop_weight``) keeps its name and layout.
+  ``w_comp``, ``h_bias`` and ``loop_weight``, GMMConv's ``mu`` and
+  ``inv_sigma``, AtomicConv's radial parameters, a PReLU's
+  ``negative_slope``) keeps its name and layout.
+
+Sub-modules that flax builds in a parent's scope and hands to a child
+(MPNN's edge network, a HeteroGraphConv's per-relation GraphConvs) are
+named in the parent's scope (``Dense_1``, ``GraphConv_0``); the port's
+models hold them under those names, so the keys match without a
+mapping.
 
 A bipartite ``GATConv``'s ``fc_src`` and ``fc_dst`` are Denses like any
 other, both ways; the port's ``GATConv`` takes that layout when it loads a
@@ -118,17 +127,20 @@ def _recurrent_to_flax(cell: Mapping[str, np.ndarray]) -> Dict:
 
 
 def state_dict_to_flax(state: Mapping[str, torch.Tensor],
-                       dense_modules=(), embed_modules=()) -> Dict:
+                       dense_modules=(), embed_modules=(),
+                       norm_modules=()) -> Dict:
     """Inverse of ``flax_to_state_dict``.  ``dense_modules`` names the
     sub-modules that are flax ``Dense`` layers (``nn.Linear`` here, e.g.
     ``"gat0.fc"``): their ``weight`` goes back to ``kernel (in, out)``;
     ``embed_modules`` those that are flax ``Embed`` layers
-    (``nn.Embedding``): their ``weight`` goes back to ``embedding``.  A
-    module holding a recurrent cell's four stacked tensors goes back to
-    flax's gate kernels."""
+    (``nn.Embedding``): their ``weight`` goes back to ``embedding``;
+    ``norm_modules`` those that are flax ``LayerNorm`` layers: their
+    ``weight`` goes back to ``scale``.  A module holding a recurrent
+    cell's four stacked tensors goes back to flax's gate kernels."""
     tree: Dict = {}
     dense = set(dense_modules)
     embed = set(embed_modules)
+    norm = set(norm_modules)
     cells: Dict[tuple, Dict[str, np.ndarray]] = {}
     for key, val in state.items():
         *path, leaf = key.split(".")
@@ -140,6 +152,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor],
             leaf, arr = "kernel", arr.T.copy()
         elif leaf == "weight" and ".".join(path) in embed:
             leaf = "embedding"
+        elif leaf == "weight" and ".".join(path) in norm:
+            leaf = "scale"
         node = tree
         for p in path:
             node = node.setdefault(p, {})
@@ -162,3 +176,10 @@ def embed_module_names(model: torch.nn.Module):
     """Names of a model's ``nn.Embedding`` sub-modules (flax ``Embed``)."""
     return [n for n, m in model.named_modules()
             if isinstance(m, torch.nn.Embedding)]
+
+
+def norm_module_names(model: torch.nn.Module):
+    """Names of a model's ``nn.LayerNorm`` sub-modules (flax
+    ``LayerNorm``)."""
+    return [n for n, m in model.named_modules()
+            if isinstance(m, torch.nn.LayerNorm)]

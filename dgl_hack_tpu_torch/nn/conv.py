@@ -15,7 +15,8 @@ parameters convert one to one (``interop.py``) and outputs compare:
   DenseGraphConv) name their flax ``Dense`` layers as it does (``fc``,
   ``lin``, ``theta``, ``phi``, ``res_fc``), as ``init.Dense`` modules
   initialised as flax initialises them; ``GatedGraphConv.gru`` is an
-  ``nn.GRUCell`` (``interop`` converts flax's gate kernels).
+  ``nn.GRUCell`` (``init.GRUCell``; ``interop`` converts flax's gate
+  kernels).
 
 The input width is taken from the first call, as flax does: the layers
 are lazy modules, so a model is built from its output widths alone.
@@ -49,7 +50,7 @@ from ..ops.rgcn import (rgcn_aggregate_pairs, rgcn_basis_message,
                         rgcn_reduce_pairs)
 from ..ops.sddmm import gsddmm
 from ..ops.spmm import gspmm
-from .init import (Dense, bias_keep, fans, glorot_uniform_, lecun_normal_,
+from .init import (Dense, GRUCell, fans, glorot_uniform_, lecun_normal_,
                    orthogonal_blocks_)
 
 Tensor = torch.Tensor
@@ -741,12 +742,8 @@ class GatedGraphConv(nn.Module):
     """Gated graph conv (GGNN): ``n_steps`` of per-etype linear messages,
     summed per dst node over the CSC-ordered messages (K1's edge-row mode),
     then a GRU update with the node state as the carry.  ``etypes`` come
-    in user edge order.  ``gru`` is an ``nn.GRUCell`` initialised as
-    flax's (lecun-normal input kernels, orthogonal recurrent ones, zero
-    biases), whose ``bias_hh`` holds flax's ``hn`` bias in its last third;
-    its first two thirds (flax's ``hr`` and ``hz`` have no bias) are
-    masked out (``bias_keep``); ``weight`` is (n_etypes, out,
-    out), glorot-uniform."""
+    in user edge order.  ``gru`` is flax's GRU cell (``init.GRUCell``, an
+    ``nn.GRUCell``); ``weight`` is (n_etypes, out, out), glorot-uniform."""
 
     def __init__(self, out_feats: int, n_steps: int, n_etypes: int = 1):
         super().__init__()
@@ -756,13 +753,7 @@ class GatedGraphConv(nn.Module):
         shape = (n_etypes, out_feats, out_feats)
         self.weight = nn.Parameter(torch.empty(shape))
         glorot_uniform_(self.weight, *fans(shape))
-        self.gru = nn.GRUCell(out_feats, out_feats)
-        lecun_normal_(self.gru.weight_ih, out_feats)
-        orthogonal_blocks_(self.gru.weight_hh, out_feats)
-        nn.init.zeros_(self.gru.bias_ih)
-        nn.init.zeros_(self.gru.bias_hh)
-        self.register_buffer("hh_bias_keep", bias_keep(
-            3 * out_feats, slice(0, 2 * out_feats)), persistent=False)
+        self.gru = GRUCell(out_feats, out_feats)
 
     def forward(self, g, feat: Tensor,
                 etypes: Optional[Tensor] = None) -> Tensor:
@@ -781,9 +772,7 @@ class GatedGraphConv(nn.Module):
             zh = torch.einsum("ni,rio->nro", h, self.weight)
             msg = zh[g.src, etypes]                        # (E, out)
             a = gspmm(g, "copy_lhs", "sum", msg, None, "e")
-            gru = self.gru
-            h = torch.gru_cell(a, h, gru.weight_ih, gru.weight_hh,
-                               gru.bias_ih, gru.bias_hh * self.hh_bias_keep)
+            h = self.gru(a, h)
         return h
 
 

@@ -62,6 +62,28 @@ def bias_keep(size: int, dropped: slice) -> Tensor:
 KERNEL_INITS = ("lecun_normal", "xavier")
 
 
+class GRUCell(nn.GRUCell):
+    """flax's ``GRUCell`` as an ``nn.GRUCell`` (stacked gates r, z, n):
+    lecun-normal input kernels, orthogonal recurrent kernels, zero biases.
+    flax's ``hr`` and ``hz`` have no bias, so the first two thirds of
+    ``bias_hh`` are masked out (``bias_keep``).  Called as ``nn.GRUCell``
+    is, ``cell(input, hx)``, it returns the new hidden state (flax's
+    carry)."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__(input_size, hidden_size)
+        lecun_normal_(self.weight_ih, input_size)
+        orthogonal_blocks_(self.weight_hh, hidden_size)
+        nn.init.zeros_(self.bias_ih)
+        nn.init.zeros_(self.bias_hh)
+        self.register_buffer("hh_bias_keep", bias_keep(
+            3 * hidden_size, slice(0, 2 * hidden_size)), persistent=False)
+
+    def forward(self, input: Tensor, hx: Tensor) -> Tensor:
+        return torch.gru_cell(input, hx, self.weight_ih, self.weight_hh,
+                              self.bias_ih, self.bias_hh * self.hh_bias_keep)
+
+
 class Dense(nn.LazyLinear):
     """flax's ``Dense``: the input width is taken from the first call, the
     kernel is lecun-normal (``kernel_init="xavier"``: glorot-uniform) and

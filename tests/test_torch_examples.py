@@ -54,6 +54,16 @@ CLI_CASES = [
                                 "--test", "32"]),
     ("train_graphwriter_torch.py", ["--epochs", "2", "--train", "16",
                                     "--test", "8"]),
+    ("train_chem_torch.py", ["--epochs", "1", "--n_mols", "40"]),
+    ("train_monet_torch.py", ["--epochs", "3"]),
+    ("train_diffpool_torch.py", ["--epochs", "2"]),
+    ("train_ggnn_torch.py", ["--epochs", "1", "--graphs", "10"]),
+    ("train_dgi_torch.py", ["--epochs", "3", "--probe_epochs", "5"]),
+    ("train_gcmc_torch.py", ["--epochs", "3"]),
+    ("train_rrn_torch.py", ["--epochs", "3", "--batch", "8", "--steps",
+                            "2"]),
+    ("train_lgnn_torch.py", ["--epochs", "1", "--graphs", "5"]),
+    ("train_pointcloud_torch.py", ["--epochs", "1", "--clouds", "9"]),
 ]
 # the dataset name each CLI prints (the JAX twin's)
 DATASETS = {"train_gin_torch.py": "SBM-mixture",
@@ -76,6 +86,34 @@ ATTENTION_LINES = {
     "train_graphwriter_torch.py": ({"example", "epochs", "train_loss",
                                     "train_token_acc", "test_token_acc",
                                     "train_s"}, "example", "graphwriter")}
+# the other twins' lines: the JAX CLI's keys and its fixed string values
+# (every other value a finite number)
+NAMED_LINES = {
+    "train_chem_torch.py": (
+        {"dataset", "model", "epochs", "test_acc", "train_time_s"},
+        {"dataset": "tox21", "model": "gcn"}),
+    "train_monet_torch.py": (
+        {"model", "epochs", "test_acc", "train_time_s"}, {"model": "MoNet"}),
+    "train_diffpool_torch.py": (
+        {"model", "epochs", "test_acc", "train_time_s"},
+        {"model": "DiffPool"}),
+    "train_ggnn_torch.py": (
+        {"dataset", "test_acc", "epochs", "loss"},
+        {"dataset": "reachability-synth"}),
+    "train_dgi_torch.py": (
+        {"model", "epochs", "probe_test_acc", "train_time_s"},
+        {"model": "DGI"}),
+    "train_gcmc_torch.py": (
+        {"model", "epochs", "test_acc", "test_rmse", "train_time_s"},
+        {"model": "GCMC"}),
+    "train_rrn_torch.py": (
+        {"dataset", "model", "cell_acc", "train_time_s"},
+        {"dataset": "sudoku4-synth", "model": "rrn"}),
+    "train_lgnn_torch.py": (
+        {"model", "epochs", "test_acc", "train_time_s"}, {"model": "LGNN"}),
+    "train_pointcloud_torch.py": (
+        {"model", "epochs", "test_acc", "train_time_s"},
+        {"model": "DGCNN"})}
 SCRIPTS = [script for script, _ in CLI_CASES]
 REFUSE_ARGS = {"pagerank_torch.py": ["--iters", "1"]}
 
@@ -142,6 +180,12 @@ def test_example_cli(runs, script, args):
         keys, key, name = ATTENTION_LINES[script]
         assert set(out) == keys and out[key] == name
         assert all(np.isfinite(v) for k, v in out.items() if k != key)
+        return
+    if script in NAMED_LINES:
+        keys, fixed = NAMED_LINES[script]
+        assert set(out) == keys
+        assert {k: out[k] for k in fixed} == fixed
+        assert all(np.isfinite(v) for k, v in out.items() if k not in fixed)
         return
     if script == "train_sage_cv_torch.py":
         assert set(out) == {"dataset", "test_acc", "epochs", "loss"}

@@ -167,5 +167,5 @@ def test_port_imports_with_jax_blocked():
     for mod in ("core.batch", "core.transform", "ops.readout",
                 "data.graph_classification", "nn.glob", "nn.utils",
                 "nn.init", "data.rdf", "ops.rgcn", "core.heterograph",
-                "nn.hetero"):
+                "nn.hetero", "data.chem", "nn.conv_extra", "models.chem"):
         assert f"dgl_hack_tpu_torch.{mod}" in names, mod
