@@ -203,7 +203,27 @@ Phases, one JSON line each:
      at their CLI defaults; ``small_twins``: GGNN, DGI, GCMC, RRN and the
      point cloud at theirs, LGNN at 200 nodes a graph (line graphs of
      about 0.88 M edges): the first loss against the CPU's, losses
-     falling, step ms, launches.
+     falling, step ms, launches;
+ 36. ``profiling`` (after phase 2): ``utils.profiling.timed_loop`` over
+     K1 at bench.py's shape against ``cuda_ms`` of the same chained link
+     (within 25%), K1 alone beside them; ``datasets``: every dataset of
+     tests/fixtures/data parsed on the host (no synthetic stand-in), each
+     node-classification and PPI graph through gspmm copy_u sum (K1) on
+     the card against K1's plain version in float64, and a card graph and
+     a card heterograph through the npz graph files and back;
+     ``checkpoint_resume``: GCN on synthetic Cora, 3 Adam steps, a
+     checkpoint of the model and Adam, a fresh pair loaded from it and 2
+     more steps, the 5 losses equal to 5 uninterrupted steps bit for bit;
+ 37. ``cluster_gcn_train`` (examples/train_cluster_gcn_torch.py) on full
+     synthetic Reddit (``RedditDataset(scale=1.0)``) at --parts 8,
+     --hidden 32: Fennel's and the halo build's host seconds, each part's
+     nodes, edges and inner edges, at 0 halo hops (``metis_partition`` as
+     the CLI calls it: parts of one self-loop a row) and 1 hop; K1 on a
+     part of each against its plain version, timed beside its bound; the
+     first part step's loss and gradients against a CPU copy (relu gates
+     replayed); 2 + 5 epochs with the median step, peak memory, launches
+     and one profiled step's device ms and busy share; the full-graph
+     evaluation of the last model through K1.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -219,7 +239,9 @@ hybrid within 1e-5 of K1 alone; a chemistry model's output and
 gradients within LAYER_TOL of the CPU's; the packed GAT's first loss
 within 2^-8 of the unpacked one, a packed GATConv within 2^-8 + GAT_TOL of the CPU
 (``PACKED_LOSS_TOL``, ``PACKED_LAYER_TOL``); a twin's first loss within
-LAYER_TOL of the CPU's.  K1 (its
+LAYER_TOL of the CPU's; a Cluster-GCN part's first loss and gradients
+within LAYER_TOL of the CPU's; the fixture graphs' K1 within K1_TOL of
+float64; timed_loop within 25% of cuda_ms.  K1 (its
 rows route too)
 and K5 <= 2e-5 against their plain versions run in float64 (the kernels'
 f32 sums); the slice's layers <= 1e-4 against the CPU (``LAYER_TOL``);
@@ -751,9 +773,14 @@ def phase_gat(dt, gk, sk, checks, dev):
 
 
 def _reddit(dt, dev):
-    from dgl_hack_tpu_torch.data import synthetic_reddit
+    """``RedditDataset(scale=1.0)``: offline, the synthetic stand-in at
+    Reddit's full size."""
+    import warnings
+    from dgl_hack_tpu_torch.data import RedditDataset
     t0 = time.perf_counter()
-    ds = synthetic_reddit()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "reddit raw files not found")
+        ds = RedditDataset(scale=1.0)
     g = dt.prepare_spmm(ds.graph, device=dev)
     return ds, g, time.perf_counter() - t0
 
@@ -5204,6 +5231,397 @@ def phase_small_twins(build, checks, dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# slice 15: datasets, checkpoints, profiling, partitioning and Cluster-GCN
+# ---------------------------------------------------------------------------
+def phase_profiling(sk, g, checks, dev):
+    """``utils.profiling.timed_loop`` at bench.py's shape (N = 1 M, F =
+    128): K1's forward chained ``h = K1(h) * 0.9999`` at 2 and 6 links,
+    the difference per link, against ``cuda_ms`` of one link (the same
+    work) and of K1 alone; fails if the two timers differ by over 25%."""
+    from dgl_hack_tpu_torch.utils import timed_loop
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((1e-3 * rng.normal(size=(g.num_src_nodes, 128)))
+                         .astype(np.float32)).to(dev)
+    plan = sk.graph_row_plan(g, "csc")
+
+    def k1(h):
+        return sk.segment_sum(g.csc_indptr, h, g.src, plan=plan)
+    loop_ms = 1e3 * timed_loop(k1, x, k_lo=2, k_hi=6, repeats=3)
+    link_ms = cuda_ms(lambda: k1(x) * 0.9999)
+    k1_ms = cuda_ms(lambda: k1(x))
+    diff = abs(loop_ms - link_ms) / link_ms
+    emit({"phase": "profiling", "shape": "bench.py graph, F=128, fwd",
+          "timed_loop_ms": loop_ms, "cuda_ms_link": link_ms,
+          "cuda_ms_k1": k1_ms, "rel_diff": diff, "limit": 0.25})
+    if not diff <= 0.25:
+        raise SystemExit(f"profiling failed: timed_loop {loop_ms:.4g} ms "
+                         f"against cuda_ms {link_ms:.4g} ms")
+
+
+DATASET_DIR = os.path.join(REPO, "tests", "fixtures", "data")
+
+
+def _fixture_datasets():
+    """Every dataset of tests/fixtures/data parsed on the host, with
+    DGL_DOWNLOAD_DIR pointing there for the call alone: (node
+    classification datasets by name, the other datasets by name, parse
+    seconds, the synthetic warnings raised)."""
+    import warnings
+    from dgl_hack_tpu_torch import data
+    old = os.environ.get("DGL_DOWNLOAD_DIR")
+    os.environ["DGL_DOWNLOAD_DIR"] = DATASET_DIR
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            node = {"cora": data.CoraGraphDataset(),
+                    "citeseer": data.CiteseerGraphDataset(),
+                    "reddit": data.RedditDataset(),
+                    "amazon_co_buy_computer":
+                        data.AmazonCoBuyComputerDataset()}
+            other = {"ppi": data.load_ppi("train"),
+                     "tu": data.TUDataset("MINI"),
+                     "gin": data.GINDataset("MINI", degree_as_nlabel=True),
+                     "bitcoinotc": data.load_bitcoinotc(),
+                     "qm7b": data.load_qm7b(),
+                     "gdelt": data.GDELTDataset("train"),
+                     "icews18": data.ICEWS18Dataset("train")}
+            seconds = time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["DGL_DOWNLOAD_DIR"]
+        else:
+            os.environ["DGL_DOWNLOAD_DIR"] = old
+    synth = [str(w.message) for w in rec if "synthetic" in str(w.message)]
+    return node, other, seconds, synth
+
+
+def phase_datasets(dt, build, checks, dev):
+    """The fixture datasets parsed on the host (no synthetic stand-in);
+    each node-classification graph (and each PPI graph) on the card through
+    gspmm copy_u sum (K1) against K1's plain version on the host in
+    float64; a card graph with node and edge features and a card
+    heterograph through save_graphs/load_graphs and
+    save_heterograph/load_heterograph."""
+    from dgl_hack_tpu_torch.data import (load_graphs, load_heterograph,
+                                         save_graphs, save_heterograph)
+    node, other, parse_s, synth = _fixture_datasets()
+    if synth:
+        checks.failures.append(f"datasets: synthetic stand-ins {synth}")
+    graphs = [(name, ds.graph, ds.features) for name, ds in node.items()]
+    graphs += [(f"ppi[{i}]", g, x) for i, (g, x, _)
+               in enumerate(other["ppi"])]
+    rec = {}
+    for name, g, x in graphs:
+        xt = torch.from_numpy(np.asarray(x, np.float32))
+        build.LAUNCHES.reset()
+        out = dt.gspmm(g.to(dev), "copy_lhs", "sum", xt.to(dev))
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES.counts)
+        ref = dt.gspmm(g, "copy_lhs", "sum", xt.double()).float()
+        rec[name] = {"nodes": g.num_nodes(), "edges": g.num_edges(),
+                     "features": int(xt.shape[1]), "launches": counts,
+                     "rel_err": checks.compare(
+                         "segment_sum", f"datasets {name}", out.cpu(), ref,
+                         K1_TOL)}
+        if counts.get("segment_sum.fwd", 0) < 1 or any(
+                k.startswith("plain.") for k in counts):
+            checks.failures.append(f"datasets {name}: launches {counts}")
+    io_dir = os.path.join(REPO, "build", "chip_smoke_io")
+    os.makedirs(io_dir, exist_ok=True)
+    cora = node["cora"]
+    g = cora.graph.to(dev)
+    g.ndata["feat"] = torch.from_numpy(cora.features).to(dev)
+    g.edata["w"] = torch.arange(g.num_edges(), dtype=torch.float32,
+                                device=dev)
+    path = os.path.join(io_dir, "cora.npz")
+    save_graphs(path, [g], {"labels": cora.labels})
+    (back,), labels = load_graphs(path)
+    io_ok = (back.device.type == "cpu"
+             and all(np.array_equal(a, b) for a, b in
+                     zip(back.host_edges(), cora.graph.host_edges()))
+             and torch.equal(back.ndata["feat"], g.ndata["feat"].cpu())
+             and torch.equal(back.edata["w"], g.edata["w"].cpu())
+             and np.array_equal(labels["labels"], cora.labels))
+    rng = np.random.default_rng(4)
+    hg = dt.heterograph({("user", "follows", "user"): (
+        rng.integers(0, 50, 300), rng.integers(0, 50, 300)),
+        ("user", "plays", "game"): (rng.integers(0, 50, 200),
+                                    rng.integers(0, 9, 200))},
+        num_nodes_dict={"user": 50, "game": 9}).to(dev)
+    hg.nodes_data("user")["x"] = torch.ones(50, 3, device=dev)
+    path = os.path.join(io_dir, "hetero.npz")
+    save_heterograph(path, hg)
+    hb = load_heterograph(path)
+    hetero_ok = (sorted(hb.canonical_etypes) == sorted(hg.canonical_etypes)
+                 and all(np.array_equal(a, b) for c in hg.canonical_etypes
+                         for a, b in zip(hb.relations[c].host_edges(),
+                                         hg.relations[c].host_edges()))
+                 and torch.equal(hb.nodes_data("user")["x"],
+                                 torch.ones(50, 3)))
+    if not (io_ok and hetero_ok):
+        checks.failures.append(f"datasets: graph files round trip "
+                               f"{io_ok}, heterograph {hetero_ok}")
+    emit({"phase": "datasets", "parse_s": parse_s, "graphs": rec,
+          "others": {k: len(v.graphs) if hasattr(v, "graphs")
+                     else len(v.triplets) for k, v in other.items()},
+          "graph_file_round_trip": io_ok, "heterograph_round_trip":
+          hetero_ok})
+    checks.raise_if_failed("datasets")
+
+
+def phase_checkpoint_resume(dt, build, dev):
+    """GCN (hidden 16, no dropout) on synthetic Cora on the card, Adam
+    lr 1e-2: 3 steps, ``save_checkpoint`` of the model's and Adam's state,
+    a fresh model and Adam loaded through ``load_checkpoint``, 2 more
+    steps; the 5 losses must equal those of 5 uninterrupted steps bit for
+    bit (K1 sums in a fixed order)."""
+    from dgl_hack_tpu_torch.data import synthetic_cora
+    from dgl_hack_tpu_torch.models import GCN
+    from dgl_hack_tpu_torch.models.training import masked_cross_entropy
+    from dgl_hack_tpu_torch.utils import load_checkpoint, save_checkpoint
+    ds = synthetic_cora(seed=0)
+    g = dt.prepare_spmm(ds.graph, device=dev)
+    x = torch.from_numpy(ds.features).to(dev)
+    y = torch.from_numpy(ds.labels).long().to(dev)
+    m = torch.from_numpy(ds.train_mask).to(dev)
+
+    def fresh():
+        torch.manual_seed(0)
+        model = GCN(16, ds.num_classes).to(dev)
+        with torch.no_grad():
+            model(g, x, deterministic=True)
+        return model, torch.optim.Adam(model.parameters(), lr=1e-2)
+
+    def steps(model, opt, n):
+        out = []
+        for _ in range(n):
+            loss = masked_cross_entropy(model(g, x, deterministic=True), y,
+                                        m)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            out.append(float(loss.detach()))
+        return out
+    ref = steps(*fresh(), 5)
+    build.LAUNCHES.reset()
+    model, opt = fresh()
+    first = steps(model, opt, 3)
+    ck_dir = os.path.join(REPO, "build", "chip_smoke_ckpt")
+    fname = save_checkpoint(os.path.join(ck_dir, "gcn"),
+                            {"model": model.state_dict(),
+                             "opt": opt.state_dict()}, step=3)
+    ck = load_checkpoint(ck_dir)
+    model, opt = fresh()
+    model.load_state_dict(ck["state"]["model"])
+    opt.load_state_dict(ck["state"]["opt"])
+    resumed = first + steps(model, opt, 2)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    emit({"phase": "checkpoint_resume", "file": os.path.basename(fname),
+          "step": ck["step"], "losses": resumed, "uninterrupted": ref,
+          "bitwise_equal": resumed == ref,
+          "max_abs_diff": max(abs(a - b) for a, b in zip(resumed, ref)),
+          "launches": counts})
+    _check_training("checkpoint_resume", {"losses": resumed}, counts,
+                    ("segment_sum.fwd", "segment_sum.rev"))
+    if resumed != ref or ck["step"] != 3:
+        raise SystemExit(f"checkpoint_resume failed: {resumed} != {ref}")
+    return counts
+
+
+CLUSTER = dict(parts=8, hidden=32, lr=1e-2, warm_epochs=2, epochs=5)
+
+
+def _cluster_first_step(twin, ds, batch, state, checks, dev, tag):
+    """The first part step on the card against a CPU copy of the same
+    part and parameters, the CPU replaying the card's relu gates: the
+    loss and every gradient within LAYER_TOL; returns the card's loss."""
+    from dgl_hack_tpu_torch.models.training import masked_cross_entropy
+    h = CLUSTER["hidden"]
+    losses, models = [], []
+    gates = _ReluGates()
+    for device, b, record in (
+            (dev, twin.to_device([batch], dev)[0], True),
+            ("cpu", twin.to_device([batch], "cpu")[0], False)):
+        model = twin.build_model(h, ds.num_classes, device, b, state)
+        model.layer0.activation = lambda t: F.relu(t)   # seen by _ReluGates
+        with gates.use(record=record):
+            loss = masked_cross_entropy(model(b[0], b[1],
+                                              deterministic=True),
+                                        b[2], b[3])
+        loss.backward()
+        losses.append(loss.detach().cpu())
+        models.append(model)
+    rel = rel_err(losses[0], losses[1])
+    if not rel <= LAYER_TOL:
+        checks.failures.append(f"{tag} first loss vs CPU: {rel:.3g}")
+    worst = _grads_close(checks, tag, models[0], models[1])
+    return {"loss": float(losses[0]), "loss_rel_vs_cpu": rel,
+            "grad_rel_vs_cpu": worst, "relu_gate_flips": gates.flips}
+
+
+def _k1_on_part(sk, sub, checks, tag):
+    """K1 forward at the part step's aggregation width (32) on a part
+    graph, against its plain version in float64, timed beside its bound,
+    its plain version and torch.sparse.mm."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(sub.num_src_nodes, 32))
+                         .astype(np.float32)).to(sub.device)
+    args = (sub.csc_indptr, x, sub.src)
+    plan = sk.graph_row_plan(sub, "csc")
+    out = sk.segment_sum(*args, plan=plan)
+    checks.compare("segment_sum", f"{tag} F=32 fwd", out, k1_ref(sk, *args),
+                   K1_TOL, sk.segment_sum(*args, plan=plan))
+    A = csr_matrix(sub)
+    rec = timing(both_ms(lambda: sk.segment_sum(*args, plan=plan)),
+                 cuda_ms(lambda: sk.segment_sum_plain(*args), reps=3),
+                 nbytes(sub.csc_indptr, sub.src, x, out),
+                 sub.num_edges() * 32,
+                 f"{tag}: {sub.num_dst_nodes} rows, {sub.num_edges()} "
+                 "edges, F=32, fwd",
+                 library_ms=cuda_ms(lambda: torch.sparse.mm(A, x)))
+    rec["edges_per_row"] = sub.num_edges() / max(sub.num_dst_nodes, 1)
+    return rec
+
+
+def _cluster_run(twin, sk, build, ds, batches, state, checks, dev, tag):
+    """The twin's loop over ``batches``: the first step against the CPU,
+    then 2 + 5 epochs (launches counted; median step over the last 5
+    epochs; peak memory), one step of the third epoch profiled (device ms
+    by kernel and the busy share of that step)."""
+    from torch.profiler import ProfilerActivity, profile
+    first = _cluster_first_step(twin, ds, batches[0], state, checks, dev,
+                                tag)
+    n_parts = len(batches)
+    warm = CLUSTER["warm_epochs"] * n_parts
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(n):
+        if n == warm:
+            torch.cuda.synchronize()
+            prof.start()
+            marks["t0"] = time.perf_counter()
+        elif n == warm + 1:
+            marks["t1"] = time.perf_counter()
+            prof.stop()
+    reset_peak_memory()
+    build.LAUNCHES.reset()
+    res = twin.train(ds, batches, hidden=CLUSTER["hidden"],
+                     lr=CLUSTER["lr"], params=state,
+                     epochs=CLUSTER["warm_epochs"] + CLUSTER["epochs"],
+                     device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    peak = torch.cuda.max_memory_allocated()
+    rows = sorted(((e.key[:80], e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    if not rows:
+        raise SystemExit(f"{tag} failed: torch.profiler recorded no device "
+                         "time")
+    dev_ms = sum(ms for _, ms in rows)
+    wall_ms = 1e3 * (marks["t1"] - marks["t0"])
+    losses = res["losses"]
+    rec = {"steps": len(losses), "first_step": first,
+           "first_loss_equal_to_checked": losses[0] == first["loss"],
+           "losses_first_last": [losses[:3], losses[-3:]],
+           "step_ms_median": float(np.median(res["step_ms"][warm:])),
+           "step_ms_min_max": [min(res["step_ms"][warm:]),
+                               max(res["step_ms"][warm:])],
+           "peak_memory_bytes": peak, "launches": counts,
+           "profiled_step": {"wall_ms": wall_ms, "device_ms": dev_ms,
+                             "busy_share": dev_ms / wall_ms,
+                             "top": [{"name": n, "ms": ms}
+                                     for n, ms in rows[:8]]}}
+    _check_training(tag, {"losses": losses[::n_parts]}, counts,
+                    ("segment_sum.fwd", "segment_sum.rev"))
+    return res, counts, rec
+
+
+def phase_cluster_gcn_train(dt, build, sk, ds, checks, dev, timings):
+    """examples/train_cluster_gcn_torch.py on full synthetic Reddit
+    (``RedditDataset(scale=1.0)``: 232,965 nodes, 602 features,
+    23,526,213 edges) at the CLI's --parts 8 and --hidden 32: Fennel's
+    seconds and the halo build's at 0 hops (``metis_partition`` as the
+    CLI calls it; parts of self loops only) and 1 hop (each part's
+    in-edges and halo), each part's nodes, edges and inner edges; K1 on a
+    part of each kind against its plain version and timed beside its bound
+    (at 0 hops one edge a row); then at each depth the first step against
+    the CPU and 2 + 5 epochs (``_cluster_run``); the full-graph evaluation
+    of the last model through K1 at the end."""
+    twin = _load_twin("train_cluster_gcn_torch")
+    import importlib
+    pp = importlib.import_module("dgl_hack_tpu_torch.partition.partition")
+    g, k = ds.graph, CLUSTER["parts"]
+    t0 = time.perf_counter()
+    assign = pp.partition(g, k, method="fennel")
+    fennel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts0 = pp.metis_partition(g, k, extra_cached_hops=0)
+    metis0_s = time.perf_counter() - t0
+    same = all(np.array_equal(p.node_map, np.nonzero(assign == p.part_id)[0])
+               for p in parts0)
+    t0 = time.perf_counter()
+    parts1 = pp.partition_graph_with_halo(g, assign, num_hops=1)
+    halo1_s = time.perf_counter() - t0
+    rec = {"nodes": g.num_nodes(), "edges": g.num_edges(),
+           "features": int(ds.features.shape[1]), **CLUSTER,
+           "fennel_s": fennel_s, "metis_partition_hops0_s": metis0_s,
+           "halo_hops1_s": halo1_s, "metis_parts_equal_fennel": same}
+    if not same:
+        checks.failures.append("cluster_gcn: metis_partition's parts differ "
+                               "from partition()'s")
+    total = {}
+    res = None
+    for hops, parts in ((0, parts0), (1, parts1)):
+        t0 = time.perf_counter()
+        batches = twin.batches_of(ds, parts)
+        batch_s = time.perf_counter() - t0
+        tag = f"cluster_gcn hops={hops}"
+        t0 = time.perf_counter()
+        sub = twin.to_device(batches[:1], dev)[0][0]
+        torch.cuda.synchronize()
+        copy_plan_ms = 1e3 * (time.perf_counter() - t0)
+        k1 = _k1_on_part(sk, sub, checks, tag)
+        state = _initial_state(twin.build_model(
+            CLUSTER["hidden"], ds.num_classes, "cpu",
+            twin.to_device(batches[:1], "cpu")[0]))
+        res, counts, run = _cluster_run(twin, sk, build, ds, batches, state,
+                                        checks, dev, tag)
+        rec[f"hops{hops}"] = {
+            "batches_s": batch_s, "part0_copy_plan_ms": copy_plan_ms,
+            "part_nodes": [p.graph.num_nodes() for p in parts],
+            "part_edges": [p.graph.num_edges() for p in parts],
+            "part_inner_edges": [int(p.inner_edge.sum()) for p in parts],
+            "k1_part0": k1, **run}
+        if hops == 0:
+            timings["segment_sum"]["cluster_one_edge_rows"] = k1
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        del batches
+    t0 = time.perf_counter()
+    full = twin.full_graph(ds, dev)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    build.LAUNCHES.reset()
+    acc = twin.evaluate(res["model"], full, ds)
+    eval_counts = dict(build.LAUNCHES.counts)
+    for key, v in eval_counts.items():
+        total[key] = total.get(key, 0) + v
+    rec["eval"] = {"graph_build_s": full_s, "test_acc": acc,
+                   "launches": eval_counts}
+    emit({"phase": "cluster_gcn_train", **rec})
+    if eval_counts.get("segment_sum.fwd", 0) < 1 or not 0.0 <= acc <= 1.0:
+        checks.failures.append(f"cluster_gcn eval: acc {acc}, launches "
+                               f"{eval_counts}")
+    checks.raise_if_failed("cluster_gcn_train")
+    return total
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -5251,6 +5669,9 @@ def main() -> int:
     checks = Checks()
     timings = {}
     g_small, g_bench, plan_edges = phase_k1(dt, sk, checks, dev)
+    phase_profiling(sk, g_bench, checks, dev)
+    phase_datasets(dt, build, checks, dev)
+    c_ckpt = phase_checkpoint_resume(dt, build, dev)
     c_pr = phase_pagerank(dt, build, sk, g_bench, checks, dev, timings)
     c_sub = phase_message_subsets(dt, build, sk, g_bench, checks, dev,
                                   timings)
@@ -5294,6 +5715,8 @@ def main() -> int:
                                      timings)
     c_prop = phase_propagation_train(build, ds, g, dev)
     phase_k1_rows(sk, g, ds, checks, dev, timings)
+    c_cluster = phase_cluster_gcn_train(dt, build, sk, ds, checks, dev,
+                                        timings)
     del ds, g
     torch.cuda.empty_cache()
     c_tf = phase_transformer(build, k6, checks, dev, timings)
@@ -5317,8 +5740,8 @@ def main() -> int:
     runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled, c_rgcn,
             c_hetero, c_pr, c_sub, c_lstm, c_rmax, c_topo, c_prefetch,
             c_nodeflow, c_pinsage, c_cv, c_adaptive, c_packed, c_han,
-            c_capsule, c_writer, c_chem, c_chem_twins, c_small,
-            *c_headline.values())
+            c_capsule, c_writer, c_chem, c_chem_twins, c_small, c_ckpt,
+            c_cluster, *c_headline.values())
     max_runs = (c_sage, c_sampled, c_hetero, c_rmax, c_nodeflow)
     gat_runs = (c_gat, c_packed, c_han, c_chem)
     sddmm_runs = (c_tf, c_capsule, c_writer, c_chem, c_small)

@@ -19,30 +19,19 @@ agree with the JAX package's only within one process (or under one
 from __future__ import annotations
 
 import os
-import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 from ..core.graph import Graph, _build
+from .citation import _data_dir
+from .extra import _warn_synth
 
 # atomic numbers and sampling weights approximating organic chemistry
 _ATOMS = np.array([6, 7, 8, 9, 16, 17, 35])          # C N O F S Cl Br
 _ATOM_P = np.array([0.62, 0.11, 0.14, 0.04, 0.04, 0.04, 0.01])
 ATOM_TYPES = _ATOMS.tolist()
-
-
-def _data_dir() -> str:
-    return os.environ.get("DGL_DOWNLOAD_DIR",
-                          os.path.join(os.path.expanduser("~"), ".dgl_tpu"))
-
-
-def _warn_synth(name: str, root: str) -> None:
-    warnings.warn(
-        f"raw {name} files not found under {root}; using the deterministic "
-        f"synthetic stand-in. Place the reference's raw files there to use "
-        f"the real dataset.")
 
 
 def atom_featurizer(atomic_nums: np.ndarray, degrees: np.ndarray) -> np.ndarray:

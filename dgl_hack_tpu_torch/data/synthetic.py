@@ -90,22 +90,6 @@ def synthetic_cora(seed: int = 0) -> NodeClassificationDataset:
                              feat_noise=2.0, seed=seed, name="cora-synth")
 
 
-CITATION_STATS = {  # name -> (nodes, classes, feat_dim, avg_deg, train/class)
-    "cora": (2708, 7, 1433, 3.9, 20),
-    "citeseer": (3327, 6, 3703, 2.8, 20),
-    "pubmed": (19717, 3, 500, 4.5, 20),
-}
-
-
-def synthetic_citation(name: str, seed: int = 0) -> NodeClassificationDataset:
-    """The JAX package's offline stand-in for a planetoid dataset (what
-    its CoraGraphDataset & co. return when the raw files are absent)."""
-    n, c, fdim, deg, tpc = CITATION_STATS[name]
-    return planted_partition(n, c, fdim, avg_degree=deg, homophily=0.81,
-                             feat_noise=2.0, seed=seed, train_per_class=tpc,
-                             name=f"{name}-synth")
-
-
 def synthetic_reddit(seed: int = 0,
                      num_nodes: int = 232965) -> NodeClassificationDataset:
     """Reddit-scale stand-in (232,965 nodes, 602 features, 41 classes,

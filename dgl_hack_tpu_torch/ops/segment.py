@@ -126,3 +126,12 @@ def segment_reduce(reducer: str, data: Tensor, segment_ids: Tensor,
             cnt = segment_sum(mask.to(data.dtype), segment_ids, num_segments)
             return s / _expand(cnt.clamp(min=1), s)
     return _SEGMENT_FNS[reducer](data, segment_ids, num_segments)
+
+
+def bincount(ids: Tensor, weights: Optional[Tensor], length: int) -> Tensor:
+    """float32 counts of each id in ``[0, length)``, or the sums of
+    ``weights`` per id (``jax.ops.segment_sum`` in the JAX package, which
+    is no TPU kernel; plain torch on either device)."""
+    w = torch.ones(ids.shape, dtype=torch.float32, device=ids.device) \
+        if weights is None else weights
+    return segment_sum(w, ids.long(), length)

@@ -5,8 +5,9 @@ propagation.
 Usage: python examples/train_appnp_torch.py --dataset cora --epochs 200
 Runs on the GPU (K1 for the propagation); ``--device cpu`` runs the
 kernels' plain versions on the CPU instead.  With no card and no
-``--device cpu`` it exits with an error.  Datasets are the deterministic
-synthetic stand-ins the JAX package uses offline.
+``--device cpu`` it exits with an error.  Datasets come from
+``data.CoraGraphDataset`` and the like, as in the JAX example (planetoid
+files where present, else the synthetic stand-ins).
 """
 import argparse
 import json
@@ -38,8 +39,10 @@ def main():
     from dgl_hack_tpu_torch.models.training import train_node_classifier
 
     torch.manual_seed(0)
-    ds = (data.synthetic_cora() if args.dataset == "synth"
-          else data.synthetic_citation(args.dataset))
+    ds = {"cora": data.CoraGraphDataset,
+          "citeseer": data.CiteseerGraphDataset,
+          "pubmed": data.PubmedGraphDataset,
+          "synth": data.synthetic_cora}[args.dataset]()
     g = dt.add_self_loop(dt.remove_self_loop(ds.graph))
     model = APPNP(hidden=args.hidden, out_feats=ds.num_classes, k=args.k,
                   alpha=args.alpha, dropout=args.dropout)

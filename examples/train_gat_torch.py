@@ -2,8 +2,10 @@
 
 Runs on the GPU (the fused GAT kernels); ``--device cpu`` runs the
 composed plain path on the CPU instead.  With no card and no ``--device
-cpu`` it exits with an error.  Datasets are the deterministic synthetic
-stand-ins the JAX package uses offline.
+cpu`` it exits with an error.  Datasets come from
+``data.CoraGraphDataset`` and the like, as in the JAX example: the
+planetoid files under ``$DGL_DOWNLOAD_DIR`` where present, else the
+synthetic stand-ins.
 """
 import argparse
 import json
@@ -35,8 +37,10 @@ def main():
     from dgl_hack_tpu_torch.models import GAT
     from dgl_hack_tpu_torch.models.training import train_node_classifier
 
-    ds = (data.synthetic_cora() if args.dataset == "synth"
-          else data.synthetic_citation(args.dataset))
+    ds = {"cora": data.CoraGraphDataset,
+          "citeseer": data.CiteseerGraphDataset,
+          "pubmed": data.PubmedGraphDataset,
+          "synth": data.synthetic_cora}[args.dataset]()
     device = torch.device(args.device)
     g = dt.prepare_spmm(ds.graph, device=device)
     model = GAT(hidden_feats=args.num_hidden, out_feats=ds.num_classes,

@@ -3,8 +3,9 @@
 Usage: python examples/train_gcn_torch.py --dataset cora --epochs 200
 Runs on the GPU (the CUDA kernels); ``--device cpu`` runs the kernels'
 plain versions on the CPU instead.  With no card and no ``--device cpu``
-it exits with an error.  Datasets are the deterministic synthetic
-stand-ins the JAX package uses offline.
+it exits with an error.  Datasets come from ``data.CoraGraphDataset``
+and the like, as in the JAX example: the planetoid files under
+``$DGL_DOWNLOAD_DIR`` where present, else the synthetic stand-ins.
 """
 import argparse
 import json
@@ -37,8 +38,10 @@ def main():
     from dgl_hack_tpu_torch.models import GCN
     from dgl_hack_tpu_torch.models.training import train_node_classifier
 
-    ds = (data.synthetic_cora() if args.dataset == "synth"
-          else data.synthetic_citation(args.dataset))
+    ds = {"cora": data.CoraGraphDataset,
+          "citeseer": data.CiteseerGraphDataset,
+          "pubmed": data.PubmedGraphDataset,
+          "synth": data.synthetic_cora}[args.dataset]()
     device = torch.device(args.device)
     g = ds.graph.to(device)
     if args.pallas:

@@ -11,8 +11,9 @@ Usage: python examples/train_sage_sampling_torch.py --num-epochs 3
        [--prefetch none|thread|pool] [--num-workers 2]
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead.  With no card and no ``--device cpu`` it exits with an
-error.  The dataset is the JAX example's stand-in for Reddit
-(``synthetic_reddit`` at ``--reddit-scale`` of its 232,965 nodes); the
+error.  The dataset is the JAX example's ``data.RedditDataset(scale=
+--reddit-scale)``: the Reddit npz files where present, else the stand-in
+at that share of its 232,965 nodes; the
 sampler and the loaders are seeded as there.  ``train`` is the loop, for
 callers that drive it themselves (``chip_smoke.py``).
 """
@@ -196,8 +197,8 @@ def main():
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("no CUDA device; pass --device cpu to run on the CPU")
 
-    from dgl_hack_tpu_torch.data import synthetic_reddit
-    ds = synthetic_reddit(num_nodes=int(232965 * args.reddit_scale))
+    from dgl_hack_tpu_torch.data import RedditDataset
+    ds = RedditDataset(scale=args.reddit_scale)
     res = train(ds, fanouts=[int(f) for f in args.fan_out.split(",")],
                 batch_size=args.batch_size, num_hidden=args.num_hidden,
                 lr=args.lr, dropout=args.dropout, aggregator=args.aggregator,

@@ -4,8 +4,9 @@ single SGConv layer, k-hop propagation then a linear model.
 Usage: python examples/train_sgc_torch.py --dataset cora --epochs 150
 Runs on the GPU (K1 for the propagation); ``--device cpu`` runs the
 kernels' plain versions on the CPU instead.  With no card and no
-``--device cpu`` it exits with an error.  Datasets are the deterministic
-synthetic stand-ins the JAX package uses offline.
+``--device cpu`` it exits with an error.  Datasets come from
+``data.CoraGraphDataset`` and the like, as in the JAX example (planetoid
+files where present, else the synthetic stand-ins).
 """
 import argparse
 import json
@@ -34,8 +35,10 @@ def main():
     from dgl_hack_tpu_torch.models.training import train_node_classifier
 
     torch.manual_seed(0)
-    ds = (data.synthetic_cora() if args.dataset == "synth"
-          else data.synthetic_citation(args.dataset))
+    ds = {"cora": data.CoraGraphDataset,
+          "citeseer": data.CiteseerGraphDataset,
+          "pubmed": data.PubmedGraphDataset,
+          "synth": data.synthetic_cora}[args.dataset]()
     g = dt.add_self_loop(dt.remove_self_loop(ds.graph))
     model = SGC(out_feats=ds.num_classes, k=args.k)
     res = train_node_classifier(

@@ -6,7 +6,8 @@ Runs on the GPU (K1 for the propagation); ``--device cpu`` runs the
 kernels' plain versions on the CPU instead.  With no card and no
 ``--device cpu`` it exits with an error.  ``--dataset synth`` is the JAX
 example's planted-partition stand-in (2,708 nodes, 256 features, 7
-classes); the others are the synthetic citation stand-ins.  Prints one
+classes); the others come from ``data.CoraGraphDataset`` and the like
+(planetoid files where present, else the synthetic stand-ins).  Prints one
 JSON line: {"dataset", "test_acc", "train_time_s", "epochs"}.
 """
 import argparse
@@ -44,7 +45,9 @@ def main():
                                     seed=args.seed, train_per_class=20,
                                     num_val=500, num_test=1000)
     else:
-        ds = data.synthetic_citation(args.dataset, seed=args.seed)
+        ds = {"cora": data.CoraGraphDataset,
+              "citeseer": data.CiteseerGraphDataset,
+              "pubmed": data.PubmedGraphDataset}[args.dataset]()
     model = TAGCN(args.hidden, ds.num_classes, k=args.k,
                   dropout=args.dropout)
     res = train_node_classifier(

@@ -24,7 +24,7 @@ from dgl_hack_tpu.core.message import pull as jpull
 from dgl_hack_tpu.core.traversal import topological_nodes_generator
 from dgl_hack_tpu.data import CoraGraphDataset
 
-from dgl_hack_tpu_torch.data import synthetic_citation
+from dgl_hack_tpu_torch.data import CoraGraphDataset as TorchCora
 
 torch.set_num_threads(2)
 
@@ -64,6 +64,7 @@ CLI_CASES = [
                             "2"]),
     ("train_lgnn_torch.py", ["--epochs", "1", "--graphs", "5"]),
     ("train_pointcloud_torch.py", ["--epochs", "1", "--clouds", "9"]),
+    ("train_cluster_gcn_torch.py", ["--epochs", "2", "--parts", "4"]),
 ]
 # the dataset name each CLI prints (the JAX twin's)
 DATASETS = {"train_gin_torch.py": "SBM-mixture",
@@ -113,7 +114,10 @@ NAMED_LINES = {
         {"model", "epochs", "test_acc", "train_time_s"}, {"model": "LGNN"}),
     "train_pointcloud_torch.py": (
         {"model", "epochs", "test_acc", "train_time_s"},
-        {"model": "DGCNN"})}
+        {"model": "DGCNN"}),
+    "train_cluster_gcn_torch.py": (
+        {"model", "parts", "epochs", "test_acc", "train_time_s"},
+        {"model": "ClusterGCN", "parts": 4, "epochs": 2})}
 SCRIPTS = [script for script, _ in CLI_CASES]
 REFUSE_ARGS = {"pagerank_torch.py": ["--iters", "1"]}
 
@@ -207,10 +211,11 @@ def test_example_cli_refuses_without_card(runs, script):
 
 
 def test_citation_standin_matches_jax(monkeypatch, tmp_path):
-    monkeypatch.setenv("DGL_TPU_DOWNLOAD_DIR", str(tmp_path))
+    monkeypatch.setenv("DGL_DOWNLOAD_DIR", str(tmp_path))
     with pytest.warns(UserWarning):
         dj = CoraGraphDataset()
-    dtt = synthetic_citation("cora")
+    with pytest.warns(UserWarning):
+        dtt = TorchCora()
     assert dj.name == dtt.name
     for name in ("features", "labels", "train_mask", "test_mask"):
         np.testing.assert_array_equal(getattr(dj, name), getattr(dtt, name))

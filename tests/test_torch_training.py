@@ -167,5 +167,8 @@ def test_port_imports_with_jax_blocked():
     for mod in ("core.batch", "core.transform", "ops.readout",
                 "data.graph_classification", "nn.glob", "nn.utils",
                 "nn.init", "data.rdf", "ops.rgcn", "core.heterograph",
-                "nn.hetero", "data.chem", "nn.conv_extra", "models.chem"):
+                "nn.hetero", "data.chem", "nn.conv_extra", "models.chem",
+                "data.citation", "data.karate", "data.io", "data.extra",
+                "utils.checkpoint", "utils.profiling", "partition",
+                "partition.partition", "core.biggraph"):
         assert f"dgl_hack_tpu_torch.{mod}" in names, mod
