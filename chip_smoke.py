@@ -223,7 +223,29 @@ Phases, one JSON line each:
      first part step's loss and gradients against a CPU copy (relu gates
      replayed); 2 + 5 epochs with the median step, peak memory, launches
      and one profiled step's device ms and busy share; the full-graph
-     evaluation of the last model through K1.
+     evaluation of the last model through K1;
+ 38. ``segment_ids`` (right after the build): the plain segment
+     reductions and ``bincount`` on the card with ids outside [0, n),
+     every reducer, against the CPU; ``kg_train``
+     (examples/train_kg_torch.py at DGL-KE's FB15k widths: TransE_l2,
+     hidden 400, batch 1,024, 256 negatives, chunk 64, on synthetic FB15k
+     at scale 0.1): dense, --sparse_emb and --async_update, 50 steps each,
+     the first 5 losses against a CPU copy, the step (CUDA events and host
+     clock), a profiled window (busy share, launches), peak memory and the
+     MRR; the three trainers timed again on random tables at FB15k's full
+     counts (14,951 entities, 1,345 relations); one step of each other
+     score function at hidden 400 against the CPU; ``eval_ranks`` of 512
+     triples at FB15k's full counts (TransE_l2 and l1) with peak memory;
+     ``kg_dist`` (the twin's 2 servers and 2 clients, 20 steps, row
+     gradients on the card) and a round trip over NativeTransport on two
+     local ports; ``dgmg_train`` (examples/train_dgmg_torch.py's model at
+     the DGMG class defaults: 48 traces, 5 Adam steps, the first loss
+     against the CPU, the first 3 losses against the same steps on the
+     card in float64, a profiled step; a trace that fills 32 nodes and 64
+     bonds, finite at the class's init, where it is chaotic, and against
+     the CPU with the propagation weights halved; 8 samples from
+     ``generate``).  None of these paths reaches a hand-written kernel; no
+     plain path may run on the card.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -241,7 +263,12 @@ within 2^-8 of the unpacked one, a packed GATConv within 2^-8 + GAT_TOL of the C
 (``PACKED_LOSS_TOL``, ``PACKED_LAYER_TOL``); a twin's first loss within
 LAYER_TOL of the CPU's; a Cluster-GCN part's first loss and gradients
 within LAYER_TOL of the CPU's; the fixture graphs' K1 within K1_TOL of
-float64; timed_loop within 25% of cuda_ms.  K1 (its
+float64; timed_loop within 25% of cuda_ms; the segment reductions with
+out-of-range ids within 1e-6 of the CPU (``bincount`` equal); the KG
+losses, tables and all-entity scores and the DGMG first loss within
+LAYER_TOL of the CPU, DGMG's first 3 Adam losses within LAYER_TOL of the
+card's float64 run, the full DGMG trace's NLL and gradients (with its
+propagation weights halved) within LAYER_TOL of the CPU.  K1 (its
 rows route too)
 and K5 <= 2e-5 against their plain versions run in float64 (the kernels'
 f32 sums); the slice's layers <= 1e-4 against the CPU (``LAYER_TOL``);
@@ -2289,43 +2316,69 @@ def _load_twin(name="train_sage_sampling_torch"):
     return mod
 
 
+class _Window:
+    """torch.profiler over a window of a training loop's steps: ``on_step``
+    (the loop's hook, called with the step's index after each step) starts
+    it at the sync after step ``first`` and stops it at the sync after step
+    ``last``; ``stats`` reads the kernels' summed device time (one stream,
+    so the sum is the busy time) against the window's wall time.  The
+    profiler's own cost lies inside the window, so ``window_ms_per_step``
+    beside the unprofiled step shows that cost."""
+
+    def __init__(self, first, last):
+        from torch.profiler import ProfilerActivity, profile
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.first, self.last = first, last
+        self.t0 = self.t1 = None
+
+    def on_step(self, n):
+        if n == self.first:
+            torch.cuda.synchronize()
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif n == self.last:
+            torch.cuda.synchronize()
+            self.t1 = time.perf_counter()
+            self.prof.stop()
+
+    def stats(self, phase):
+        """The window's wall and device ms (in all and a step), the busy
+        share and the host's (the rest of the window: the card idle,
+        waiting for the host), the kernel launches a step and the largest
+        kernels."""
+        rows = [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                for e in self.prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and e.self_device_time_total > 0]
+        if not rows:
+            raise SystemExit(f"{phase} failed: torch.profiler recorded no "
+                             "device time")
+        steps = self.last - self.first
+        wall = 1e3 * (self.t1 - self.t0)
+        dev_ms = sum(r[1] for r in rows)
+        rows.sort(key=lambda r: -r[1])
+        return {"window_hook_values": [self.first, self.last],
+                "steps": steps, "wall_ms": wall, "device_ms": dev_ms,
+                "window_ms_per_step": wall / steps,
+                "device_ms_per_step": dev_ms / steps,
+                "busy_share": dev_ms / wall, "host_share": 1.0 - dev_ms / wall,
+                "launches_per_step": sum(r[2] for r in rows) / steps,
+                "top": [{"name": n, "ms": ms, "calls": c}
+                        for n, ms, c in rows[:8]]}
+
+
 def _busy_share(twin, ds, dev, warm=2, steps=5, aggregator="mean", **kw):
     """The device's busy share over training steps ``warm + 1`` to
-    ``warm + steps`` of the twin's loop: torch.profiler
-    runs from the sync that ends step ``warm`` to the one that ends step
-    ``warm + steps``, and the kernels' summed device time (one stream, so
-    the sum is the busy time) is taken over that window's wall time.  The
-    dataset's upload, the model's set-up, the warm steps and evaluation
-    lie outside the window; the profiler's own cost lies inside it, so
-    ``window_ms_per_step`` beside the unprofiled step shows that cost.
+    ``warm + steps`` of the twin's loop (``_Window``; its ``on_step`` hook
+    is called with the count of steps done).  The dataset's upload, the
+    model's set-up, the warm steps and evaluation lie outside the window.
     ``kw`` goes to the twin's ``train`` (a prefetcher)."""
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    marks = {}
-
-    def on_step(n):
-        if n == warm:
-            prof.start()
-            marks["t0"] = time.perf_counter()
-        elif n == warm + steps:
-            marks["t1"] = time.perf_counter()
-            prof.stop()
+    win = _Window(warm, warm + steps)
     twin.train(ds, aggregator=aggregator, max_steps=warm + steps,
-               eval_batches=0, device=dev, log=None, on_step=on_step, **kw)
-    wall = 1e3 * (marks["t1"] - marks["t0"])
-    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if str(e.device_type).endswith("CUDA")) / 1e3
-    if dev_ms <= 0:
-        raise SystemExit("sage_sampling_train failed: torch.profiler "
-                         "recorded no device time")
-    top = sorted(((e.key[:80], e.self_device_time_total / 1e3)
-                  for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")
-                  and e.self_device_time_total > 0), key=lambda r: -r[1])
-    return {"window": f"steps {warm + 1}-{warm + steps}", "wall_ms": wall,
-            "window_ms_per_step": wall / steps, "device_ms": dev_ms,
-            "device_ms_per_step": dev_ms / steps, "busy_share": dev_ms / wall,
-            "top": [{"name": n, "ms": ms} for n, ms in top[:8]]}
+               eval_batches=0, device=dev, log=None, on_step=win.on_step,
+               **kw)
+    return win.stats("sage_sampling_train")
 
 
 class _HostSplit:
@@ -5491,40 +5544,20 @@ def _cluster_run(twin, sk, build, ds, batches, state, checks, dev, tag):
     then 2 + 5 epochs (launches counted; median step over the last 5
     epochs; peak memory), one step of the third epoch profiled (device ms
     by kernel and the busy share of that step)."""
-    from torch.profiler import ProfilerActivity, profile
     first = _cluster_first_step(twin, ds, batches[0], state, checks, dev,
                                 tag)
     n_parts = len(batches)
     warm = CLUSTER["warm_epochs"] * n_parts
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    marks = {}
-
-    def on_step(n):
-        if n == warm:
-            torch.cuda.synchronize()
-            prof.start()
-            marks["t0"] = time.perf_counter()
-        elif n == warm + 1:
-            marks["t1"] = time.perf_counter()
-            prof.stop()
+    win = _Window(warm, warm + 1)
     reset_peak_memory()
     build.LAUNCHES.reset()
     res = twin.train(ds, batches, hidden=CLUSTER["hidden"],
                      lr=CLUSTER["lr"], params=state,
                      epochs=CLUSTER["warm_epochs"] + CLUSTER["epochs"],
-                     device=dev, on_step=on_step)
+                     device=dev, on_step=win.on_step)
     torch.cuda.synchronize()
     counts = dict(build.LAUNCHES.counts)
     peak = torch.cuda.max_memory_allocated()
-    rows = sorted(((e.key[:80], e.self_device_time_total / 1e3)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
-    if not rows:
-        raise SystemExit(f"{tag} failed: torch.profiler recorded no device "
-                         "time")
-    dev_ms = sum(ms for _, ms in rows)
-    wall_ms = 1e3 * (marks["t1"] - marks["t0"])
     losses = res["losses"]
     rec = {"steps": len(losses), "first_step": first,
            "first_loss_equal_to_checked": losses[0] == first["loss"],
@@ -5533,10 +5566,7 @@ def _cluster_run(twin, sk, build, ds, batches, state, checks, dev, tag):
            "step_ms_min_max": [min(res["step_ms"][warm:]),
                                max(res["step_ms"][warm:])],
            "peak_memory_bytes": peak, "launches": counts,
-           "profiled_step": {"wall_ms": wall_ms, "device_ms": dev_ms,
-                             "busy_share": dev_ms / wall_ms,
-                             "top": [{"name": n, "ms": ms}
-                                     for n, ms in rows[:8]]}}
+           "profiled_step": win.stats(tag)}
     _check_training(tag, {"losses": losses[::n_parts]}, counts,
                     ("segment_sum.fwd", "segment_sum.rev"))
     return res, counts, rec
@@ -5622,6 +5652,555 @@ def phase_cluster_gcn_train(dt, build, sk, ds, checks, dev, timings):
     return total
 
 
+# ---------------------------------------------------------------------------
+# slice 16: segment ids, knowledge-graph embeddings, the distributed stack
+# and DGMG
+# ---------------------------------------------------------------------------
+def phase_segment_ids(dev):
+    """The plain segment reductions and ``bincount`` on the card with ids
+    outside [0, n): the re-anchor's probe (ids [0, 2, 3, -1] into 3
+    segments) and ids -1 and n among real ones, every reducer, each equal
+    to the CPU's result (which the tests hold to the JAX package's).
+    Without the repair an out-of-range index is a device-side assert that
+    ends the CUDA context."""
+    from dgl_hack_tpu_torch.ops import segment as seg
+    rng = np.random.default_rng(16)
+    ids = rng.integers(0, 5, 40).astype(np.int32)
+    ids[[1, 7]] = -1
+    ids[[3, 9]] = 5
+    cases = {"probe": (np.array([1.0, 2.0, 3.0, 4.0], np.float32),
+                       np.array([0, 2, 3, -1], np.int32), 3),
+             "mixed": (rng.uniform(0.5, 1.5, (40, 6)).astype(np.float32),
+                       ids, 5)}
+    out, bad = {}, []
+    for name, (data, idx, n) in cases.items():
+        for reducer in ("sum", "mean", "max", "min", "prod"):
+            ref = seg.segment_reduce(reducer, torch.from_numpy(data),
+                                     torch.from_numpy(idx), n)
+            got = seg.segment_reduce(
+                reducer, torch.from_numpy(data).to(dev),
+                torch.from_numpy(idx).to(dev), n).cpu()
+            err = rel_err(got, ref)
+            out[f"{name}.{reducer}"] = err
+            if not err <= 1e-6:
+                bad.append(f"{name} {reducer}: rel err {err}")
+        ref = seg.bincount(torch.from_numpy(idx), None, n)
+        got = seg.bincount(torch.from_numpy(idx).to(dev), None, n).cpu()
+        out[f"{name}.bincount"] = got.tolist() if name == "probe" else \
+            rel_err(got, ref)
+        if not torch.equal(got, ref):
+            bad.append(f"{name} bincount: {got.tolist()}")
+    torch.cuda.synchronize()
+    emit({"phase": "segment_ids", "rel_err_vs_cpu": out})
+    if bad or out["probe.bincount"] != [1.0, 0.0, 1.0]:
+        raise SystemExit("segment_ids failed: " + "; ".join(bad))
+
+
+KG = dict(model="TransE_l2", hidden=400, batch=1024, neg=256, chunk=64,
+          gamma=19.9, lr=0.25, scale=0.1, steps=50, warm=10, window=10,
+          eval_triples=500, check_batch=256)
+KG_FULL = dict(entities=14951, relations=1345, triples=512,
+               train_triples=483142)
+
+
+def _kg_args(ds, mode):
+    """The KG twin's ``train`` arguments at DGL-KE's FB15k widths for one
+    trainer (``mode``: dense, sparse or async)."""
+    return ((ds, KG["model"], KG["hidden"], KG["gamma"], KG["lr"],
+             KG["batch"], KG["neg"], KG["chunk"]),
+            dict(sparse_emb=mode == "sparse", async_update=mode == "async",
+                 log=None))
+
+
+def _kg_timed(twin, ds, mode, dev, phase):
+    """``KG['steps']`` steps of one trainer of the KG twin on the card: a
+    profiled window (``_Window``: busy share, launches), the median step
+    after that window from CUDA events recorded after each step (device
+    time between steps) and from the host clock (the loop's pace), and
+    peak memory.  Returns the twin's result and that record."""
+    args, kw = _kg_args(ds, mode)
+    win = _Window(KG["warm"] - 1, KG["warm"] + KG["window"] - 1)
+    events, host = [], []
+
+    def on_step(n):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        host.append(time.perf_counter())
+        win.on_step(n)
+    reset_peak_memory()
+    res = twin.train(*args, KG["steps"], device=dev, on_step=on_step, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    after = KG["warm"] + KG["window"]          # past the profiled window
+    gaps = [a.elapsed_time(b) for a, b in zip(events[after:],
+                                               events[after + 1:])]
+    return res, {"step_ms_median_events": float(np.median(gaps)),
+                 "step_ms_median_host":
+                     float(np.median(1e3 * np.diff(host[after:]))),
+                 "train_time_s": res["train_time_s"],
+                 "window": win.stats(phase), "peak_memory_bytes": peak}
+
+
+def _kg_mode(build, twin, ds, mode, checks, dev):
+    """One trainer of the KG twin at DGL-KE's FB15k widths: the first 5
+    losses against a CPU copy (same tables: ``KEModel`` draws on the CPU;
+    same batches), ``KG['steps']`` timed steps on the card
+    (``_kg_timed``; the loss must fall) and the MRR."""
+    from dgl_hack_tpu_torch.models.kg import eval_ranks
+    args, kw = _kg_args(ds, mode)
+    cpu = twin.train(*args, 5, device="cpu", **kw)
+    res, rec = _kg_timed(twin, ds, mode, dev, "kg_train")
+    _twin_checks(f"kg_train {mode}", res["losses"],
+                 dict(build.LAUNCHES.counts), need=(), window=3)
+    first = res["losses"][:5]
+    rel = float(np.max(np.abs(np.subtract(first, cpu["losses"]))
+                       / np.abs(cpu["losses"])))
+    checks.compare("kg", f"{mode} first losses", torch.tensor(first),
+                   torch.tensor(cpu["losses"]), LAYER_TOL)
+    te = ds.test
+    k = KG["eval_triples"]
+    t0 = time.perf_counter()
+    metrics = eval_ranks(res["model"], res["params"], te[0][:k], te[1][:k],
+                         te[2][:k])
+    return {"first_losses_rel_vs_cpu": rel,
+            "losses_first_last": [first[:3], res["losses"][-3:]], **rec,
+            "MRR": metrics["MRR"], "HITS@10": metrics["HITS@10"],
+            "eval_s": time.perf_counter() - t0}
+
+
+def _kg_full_steps(build, twin, dev):
+    """The three trainers' timed steps (``_kg_timed``) on tables at
+    FB15k's full counts (14,951 entities, 1,345 relations: the dense step
+    updates every row of both) with FB15k's 483,142 training triples drawn
+    at random over those ids: the data are random, so only finite losses
+    are asked of them."""
+    from dgl_hack_tpu_torch.data import KGDataset
+    rng = np.random.default_rng(8)
+    E, R = KG_FULL["entities"], KG_FULL["relations"]
+
+    def triples(n):
+        return (rng.integers(0, E, n), rng.integers(0, R, n),
+                rng.integers(0, E, n))
+    ds = KGDataset(E, R, triples(KG_FULL["train_triples"]), triples(0),
+                   triples(0), "FB15k-counts-random")
+    out = {}
+    for mode in ("dense", "sparse", "async"):
+        build.LAUNCHES.reset()
+        res, out[mode] = _kg_timed(twin, ds, mode, dev, "kg_train")
+        plain = {k: v for k, v in build.LAUNCHES.counts.items()
+                 if k.startswith("plain.")}
+        if plain or not np.isfinite(res["losses"]).all():
+            raise SystemExit(f"kg_train failed: full counts {mode}: losses "
+                             f"{res['losses']}, plain paths {plain}")
+        out[mode]["losses_first_last"] = [res["losses"][:3],
+                                          res["losses"][-3:]]
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kg_other_scores(ds, checks, dev):
+    """One dense Adagrad step of each other score function at hidden 400
+    (ComplEx and RotatE 800-wide entities, RESCAL's relation 400², TransR's
+    400 + 400·400): timed at the full batch on the card (CUDA events: a
+    step alone, the host's launches included, and queued behind a busy
+    card, its device time alone), and
+    the loss and both updated tables at ``check_batch`` triples against
+    the same step on the CPU from the same tables."""
+    from dgl_hack_tpu_torch.models import kg
+    out = {}
+    rng = np.random.default_rng(5)
+    h, r, t = ds.train
+    for name in ("TransE_l1", "DistMult", "ComplEx", "RESCAL", "RotatE",
+                 "TransR"):
+        rec = {}
+        for B in (KG["batch"], KG["check_batch"]):
+            sel = rng.integers(0, len(h), B)
+            neg = rng.integers(0, ds.num_entities,
+                               (B // KG["chunk"], KG["neg"]))
+            batch = [torch.from_numpy(np.asarray(x)) for x in
+                     (h[sel], r[sel], t[sel], neg)]
+            runs = {}
+            for device in ((dev, "cpu") if B == KG["check_batch"]
+                           else (dev,)):
+                model = kg.KEModel(ds.num_entities, ds.num_relations,
+                                   KG["hidden"], name, gamma=KG["gamma"],
+                                   device=device)
+                tx = kg.adagrad(KG["lr"])
+                state = tx.init(model.params)
+                step = kg.make_train_step(model, tx, KG["chunk"])
+                b = [x.to(device) for x in batch]
+                if B == KG["batch"]:
+                    def one():
+                        step(model.params, state, *b, False)
+                    rec["ms"] = cuda_ms(one, reps=5, one_launch=True)
+                    rec["device_ms"] = cuda_ms(one, reps=5, queued=True)
+                    rec["relation_width"] = model.params["relation"].shape[1]
+                    break
+                p, _, loss = step(model.params, state, *b, True)
+                runs[device if device == "cpu" else "cuda"] = (p, loss)
+            if runs:
+                (pc, lc), (pd, ld) = runs["cpu"], runs["cuda"]
+                rec["loss_rel_vs_cpu"] = checks.compare(
+                    "kg", f"{name} loss", ld.cpu(), lc, LAYER_TOL)
+                rec["tables_rel_vs_cpu"] = max(
+                    checks.compare("kg", f"{name} {k}", pd[k].cpu(), pc[k],
+                                   LAYER_TOL) for k in pc)
+            del runs
+        out[name] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kg_full_eval(checks, dev):
+    """``eval_ranks`` of KG_FULL['triples'] random triples on random tables
+    at FB15k's full counts (hidden 400): TransE_l2 (one product against the
+    unbroadcast table) and TransE_l1 (chunks of entities), each timed
+    (host clock, ending in the ranking on the host) with its peak memory,
+    and the first 64 rows' scores against the CPU's."""
+    from dgl_hack_tpu_torch.models import kg
+    rng = np.random.default_rng(6)
+    n = KG_FULL["triples"]
+    trip = [rng.integers(0, KG_FULL["entities"], n),
+            rng.integers(0, KG_FULL["relations"], n),
+            rng.integers(0, KG_FULL["entities"], n)]
+    out = {}
+    for name in ("TransE_l2", "TransE_l1"):
+        model = kg.KEModel(KG_FULL["entities"], KG_FULL["relations"],
+                           KG["hidden"], name, gamma=KG["gamma"], device=dev)
+        eval_ranks = kg.eval_ranks
+        eval_ranks(model, model.params, *(x[:8] for x in trip))   # warm-up
+        torch.cuda.synchronize()
+        reset_peak_memory()
+        t0 = time.perf_counter()
+        m = eval_ranks(model, model.params, *trip, batch=512)
+        s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        cpu = {k: v.cpu() for k, v in model.params.items()}
+        hr = [torch.from_numpy(x[:64]) for x in trip[:2]]
+        with torch.no_grad():
+            ref = model.predict_all_tails(cpu, *hr)
+            got = model.predict_all_tails(model.params,
+                                          *(x.to(dev) for x in hr)).cpu()
+        out[name] = {"seconds": s, "peak_memory_bytes": peak,
+                     "MRR": m["MRR"],
+                     "scores_rel_vs_cpu": checks.compare(
+                         "kg", f"{name} all tails", got, ref, LAYER_TOL)}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kg_train(build, checks, dev):
+    """examples/train_kg_torch.py at DGL-KE's published FB15k widths
+    (examples/train_kg.py:3-4: TransE_l2, hidden 400, batch 1,024, 256
+    negatives in chunks of 64, gamma 19.9, lr 0.25) on synthetic FB15k at
+    the example's default scale 0.1: dense (optax's Adagrad), --sparse_emb
+    and --async_update, 50 steps each (``_kg_mode``); the same three
+    trainers timed on tables at FB15k's full counts (``_kg_full_steps``);
+    one step of each other score function (``_kg_other_scores``);
+    ``eval_ranks`` at FB15k's full counts (``_kg_full_eval``).  No hand-written kernel is on these
+    paths; no plain path may run on the card."""
+    from dgl_hack_tpu_torch.data import load_kg_dataset
+    twin = _load_twin("train_kg_torch")
+    t0 = time.perf_counter()
+    ds = load_kg_dataset("FB15k-synth", scale=KG["scale"])
+    data_s = time.perf_counter() - t0
+    build.LAUNCHES.reset()
+    rec = {mode: _kg_mode(build, twin, ds, mode, checks, dev)
+           for mode in ("dense", "sparse", "async")}
+    counts = dict(build.LAUNCHES.counts)
+    rec["full_counts_steps"] = _kg_full_steps(build, twin, dev)
+    rec["other_scores"] = _kg_other_scores(ds, checks, dev)
+    rec["full_counts_eval"] = _kg_full_eval(checks, dev)
+    emit({"phase": "kg_train", **{k: KG[k] for k in ("model", "hidden",
+                                                      "batch", "neg", "chunk",
+                                                      "steps")},
+          "entities": ds.num_entities, "relations": ds.num_relations,
+          "train_triples": len(ds.train[0]), "data_s": data_s,
+          "launches": counts, "tolerance": LAYER_TOL, **rec})
+    checks.raise_if_failed("kg_train")
+    for mode in ("dense", "sparse", "async"):
+        if not rec[mode]["MRR"] > 0:
+            raise SystemExit(f"kg_train failed: {mode} MRR {rec[mode]['MRR']}")
+    return ds
+
+
+def _free_port_pair(gap, tries=64):
+    """A local port ``p`` that the OS hands out with ``p + gap`` free
+    too (``make_transports`` listens on both): each is bound once to
+    prove it."""
+    import socket
+    for _ in range(tries):
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            base = a.getsockname()[1]
+            if base + gap > 65535:
+                continue
+            with socket.socket() as b:
+                try:
+                    b.bind(("127.0.0.1", base + gap))
+                except OSError:
+                    continue
+        return base
+    raise SystemExit(f"kg_dist failed: no free local ports p and p + {gap} "
+                     f"in {tries} tries")
+
+
+def _native_round_trip(rows=1024, width=400):
+    """One push and one pull of ``rows`` rows over NativeTransport on two
+    local ports (the port's netcomm.cpp, built here with g++): the pulled
+    rows equal the pushed sums, with the build's and the round trip's
+    seconds."""
+    import threading
+    from dgl_hack_tpu_torch import native
+    from dgl_hack_tpu_torch.distributed import (KVClient, KVServer,
+                                                make_transports)
+    t0 = time.perf_counter()
+    native.get_net_lib()
+    build_s = time.perf_counter() - t0
+    base = _free_port_pair(100)
+    st, ct = make_transports(1, 1, base_port=base)
+    box = {}
+
+    def serve():
+        sv = KVServer(0, 1, transport=st(0))
+        sv.init_data("emb", np.zeros((4 * rows, width), np.float32))
+        sv.start()
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    c = KVClient(0, 1, transport=ct(0))
+    c.set_partition_book("emb", np.zeros(4 * rows, np.int64))
+    ids = np.arange(0, 4 * rows, 4)
+    vals = np.random.default_rng(0).normal(size=(rows, width)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    c.push("emb", ids, vals)
+    box["got"] = c.pull("emb", ids)
+    rt_s = time.perf_counter() - t0
+    c.shutdown()
+    th.join(30)
+    ok = (not th.is_alive()) and np.array_equal(box["got"], vals)
+    return {"transport": type(c.net).__name__, "ports": [base, base + 100],
+            "library": native.NET_BUILD_INFO.get("path"),
+            "build_s": build_s, "round_trip_s": rt_s,
+            "bytes_each_way": int(vals.nbytes), "equal": ok}
+
+
+def phase_kg_dist(build, ds, dev):
+    """examples/train_kg_dist_torch.py's loop (2 servers and 2 clients,
+    threads over the loopback transport, the twin's widths: hidden 64,
+    batch 512, 64 negatives) on ``kg_train``'s dataset, 20 steps a client,
+    the row gradients on the card: the losses, the step ms and the MRR;
+    then a round trip over NativeTransport (``_native_round_trip``)."""
+    from dgl_hack_tpu_torch.models.kg import eval_ranks
+    twin = _load_twin("train_kg_dist_torch")
+    build.LAUNCHES.reset()
+    res = twin.train(ds, steps=20, device=dev)
+    counts = dict(build.LAUNCHES.counts)
+    for losses in res["losses"]:
+        _twin_checks("kg_dist", losses, counts, need=(), window=5)
+    te = ds.test
+    m = eval_ranks(res["model"], res["params"], te[0][:500], te[1][:500],
+                   te[2][:500])
+    tcp = _native_round_trip()
+    emit({"phase": "kg_dist", "servers": 2, "clients": 2, "steps": 20,
+          "losses_first_last": [[l[:3], l[-3:]] for l in res["losses"]],
+          "train_time_s": res["train_time_s"],
+          "ms_per_client_step": 1e3 * res["train_time_s"] / 20,
+          "MRR": m["MRR"], "launches": counts, "native_tcp": tcp})
+    if not tcp["equal"]:
+        raise SystemExit(f"kg_dist failed: NativeTransport round trip {tcp}")
+
+
+DGMG = dict(hidden=128, rounds=2, max_nodes=32, max_edges=64, traces=48,
+            steps=5, held_steps=3, lr=3e-3, samples=8, prop_scale=0.5,
+            nudge=1e-12)
+
+
+def _full_trace(V, E):
+    """A molecule of exactly V atoms and E bonds: a path, then bonds
+    (i, i + 2), then (i, i + 3), until E."""
+    bonds = [(i, i + 1) for i in range(V - 1)]
+    bonds += [(i, i + k) for k in (2, 3, 4) for i in range(V - k)]
+    src, dst = np.array(bonds[:E]).T
+    rng = np.random.default_rng(7)
+    return rng.integers(0, 2, V), src, dst, rng.integers(0, 2, E)
+
+
+def _dgmg_nll_grads(model, st, lb, device, dtype, scale=1.0):
+    """The NLL of one trace and every parameter's gradient, on ``device``
+    in ``dtype``, the model's weights multiplied by ``scale`` (a float or
+    a name -> factor function)."""
+    m = copy.deepcopy(model).to(device=device, dtype=dtype)
+    with torch.no_grad():
+        for k, p in m.named_parameters():
+            p.mul_(scale(k) if callable(scale) else scale)
+    nll = m(torch.from_numpy(st).to(device), torch.from_numpy(lb).to(device))
+    nll.backward()
+    return nll.detach().cpu(), {k: p.grad.cpu()
+                                for k, p in m.named_parameters()}
+
+
+def _dgmg_full_trace(model, dev, checks):
+    """One trace that fills 32 nodes and 64 bonds exactly (every write at
+    capacity dropped, every read clamped).  At the class's init its NLL is
+    chaotic: the record shows the card's float64 NLL moved by weights
+    nudged by DGMG['nudge'] (relative) and its float32 NLL's distance from
+    float64; there it must be finite with finite gradients.  With the
+    propagation weights (msg_fns, upd_fns) scaled by DGMG['prop_scale']
+    the trace is well conditioned, and the card's float32 NLL and every
+    gradient are held to the CPU's within LAYER_TOL (of the largest
+    gradient)."""
+    from dgl_hack_tpu_torch.models.dgmg import build_action_trace
+    V, E = DGMG["max_nodes"], DGMG["max_edges"]
+    st, lb = build_action_trace(*_full_trace(V, E), 2 * V + 2 * E + 2)
+    n64, g64 = _dgmg_nll_grads(model, st, lb, dev, torch.float64)
+    n_nudged, _ = _dgmg_nll_grads(model, st, lb, dev, torch.float64,
+                                  1.0 + DGMG["nudge"])
+    n32, g32 = _dgmg_nll_grads(model, st, lb, dev, torch.float32)
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (n64, n32, *g64.values(), *g32.values()))
+    if not finite:
+        checks.failures.append("dgmg full trace at init: not finite")
+
+    def prop(k):
+        return DGMG["prop_scale"] if k.startswith(("msg_fns", "upd_fns")) \
+            and "weight" in k else 1.0
+    nd, gd = _dgmg_nll_grads(model, st, lb, dev, torch.float32, prop)
+    nc, gc = _dgmg_nll_grads(model, st, lb, "cpu", torch.float32, prop)
+    nll_rel = checks.compare("dgmg", "full trace nll", nd, nc, LAYER_TOL)
+    scale = max(float(g.abs().max()) for g in gc.values())
+    grad_rel = max(float((gd[k] - gc[k]).abs().max()) for k in gc) / scale
+    if not (grad_rel <= LAYER_TOL and bool(torch.isfinite(nd))):
+        checks.failures.append(f"dgmg full trace: grad rel err {grad_rel}")
+    return {"steps": int((st != 3).sum()),
+            "at_init": {"float64_nll": float(n64),
+                        "float64_nll_moved_by_nudge":
+                            abs(float(n_nudged) - float(n64))
+                            / abs(float(n64)),
+                        "float32_nll_rel_vs_float64":
+                            abs(float(n32) - float(n64)) / abs(float(n64)),
+                        "finite": finite},
+            "prop_scaled": {"nll": float(nd), "nll_rel_vs_cpu": nll_rel,
+                            "grad_rel_vs_cpu": grad_rel}}
+
+
+def _dgmg_held_steps(init, snaps, losses, st, lb, dev, checks):
+    """The first DGMG['held_steps'] Adam steps of the card's float32 run,
+    each held to float64 on the card from the same parameters (the run's
+    own, captured after each step): the loss within LAYER_TOL and every
+    gradient within LAYER_TOL of the largest.  Beside them, how far a
+    float64 nudge of DGMG['nudge'] (relative) of those parameters moves
+    the loss: the conditioning that the tolerance leans on."""
+    out = []
+    params = [dict(init.named_parameters())] + [p for _, p in snaps[:-1]]
+    for k, (grads, _) in enumerate(snaps):
+        m = copy.deepcopy(init).to(dev, torch.float64)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                p.copy_(params[k][name])
+        loss = m(st, lb).mean()
+        loss.backward()
+        loss = loss.detach()
+        with torch.no_grad():
+            for p in m.parameters():
+                p.mul_(1.0 + DGMG["nudge"])
+            nudged = float(m(st, lb).mean())
+        scale = max(float(p.grad.abs().max()) for p in m.parameters())
+        grad_rel = max(float((grads[name].double() - p.grad).abs().max())
+                       for name, p in m.named_parameters()) / scale
+        loss_rel = checks.compare("dgmg", f"Adam step {k + 1} loss vs "
+                                  "float64", torch.tensor([losses[k]]),
+                                  loss.cpu()[None], LAYER_TOL)
+        if not grad_rel <= LAYER_TOL:
+            checks.failures.append(f"dgmg Adam step {k + 1} gradients vs "
+                                   f"float64: rel err {grad_rel}")
+        out.append({"loss_rel_vs_float64": loss_rel,
+                    "grad_rel_vs_float64": grad_rel,
+                    "float64_loss_moved_by_nudge":
+                        abs(nudged - float(loss)) / abs(float(loss))})
+        del m
+    return out
+
+
+def phase_dgmg_train(build, checks, dev):
+    """examples/train_dgmg_torch.py's model at the DGMG class's default
+    widths (hidden 128, 2 propagation rounds, 32 nodes, 64 bonds), 2 node
+    and 2 bond types: the twin's traces for 48 molecules of up to 30 atoms
+    (the twin's toy world at these capacities), 5 full-batch Adam steps
+    (the first loss against a CPU copy's forward from the same
+    parameters; the first DGMG['held_steps'] steps against float64 from
+    the same parameters, ``_dgmg_held_steps``; step ms; a profiled step:
+    busy share and launches); the same 5 steps run on in float64 from the
+    same init (recorded: past the first step the two runs part, the
+    witness of what the later steps do); the trace that fills both
+    capacities (``_dgmg_full_trace``); 8 samples from ``generate`` and the
+    share that is structurally valid."""
+    twin = _load_twin("train_dgmg_torch")
+    V, E = DGMG["max_nodes"], DGMG["max_edges"]
+    sts, lbs = twin.make_traces(DGMG["traces"], V, E)
+    live = int((sts != 3).sum(1).max())
+    init = twin.make_model(DGMG["hidden"], V, E, device="cpu")
+    t_sts, t_lbs = (torch.from_numpy(x) for x in twin.trim(sts, lbs))
+    with torch.no_grad():
+        cpu_loss = init(t_sts, t_lbs).mean()
+    win = _Window(DGMG["held_steps"], DGMG["held_steps"] + 1)
+    card = copy.deepcopy(init).to(dev)
+    snaps = []          # (gradients of step k, parameters after step k)
+
+    def on_step(n):
+        torch.cuda.synchronize()
+        if n < DGMG["held_steps"]:
+            snaps.append(tuple({k: getattr(p, what).detach().clone()
+                                for k, p in card.named_parameters()}
+                               for what in ("grad", "data")))
+        win.on_step(n)
+    build.LAUNCHES.reset()
+    reset_peak_memory()
+    res = twin.train(card, sts, lbs, DGMG["steps"], DGMG["lr"], device=dev,
+                     on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(build.LAUNCHES.counts)
+    losses = res["losses"]
+    rel = checks.compare("dgmg", "first loss", torch.tensor(losses[:1]),
+                         cpu_loss[None], LAYER_TOL)
+    held = _dgmg_held_steps(init, snaps, losses, t_sts.to(dev),
+                            t_lbs.to(dev), dev, checks)
+    del snaps
+    res64 = twin.train(copy.deepcopy(init).to(dev, torch.float64), sts, lbs,
+                       DGMG["steps"], DGMG["lr"], device=dev)
+    l32, l64 = np.array(losses), np.array(res64["losses"])
+    # the example's lr (3e-3) at the class widths: the first Adam step
+    # lowers the NLL; what later steps do, float64 witnesses
+    if not (np.isfinite(losses).all() and losses[1] < losses[0]):
+        checks.failures.append(f"dgmg losses {losses}")
+    plain = {k: v for k, v in counts.items() if k.startswith("plain.")}
+    if plain:
+        checks.failures.append(f"dgmg: plain path ran on CUDA: {plain}")
+    full = _dgmg_full_trace(init, dev, checks)
+    t0 = time.perf_counter()
+    out, frac = twin.sample(card, DGMG["samples"])
+    gen_s = time.perf_counter() - t0
+    emit({"phase": "dgmg_train", **DGMG, "live_steps_max": live,
+          "trace_steps": int(sts.shape[1]), "losses": losses,
+          "first_loss_rel_vs_cpu": rel, "held_steps_vs_float64": held,
+          "float64_run_losses": res64["losses"],
+          "float32_run_rel_vs_float64_run":
+              (np.abs(l32 - l64) / np.abs(l64)).tolist(),
+          "step_ms": res["step_ms"],
+          "step_ms_median_after_first": float(np.median(res["step_ms"][1:])),
+          "float64_step_ms_median_after_first":
+              float(np.median(res64["step_ms"][1:])),
+          "profiled_step": win.stats("dgmg_train"),
+          "peak_memory_bytes": peak, "launches": counts,
+          "full_trace": full,
+          "generate": {"seconds": gen_s, "valid_frac": frac,
+                       "num_nodes": out["num_nodes"].tolist(),
+                       "num_edges": out["num_edges"].tolist()}})
+    checks.raise_if_failed("dgmg_train")
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -5666,6 +6245,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     card = phase_build(build)
+    phase_segment_ids(dev)
     checks = Checks()
     timings = {}
     g_small, g_bench, plan_edges = phase_k1(dt, sk, checks, dev)
@@ -5735,6 +6315,9 @@ def main() -> int:
     c_chem = phase_chem_train(dt, build, sk, checks, dev)
     c_chem_twins = phase_chem_twins(build, checks, dev)
     c_small = phase_small_twins(build, checks, dev)
+    kg_ds = phase_kg_train(build, checks, dev)
+    phase_kg_dist(build, kg_ds, dev)
+    phase_dgmg_train(build, checks, dev)
     phase_entry(dt, dev)
 
     runs = (c_gcn, c_gat, c_sage, c_tf, c_prop, c_gin, c_sampled, c_rgcn,

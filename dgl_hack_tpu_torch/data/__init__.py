@@ -13,6 +13,7 @@ from .graph_classification import (GraphClassificationDataset,
                                    TUDatasetSynthetic, sbm_mixture)
 from .io import load_graphs, load_heterograph, save_graphs, save_heterograph
 from .karate import KarateClubDataset
+from .kg import KGDataset, load_kg_dataset, synthetic_kg
 from .rdf import (AIFBDataset, AMDataset, BGSDataset, MUTAGDataset,
                   RDFDataset, load_rdf_dataset, synthetic_rdf)
 from .synthetic import (NodeClassificationDataset, planted_partition,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.graph import _STRUCT, Graph
+from .dis_sampler import SamplerPool
 
 _JOIN_S = 60.0
 
@@ -183,24 +184,6 @@ def prefetch_to_device(loader: Iterable, capacity: int = 2, device="cuda"):
                               device=device)
 
 
-class _SamplerPool:
-    """``num_workers`` threads, thread i running ``worker_fn(i)`` to its
-    end (``dis_sampler.SamplerPool``'s thread mode)."""
-
-    def __init__(self, num_workers: int, worker_fn: Callable[[int], None]):
-        self.workers = [threading.Thread(target=worker_fn, args=(i,),
-                                         daemon=True)
-                        for i in range(num_workers)]
-
-    def start(self) -> None:
-        for t in self.workers:
-            t.start()
-
-    def join(self, timeout: Optional[float] = None) -> None:
-        for t in self.workers:
-            t.join(timeout)
-
-
 class PooledPrefetcher:
     """``num_workers`` sampling threads, each iterating its own loader
     (``make_loader(worker_id)``: give each its own seed shard and its own
@@ -235,7 +218,7 @@ class PooledPrefetcher:
             _Worker(loader, q, self._SENTINEL, stop, errors, self._device,
                     consumer)()
 
-        pool = _SamplerPool(self._num_workers, worker)
+        pool = SamplerPool(self._num_workers, worker)
         pool.start()
         try:
             done = 0

@@ -30,6 +30,13 @@ named in the parent's scope (``Dense_1``, ``GraphConv_0``); the port's
 models hold them under those names, so the keys match without a
 mapping.
 
+``kg_params_from_jax`` takes a JAX ``KEModel``'s tables (``{"entity",
+"relation"}``) and, if given, its Adagrad state (the sparse trainer's
+``{"ent_sum", "rel_sum"}``, or ``optax.adagrad``'s state, whose
+``sum_of_squares`` holds one accumulator per table entry) to the port's
+tensors: the JAX tables come from ``jax.random.uniform``, which the port
+cannot draw.
+
 A bipartite ``GATConv``'s ``fc_src`` and ``fc_dst`` are Denses like any
 other, both ways; the port's ``GATConv`` takes that layout when it loads a
 state dict holding ``fc_src`` (``nn/conv.py``).  A block-list
@@ -183,3 +190,21 @@ def norm_module_names(model: torch.nn.Module):
     ``LayerNorm``)."""
     return [n for n, m in model.named_modules()
             if isinstance(m, torch.nn.LayerNorm)]
+
+
+def kg_params_from_jax(params: Mapping, state=None, device="cpu"):
+    """A JAX ``KEModel``'s tables, and its Adagrad state if given, as the
+    port's float32 tensors on ``device``: returns (params, state), state
+    None when none was given.  ``state`` is the sparse trainer's dict
+    (``ent_sum``/``rel_sum``) or optax's Adagrad state (a tuple whose
+    first member has ``sum_of_squares``, a dict of the tables' shapes)."""
+    def tensor(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+    tables = {k: tensor(params[k]) for k in ("entity", "relation")}
+    if state is None:
+        return tables, None
+    if isinstance(state, Mapping):
+        return tables, {k: tensor(v) for k, v in state.items()}
+    sums = next(s.sum_of_squares for s in state
+                if hasattr(s, "sum_of_squares"))
+    return tables, {k: tensor(sums[k]) for k in ("entity", "relation")}

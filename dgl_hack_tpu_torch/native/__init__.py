@@ -1,4 +1,5 @@
-"""ctypes loader for the host sampler, as ``dgl_hack_tpu.native``.
+"""ctypes loader for the host libraries, as ``dgl_hack_tpu.native``: the
+sampler (``get_lib``) and the TCP transport (``get_net_lib``).
 
 ``fastgraph.cpp`` beside this file is the port's own copy of the JAX
 package's C++/OpenMP host kernels: row-wise neighbor sampling with and
@@ -15,7 +16,16 @@ retried without ``-fopenmp``, and
 under a temporary name and renamed into place, so that processes building
 at once never load a half-written file.  If neither build succeeds,
 ``get_lib`` raises with the compiler's messages: the samplers have no
-other path.  Nothing here runs at import.
+other path.
+
+``netcomm.cpp`` is the port's copy of the JAX package's TCP message
+transport (one connection per receiver, a reader thread per connection,
+length-framed messages into a blocking queue), which
+``distributed/kvstore.py``'s ``NativeTransport`` drives.  ``get_net_lib``
+builds it the same way (``-lpthread``, no OpenMP) into
+``libnetcomm_<hash>.so``; a failed build raises with the compiler's
+messages, where the JAX loader returns None and its key-value store falls
+back to an in-process loopback.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import numpy as np
 from ..ops.cuda.build import BUILD_DIR
 
 SRC = Path(__file__).resolve().with_name("fastgraph.cpp")
+NET_SRC = SRC.with_name("netcomm.cpp")
 FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -60,18 +71,40 @@ SIGNATURES = {
                                   _I32P]),
 }
 
+_C = ctypes
+# (restype, argtypes) of the C entry points in netcomm.cpp
+NET_SIGNATURES = {
+    # port, num_senders -> receiver handle or -1
+    "nc_receiver_create": (_C.c_int64, [_C.c_int, _C.c_int]),
+    "nc_receiver_wait_connected": (_C.c_int, [_C.c_int64, _C.c_int]),
+    # void* out-pointer: c_char_p would stop at the first NUL byte
+    "nc_recv": (_C.c_int64, [_C.c_int64, _C.POINTER(_C.c_void_p),
+                             _C.POINTER(_C.c_int)]),
+    "nc_free": (None, [_C.c_void_p]),
+    "nc_receiver_destroy": (None, [_C.c_int64]),
+    # ips, ports, n, my_id, timeout_ms -> sender handle or -1
+    "nc_sender_create": (_C.c_int64, [_C.POINTER(_C.c_char_p),
+                                      _C.POINTER(_C.c_int), _C.c_int,
+                                      _C.c_int, _C.c_int]),
+    "nc_send": (_C.c_int, [_C.c_int64, _C.c_int, _C.c_char_p, _C.c_int64]),
+    "nc_sender_destroy": (None, [_C.c_int64]),
+}
+
 _lock = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_NET_LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
+NET_BUILD_INFO: Dict[str, object] = {}
 
 
-def _compile(so: Path, openmp: bool) -> Optional[str]:
-    """Compile SRC into ``so`` through a temporary file; None on success,
-    else the compiler's messages."""
+def _compile(so: Path, openmp: bool, src: Path = SRC,
+             libs: Tuple[str, ...] = ()) -> Optional[str]:
+    """Compile ``src`` into ``so`` through a temporary file; None on
+    success, else the compiler's messages."""
     tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}"
                        ".tmp")
-    cmd = ["g++", *FLAGS, *(["-fopenmp"] if openmp else []), str(SRC),
-           "-o", str(tmp)]
+    cmd = ["g++", *FLAGS, *(["-fopenmp"] if openmp else []), str(src),
+           "-o", str(tmp), *libs]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -103,6 +136,35 @@ def build_library(build_dir: Path = BUILD_DIR) -> Tuple[Path, bool]:
                        + "\n".join(errors))
 
 
+NET_LIBS = ("-lpthread",)
+
+
+def build_net_library(build_dir: Path = BUILD_DIR) -> Path:
+    """The transport library built from NET_SRC in ``build_dir`` (built
+    there if missing).  Raises RuntimeError with the compiler's messages
+    if the build fails."""
+    digest = hashlib.sha256(NET_SRC.read_bytes())
+    digest.update(" ".join(FLAGS + list(NET_LIBS)).encode())
+    so = build_dir / f"libnetcomm_{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    build_dir.mkdir(parents=True, exist_ok=True)
+    err = _compile(so, False, NET_SRC, NET_LIBS)
+    if err is not None:
+        raise RuntimeError("the TCP transport (netcomm.cpp) did not build:\n"
+                           + err)
+    return so
+
+
+def _load(so: Path, signatures) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
 def get_lib() -> ctypes.CDLL:
     """Build (once per source hash) and load the host sampler library."""
     global _LIB
@@ -110,15 +172,23 @@ def get_lib() -> ctypes.CDLL:
         if _LIB is None:
             t0 = time.perf_counter()
             so, openmp = build_library()
-            lib = ctypes.CDLL(str(so))
-            for name, (restype, argtypes) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
+            _LIB = _load(so, SIGNATURES)
             BUILD_INFO.update(path=str(so), openmp=openmp,
                               seconds=time.perf_counter() - t0)
-            _LIB = lib
         return _LIB
+
+
+def get_net_lib() -> ctypes.CDLL:
+    """Build (once per source hash) and load the TCP transport library."""
+    global _NET_LIB
+    with _lock:
+        if _NET_LIB is None:
+            t0 = time.perf_counter()
+            so = build_net_library()
+            _NET_LIB = _load(so, NET_SIGNATURES)
+            NET_BUILD_INFO.update(path=str(so),
+                                  seconds=time.perf_counter() - t0)
+        return _NET_LIB
 
 
 def _ptr(a: np.ndarray, typ):

@@ -8,7 +8,13 @@ Conventions match the JAX package (and DGL):
 * ``prod`` over an empty segment gives 1;
 * integer data take the dtype's limits where float data take +-inf, so an
   empty integer segment gives ``iinfo.min`` (max) or ``iinfo.max`` (min),
-  as ``jax.ops.segment_max``/``segment_min`` give it.
+  as ``jax.ops.segment_max``/``segment_min`` give it;
+* ids outside ``[0, num_segments)`` are dropped, as ``jax.ops.segment_*``
+  drop them: each reduction writes into one spare row past the end, where
+  every such id is sent by a ``torch.where``, and cuts it off, so that no
+  id is checked on the host and none reaches ``index_add`` or
+  ``scatter_reduce`` out of range (on the card that would be a
+  device-side assert).
 """
 from __future__ import annotations
 
@@ -36,18 +42,28 @@ def _highest(dtype: torch.dtype):
     return float("inf") if dtype.is_floating_point else torch.iinfo(dtype).max
 
 
+def _in_range(segment_ids: Tensor, num_segments: int) -> Tensor:
+    """``segment_ids`` with every id outside ``[0, num_segments)`` sent to
+    the spare row ``num_segments``."""
+    ok = (segment_ids >= 0) & (segment_ids < num_segments)
+    return torch.where(ok, segment_ids, num_segments)
+
+
 def _scatter(data: Tensor, segment_ids: Tensor, num_segments: int,
              how: str, init: float) -> Tensor:
-    out = torch.full((num_segments,) + tuple(data.shape[1:]), init,
+    out = torch.full((num_segments + 1,) + tuple(data.shape[1:]), init,
                      dtype=data.dtype, device=data.device)
-    idx = _expand(segment_ids.long(), data).expand_as(data)
-    return out.scatter_reduce(0, idx, data, how, include_self=True)
+    idx = _in_range(segment_ids.long(), num_segments)
+    idx = _expand(idx, data).expand_as(data)
+    return out.scatter_reduce(0, idx, data, how,
+                              include_self=True)[:num_segments]
 
 
 def segment_sum(data: Tensor, segment_ids: Tensor,
                 num_segments: int) -> Tensor:
-    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add(0, segment_ids, data)
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    return out.index_add(0, _in_range(segment_ids, num_segments),
+                         data)[:num_segments]
 
 
 def segment_mean(data: Tensor, segment_ids: Tensor,
@@ -130,8 +146,9 @@ def segment_reduce(reducer: str, data: Tensor, segment_ids: Tensor,
 
 def bincount(ids: Tensor, weights: Optional[Tensor], length: int) -> Tensor:
     """float32 counts of each id in ``[0, length)``, or the sums of
-    ``weights`` per id (``jax.ops.segment_sum`` in the JAX package, which
-    is no TPU kernel; plain torch on either device)."""
+    ``weights`` per id; other ids are dropped (``jax.ops.segment_sum`` in
+    the JAX package, which is no TPU kernel; plain torch on either
+    device)."""
     w = torch.ones(ids.shape, dtype=torch.float32, device=ids.device) \
         if weights is None else weights
     return segment_sum(w, ids.long(), length)

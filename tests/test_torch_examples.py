@@ -31,6 +31,13 @@ torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+# tests/test_examples.py's arguments of the JAX KG example
+KG_ARGS = ["--max_step", "120", "--kg-scale", "0.02", "--batch_size", "128",
+           "--neg_sample_size", "32", "--neg_chunk_size", "16",
+           "--hidden_dim", "32", "--eval_size", "200"]
+KG_KEYS = {"dataset", "model", "train_time_s", "MRR", "MR", "HITS@1",
+           "HITS@3", "HITS@10"}
+
 CLI_CASES = [
     ("train_gcn_torch.py", ["--epochs", "3"]),
     ("train_gat_torch.py", ["--epochs", "3", "--dataset", "synth"]),
@@ -65,6 +72,12 @@ CLI_CASES = [
     ("train_lgnn_torch.py", ["--epochs", "1", "--graphs", "5"]),
     ("train_pointcloud_torch.py", ["--epochs", "1", "--clouds", "9"]),
     ("train_cluster_gcn_torch.py", ["--epochs", "2", "--parts", "4"]),
+    ("train_kg_torch.py", KG_ARGS),
+    ("train_kg_dist_torch.py", ["--steps", "40", "--scale", "0.02",
+                                "--batch", "128", "--neg", "16", "--chunk",
+                                "16", "--eval_triples", "50"]),
+    ("train_dgmg_torch.py", ["--epochs", "6", "--n_graphs", "12",
+                             "--samples", "4"]),
 ]
 # the dataset name each CLI prints (the JAX twin's)
 DATASETS = {"train_gin_torch.py": "SBM-mixture",
@@ -119,7 +132,9 @@ NAMED_LINES = {
         {"model", "parts", "epochs", "test_acc", "train_time_s"},
         {"model": "ClusterGCN", "parts": 4, "epochs": 2})}
 SCRIPTS = [script for script, _ in CLI_CASES]
-REFUSE_ARGS = {"pagerank_torch.py": ["--iters", "1"]}
+REFUSE_ARGS = {"pagerank_torch.py": ["--iters", "1"],
+               "train_kg_torch.py": ["--max_step", "1"],
+               "train_kg_dist_torch.py": ["--steps", "1"]}
 
 
 def _start_example(script, args):
@@ -173,6 +188,26 @@ def test_example_cli(runs, script, args):
         assert out == {"model": "pagerank", "iters": 15,
                        "sum": round(float(pv.sum()), 4),
                        "top5": np.argsort(pv)[::-1][:5].tolist()}
+        return
+    if script == "train_kg_torch.py":
+        # tests/test_examples.py:34's check, and the JAX CLI's keys
+        assert set(out) == KG_KEYS
+        assert (out["dataset"], out["model"]) == ("FB15k-synth", "TransE_l2")
+        assert np.isfinite(out["MRR"]) and out["MRR"] > 0
+        return
+    if script == "train_kg_dist_torch.py":
+        # tests/test_examples.py:118's checks
+        assert out["num_servers"] == 2 and out["num_clients"] == 2
+        assert out["loss_last10"] < 0.5 * out["loss_first10"]
+        assert out["mrr"] > 0.5
+        return
+    if script == "train_dgmg_torch.py":
+        # tests/test_examples.py:139's checks
+        assert set(out) == {"model", "epochs", "nll_first", "nll_last",
+                            "sample_valid_frac", "train_time_s"}
+        assert out["nll_last"] < out["nll_first"]
+        assert np.isfinite(out["nll_last"])
+        assert 0.0 <= out["sample_valid_frac"] <= 1.0
         return
     if script in OTHER_LINES:
         assert set(out) == OTHER_LINES[script]
@@ -318,3 +353,218 @@ def test_tree_lstm_twin_matches_jax():
         ref.append(float(loss))
     np.testing.assert_allclose(res["losses"], ref, rtol=1e-5)
     assert res["steps"] == 5 and len(res["epoch_losses"]) == 1
+
+
+@pytest.mark.parametrize("flag", ["--sparse_emb", "--async_update"])
+def test_kg_cli_sparse_modes(flag):
+    """tests/test_examples.py:88's check, for both sparse-row modes."""
+    proc = _start_example("train_kg_torch.py", [*KG_ARGS, flag, "--device",
+                                                "cpu"])
+    try:
+        stdout, stderr = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, stderr
+    out = json.loads(stdout.strip().splitlines()[-1])
+    assert set(out) == KG_KEYS
+    assert np.isfinite(out["MRR"]) and out["MRR"] > 0
+
+
+def _jax_kg_losses(ds, jm, mode, steps, B, N, S, lr):
+    """examples/train_kg.py's loop (lines 53-106), its first ``steps``
+    losses."""
+    from dgl_hack_tpu.models import kg as jkg
+    if mode == "dense":
+        tx = optax.adagrad(lr)
+        state = tx.init(jm.params)
+        step = jkg.make_train_step(jm, tx, S)
+    else:
+        state = jkg.init_sparse_state(jm)
+        step = jkg.make_sparse_train_step(jm, lr, S,
+                                          async_update=mode == "async")
+        if mode == "async":
+            step, empty = step
+    h, r, t = ds.train
+    rng = np.random.default_rng(0)
+    params = jm.params
+    C = B // S
+    pending = empty(B, (C, N), params["entity"].shape[1],
+                    params["relation"].shape[1]) if mode == "async" else None
+    losses = []
+    for it in range(steps):
+        sel = rng.integers(0, len(h), B)
+        neg = rng.integers(0, ds.num_entities, (C, N)).astype(np.int32)
+        batch = (jnp.asarray(h[sel]), jnp.asarray(r[sel]),
+                 jnp.asarray(t[sel]), jnp.asarray(neg),
+                 jnp.asarray(bool(it % 2)))
+        if mode == "async":
+            params, state, loss, pending = step(params, state, *batch,
+                                                pending)
+        else:
+            params, state, loss = step(params, state, *batch)
+        losses.append(float(loss))
+    return losses
+
+
+@pytest.mark.parametrize("mode", ["dense", "sparse", "async"])
+def test_kg_twin_matches_jax(mode):
+    """The same stand-in KG, batches and tables (the JAX model's): the
+    first five losses of each trainer within 1e-5 (relative) of the JAX
+    example's loop."""
+    from dgl_hack_tpu.data import synthetic_kg
+    from dgl_hack_tpu.models import kg as jkg
+    ds = synthetic_kg("FB15k", scale=0.005)
+    jm = jkg.KEModel(ds.num_entities, ds.num_relations, 16, "TransE_l2",
+                     gamma=19.9)
+    ref = _jax_kg_losses(ds, jm, mode, 5, 32, 8, 8, 0.25)
+    twin = _twin("train_kg_torch")
+    res = twin.train(ds, "TransE_l2", 16, 19.9, 0.25, 32, 8, 8, 5,
+                     sparse_emb=mode == "sparse",
+                     async_update=mode == "async",
+                     params={k: np.asarray(v) for k, v in jm.params.items()},
+                     device="cpu", log=None)
+    np.testing.assert_allclose(res["losses"], ref, rtol=1e-5)
+
+
+def _jax_kg_dist_losses(ds, jm, steps, batch, neg, chunk, lr):
+    """examples/train_kg_dist.py's servers and client loop (lines 59-184)
+    with one client, whose order of pushes and pulls is then fixed."""
+    import threading
+    from dgl_hack_tpu.distributed import kvstore as jkv
+    NE, S = ds.num_entities, 2
+    ent0 = np.asarray(jm.params["entity"])
+    rel0 = np.asarray(jm.params["relation"])
+    bounds = np.linspace(0, NE, S + 1).astype(np.int64)
+    ent_book = np.searchsorted(bounds[1:], np.arange(NE), side="right")
+    rel_book = np.zeros(ds.num_relations, np.int64)
+
+    class KGEServer(jkv.KVServer):
+        def _local_ids(self, name, ids):
+            base = name[:-5] if name.endswith("_grad") else name
+            return super()._local_ids(base, ids)
+
+        def _push_handler(self, name, local_ids, data):
+            base = name[:-5]
+            state = self._data[base + "_state"]
+            np.add.at(state, local_ids, (data ** 2).mean(-1))
+            scale = 1.0 / np.sqrt(state[local_ids] + 1e-10)
+            np.add.at(self._data[base], local_ids,
+                      -lr * data * scale[:, None])
+
+    server_t, client_t = jkv.make_transports(S, 1, base_port=0)
+
+    def serve(i):
+        sv = KGEServer(i, 1, transport=server_t(i))
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        sv.init_data("entity", ent0[lo:hi].copy(), offset=lo)
+        sv.init_data("entity_state", np.zeros(hi - lo, np.float32),
+                     offset=lo)
+        if i == 0:
+            sv.init_data("relation", rel0.copy())
+            sv.init_data("relation_state",
+                         np.zeros(ds.num_relations, np.float32))
+        sv.start()
+    servers = [threading.Thread(target=serve, args=(i,), daemon=True)
+               for i in range(S)]
+    for t in servers:
+        t.start()
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda h, r, t, n, nih: jm.loss_from_rows(h, r, t, n, nih, chunk),
+        argnums=(0, 1, 2, 3)))
+    h_all, r_all, t_all = ds.train
+    rng = np.random.default_rng(100)
+    client = jkv.KVClient(0, S, transport=client_t(0))
+    for name, book in (("entity", ent_book), ("relation", rel_book)):
+        client.set_partition_book(name, book)
+        client.set_partition_book(name + "_grad", book)
+    losses = []
+    C = batch // chunk
+    for step in range(steps):
+        idx = rng.integers(0, len(h_all), batch)
+        hb, rb, tb = h_all[idx], r_all[idx], t_all[idx]
+        negs = rng.integers(0, NE, (C, neg)).astype(np.int64)
+        rows = (client.pull("entity", hb), client.pull("relation", rb),
+                client.pull("entity", tb),
+                client.pull("entity", negs.reshape(-1)).reshape(C, neg, -1))
+        val, (gh, gr, gt, gn) = grad_fn(*(jnp.asarray(x) for x in rows),
+                                        bool(step % 2))
+        losses.append(float(val))
+        client.push("entity_grad", hb, np.asarray(gh))
+        client.push("entity_grad", tb, np.asarray(gt))
+        client.push("entity_grad", negs.reshape(-1),
+                    np.asarray(gn).reshape(C * neg, -1))
+        client.push("relation_grad", rb, np.asarray(gr))
+    client.shutdown()
+    for t in servers:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    return losses
+
+
+def test_kg_dist_twin_matches_jax():
+    """Two servers and one client (so that the order of pushes is fixed)
+    from the JAX model's tables: the first five losses within 1e-5
+    (relative) of the JAX example's loop."""
+    from dgl_hack_tpu.data import synthetic_kg
+    from dgl_hack_tpu.models import kg as jkg
+    ds = synthetic_kg("FB15k", scale=0.005, seed=0)
+    jm = jkg.KEModel(ds.num_entities, ds.num_relations, 16, "TransE_l2",
+                     gamma=12.0)
+    ref = _jax_kg_dist_losses(ds, jm, 5, 32, 8, 8, 0.1)
+    res = _twin("train_kg_dist_torch").train(
+        ds, "TransE_l2", 16, 12.0, 0.1, 32, 8, 8, 5, num_servers=2,
+        num_clients=1, params={k: np.asarray(v)
+                               for k, v in jm.params.items()},
+        device="cpu")
+    np.testing.assert_allclose(res["losses"][0], ref, rtol=1e-5)
+    assert tuple(res["params"]["entity"].shape) == jm.params["entity"].shape
+
+
+def test_dgmg_twin_matches_jax():
+    """The same traces (the twin's ``make_traces`` against the JAX
+    example's draws) and parameters (the JAX model's shapes, drawn from
+    numpy): the first three Adam losses within 1e-5 (relative) of the JAX
+    example's jitted step, vmapped over the traces."""
+    from dgl_hack_tpu.models.dgmg import DGMG, build_action_trace
+    from dgl_hack_tpu_torch.interop import flax_to_state_dict
+    twin = _twin("train_dgmg_torch")
+    sts, lbs = twin.make_traces(6)
+    rng = np.random.default_rng(0)                 # the JAX example's draws
+    for k in range(6):
+        n = int(rng.integers(4, 9))
+        src, dst = np.arange(n - 1), np.arange(1, n)
+        bonds = np.zeros(n - 1, np.int64)
+        if rng.random() < 0.5 and n > 3:
+            src, dst = np.append(src, 0), np.append(dst, n - 1)
+            bonds = np.append(bonds, 1)
+        st, lb = build_action_trace(np.arange(n) % 2, src, dst, bonds, 50)
+        np.testing.assert_array_equal(sts[k], st)
+        np.testing.assert_array_equal(lbs[k], lb)
+    jm = DGMG(n_node_types=2, n_bond_types=2, node_hidden_size=8,
+              num_prop_rounds=2, max_nodes=10, max_edges=14)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.asarray(sts[0]), jnp.asarray(lbs[0])))
+    leaves, tree = jax.tree_util.tree_flatten(shapes)
+    params = jax.tree_util.tree_unflatten(tree, [
+        (rng.standard_normal(x.shape) / np.sqrt(x.shape[0])).astype(
+            np.float32) for x in leaves])
+    tx = optax.adam(3e-3)
+
+    @jax.jit
+    def step(p, o):
+        def loss_fn(p):
+            return jax.vmap(lambda a, b: jm.apply(p, a, b))(
+                jnp.asarray(sts), jnp.asarray(lbs)).mean()
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        up, o = tx.update(grads, o)
+        return optax.apply_updates(p, up), o, loss
+    p, o, ref = params, tx.init(params), []
+    for _ in range(3):
+        p, o, loss = step(p, o)
+        ref.append(float(loss))
+    model = twin.make_model(8, params=flax_to_state_dict(params),
+                            device="cpu")
+    res = twin.train(model, sts, lbs, epochs=3, lr=3e-3, device="cpu")
+    np.testing.assert_allclose(res["losses"], ref, rtol=1e-5)

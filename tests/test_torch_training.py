@@ -170,5 +170,8 @@ def test_port_imports_with_jax_blocked():
                 "nn.hetero", "data.chem", "nn.conv_extra", "models.chem",
                 "data.citation", "data.karate", "data.io", "data.extra",
                 "utils.checkpoint", "utils.profiling", "partition",
-                "partition.partition", "core.biggraph"):
+                "partition.partition", "core.biggraph", "data.kg",
+                "models.kg", "models.dgmg", "distributed.bootstrap",
+                "distributed.kvstore", "distributed.feature_store",
+                "distributed.dis_sampler", "native"):
         assert f"dgl_hack_tpu_torch.{mod}" in names, mod
