@@ -246,6 +246,25 @@ Phases, one JSON line each:
      the CPU with the propagation weights halved; 8 samples from
      ``generate``).  None of these paths reaches a hand-written kernel; no
      plain path may run on the card.
+ 39. multi-GPU (``parallel/``) on ranks that share the card over
+     gloo (a ``RankPool`` of 4 spawned processes, which load the library
+     phase 1 built; one card allows no NCCL group of more than one rank):
+     ``spatial_reddit`` (after ``cluster_gcn_train``): a Fennel plan of
+     full synthetic Reddit in 4 parts with hub replication (the parent
+     builds it once and writes each rank its slice), spatial GCN (602 ->
+     16 -> 41, 3 steps) and spatial GAT (8 heads x 8, then one head, 2
+     steps), each rank's forward rows against the single-process forward
+     over the whole graph, the plan's build s and stats, the all_to_all
+     bytes a step, step ms, the exchange's ms (CUDA events) and peak
+     memory a rank; ``spatial_kernels``: the halo gspmm at the dry run's
+     size (sum, mean, max, min with overlap on and off, weighted u_mul_e,
+     hubs, the dense hub, bf16 on the wire), forward and dx against the
+     single-graph gspmm on the card; ``multichip_dryrun``: the twin of
+     ``__graft_entry__.dryrun_multichip`` at 4 ranks (mesh node 2 x tp 2)
+     on the card against the same ranks running it on the CPU;
+     ``nccl_one_rank``: spatial GCN over a one-part plan in a one-rank
+     NCCL group against the single-graph forward.  K1, K2/K3 and K4/K5
+     launch from the ranks; no plain path.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -268,7 +287,11 @@ out-of-range ids within 1e-6 of the CPU (``bincount`` equal); the KG
 losses, tables and all-entity scores and the DGMG first loss within
 LAYER_TOL of the CPU, DGMG's first 3 Adam losses within LAYER_TOL of the
 card's float64 run, the full DGMG trace's NLL and gradients (with its
-propagation weights halved) within LAYER_TOL of the CPU.  K1 (its
+propagation weights halved) within LAYER_TOL of the CPU; the spatial
+GCN's rows and every halo gspmm case within LAYER_TOL of the single-graph
+result, the spatial GAT's within GAT_TOL, the bf16 wire's within 2^-8 of
+each row's sum of |terms|, the dry run's losses on the card within 1e-4
+of the CPU's.  K1 (its
 rows route too)
 and K5 <= 2e-5 against their plain versions run in float64 (the kernels'
 f32 sums); the slice's layers <= 1e-4 against the CPU (``LAYER_TOL``);
@@ -6201,6 +6224,465 @@ def phase_dgmg_train(build, checks, dev):
     checks.raise_if_failed("dgmg_train")
 
 
+# ---------------------------------------------------------------------------
+# slice 17: multi-GPU (parallel/): spatial training over a halo exchange,
+# the halo gspmm's every form, the dry-run twin and a one-rank NCCL group.
+# The ranks are spawned processes that share the one card over gloo
+# (RankPool); they load the kernel library phase 1 built.  No number of
+# these phases is a multi-GPU scaling number.
+# ---------------------------------------------------------------------------
+SPATIAL = dict(parts=4, hub_k=64, gcn_hidden=16, gat_hidden=8,
+               gat_heads=(8, 1), gcn_steps=3, gat_steps=2, lr=1e-2)
+SPATIAL_DIR = os.path.join(REPO, "build", "spatial_reddit")
+
+
+def _rank_counts(build):
+    """This rank's launch counts, and the names of any plain path that ran
+    on the card."""
+    counts = dict(build.LAUNCHES.counts)
+    return counts, sorted(k for k in counts if k.startswith("plain."))
+
+
+def _events_ms(fn) -> float:
+    """fn()'s device milliseconds between two CUDA events (the ranks time
+    their own calls; every rank of the group calls together)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
+def _spatial_reddit_rank(device, sizes, num_classes, cfg):
+    """One rank of ``spatial_reddit``: its slice of the plan and its rows
+    of the features from the files the parent wrote, the block graphs
+    readied once, then spatial GCN and spatial GAT: the forward before
+    training (returned for the check), ``gcn_steps`` / ``gat_steps`` Adam
+    steps with their host-clock ms, the halo exchange at each model's
+    widths timed with CUDA events, launches and peak memory."""
+    import gc
+    import torch.distributed as dist
+    from dgl_hack_tpu_torch.ops.cuda import build
+    from dgl_hack_tpu_torch.parallel import halo as H
+    r = dist.get_rank()
+    torch.cuda.reset_peak_memory_stats(device)
+    arrs = torch.load(os.path.join(SPATIAL_DIR, f"rank{r}.pt"),
+                      map_location=device)
+    x, y, m = arrs.pop("x"), arrs.pop("y"), arrs.pop("m")
+    t0 = time.perf_counter()
+    H.prepare_rank(sizes, arrs)
+    torch.cuda.synchronize(device)
+    out = {"ready_s": time.perf_counter() - t0}
+
+    def exchange_ms(width):
+        h = torch.ones((sizes.n_owned_max, width), device=device)
+        ms = []
+        for _ in range(3):
+            dist.barrier()
+            ms.append(_events_ms(lambda: H.halo_exchange(
+                h, arrs["send_idx"], arrs["send_mask"], None,
+                arrs["hub_idx"], arrs["hub_mask"])))
+        return float(np.median(ms))
+
+    def train(name, fwd, params, plist, steps):
+        build.LAUNCHES.reset()
+        with torch.no_grad():
+            logits = fwd(params, x, arrs)
+        step = H.spatial_train_step(fwd, torch.optim.Adam(plist,
+                                                          lr=cfg["lr"]))
+        losses, ms = [], []
+        for _ in range(steps):
+            dist.barrier()
+            t = time.perf_counter()
+            losses.append(float(step(params, x, arrs, y, m)))
+            torch.cuda.synchronize(device)
+            ms.append(1e3 * (time.perf_counter() - t))
+        counts, plain = _rank_counts(build)
+        out[name] = {"logits": logits.cpu().numpy(), "losses": losses,
+                     "step_ms": ms, "launches": counts, "plain": plain}
+
+    init, fwd = H.make_spatial_gcn(sizes, None, hidden=cfg["gcn_hidden"],
+                                   out_feats=num_classes)
+    p = init(0, x.shape[1], device)
+    train("gcn", fwd, p, list(p.values()), cfg["gcn_steps"])
+    out["gcn"]["exchange_ms"] = exchange_ms(cfg["gcn_hidden"])
+    ginit, gfwd = H.make_spatial_gat(sizes, None, hidden=cfg["gat_hidden"],
+                                     out_feats=num_classes,
+                                     heads=cfg["gat_heads"])
+    model = ginit(1, x.shape[1], device)
+    train("gat", gfwd, model, list(model.parameters()), cfg["gat_steps"])
+    out["gat"]["exchange_ms"] = {
+        "layer0": exchange_ms(x.shape[1]),
+        "layer1": exchange_ms(cfg["gat_hidden"] * cfg["gat_heads"][0])}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    del arrs, x, y, m, p, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gcn_ref(g, x, p, num_classes, dev):
+    """GraphConv x2 (norm 'both') over the whole graph ``g`` with the
+    spatial GCN's raw weights ``p`` {W1, b1, W2, b2}: the single-process
+    forward that a spatial GCN's rows are held against."""
+    from dgl_hack_tpu_torch.nn import GraphConv
+    l1 = GraphConv(p["W1"].shape[1], activation=F.relu).to(dev)
+    l2 = GraphConv(num_classes).to(dev)
+    with torch.no_grad():
+        for layer, W, b in ((l1, p["W1"], p["b1"]), (l2, p["W2"], p["b2"])):
+            layer.weight = torch.nn.Parameter(W.detach().clone())
+            layer.bias.copy_(b)
+        return l2(g, l1(g, x))
+
+
+def _spatial_refs(dt, sizes, g, x, num_classes, dev):
+    """The single-process forwards over the whole graph on the card, with
+    the parameters each rank draws: GraphConv x2 (norm 'both', the
+    spatial GCN's weights) and the GAT pair on (x, x)."""
+    from dgl_hack_tpu_torch.parallel import halo as H
+    init, _ = H.make_spatial_gcn(sizes, None, hidden=SPATIAL["gcn_hidden"],
+                                 out_feats=num_classes)
+    gcn = _gcn_ref(g, x, init(0, x.shape[1], dev), num_classes, dev)
+    with torch.no_grad():
+        ginit, _ = H.make_spatial_gat(sizes, None,
+                                      hidden=SPATIAL["gat_hidden"],
+                                      out_feats=num_classes,
+                                      heads=SPATIAL["gat_heads"])
+        gm = ginit(1, x.shape[1], dev)
+        h = F.elu(gm.l1(g, (x, x))).reshape(x.shape[0], -1)
+        gat = gm.l2(g, (h, h)).mean(1)
+    return gcn.cpu(), gat.cpu()
+
+
+def _exchange_bytes(plan, width, itemsize=4):
+    """Bytes one rank sends in one halo exchange at ``width`` columns: the
+    padded (P, s_max) all_to_all buffer and its hub rows in the
+    all_gather."""
+    return (plan.num_parts * plan.s_max + plan.hk_max) * width * itemsize
+
+
+def phase_spatial_reddit(dt, build, pool, ds, g, checks, dev):
+    """Spatial GCN (602 -> 16 -> 41) and spatial GAT (H = 8, D = 8, then
+    one head) over a Fennel plan of full synthetic Reddit in
+    ``SPATIAL["parts"]`` parts with hub replication (the dense hub off:
+    at Reddit's degrees its C would reach the 4 GB budget per part), on
+    that many ranks sharing the card over gloo.  The parent builds the
+    plan once and writes each rank its slice; each rank's forward rows are
+    held against the single-process forward over the whole graph (GCN
+    within LAYER_TOL of max|ref|, GAT within GAT_TOL), K1 and K2/K3 must
+    launch on every rank and no plain path.  Records the plan's build
+    seconds and stats, the all_to_all bytes a step, step ms, the
+    exchange's ms and peak memory per rank: ranks sharing one card over
+    gloo, not a multi-GPU scaling number."""
+    from dgl_hack_tpu_torch.parallel import halo as H
+    P = SPATIAL["parts"]
+    t0 = time.perf_counter()
+    plan = H.build_spatial_plan(ds.graph, P, method="fennel", seed=0,
+                                hub_k=SPATIAL["hub_k"])
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.makedirs(SPATIAL_DIR, exist_ok=True)
+    shards = {k: H.shard_features(plan, np.asarray(a)) for k, a in
+              (("x", ds.features), ("y", ds.labels), ("m", ds.train_mask))}
+    for r in range(P):
+        arrs = plan.device_arrays(r, "cpu")
+        arrs.update({k: torch.from_numpy(v[r]) for k, v in shards.items()})
+        torch.save(arrs, os.path.join(SPATIAL_DIR, f"rank{r}.pt"))
+    del shards, arrs
+    handoff_s = time.perf_counter() - t0
+    x = torch.from_numpy(ds.features).to(dev)
+    C = ds.num_classes
+    gcn_ref, gat_ref = _spatial_refs(dt, plan.sizes(), g, x, C, dev)
+    del x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = pool.run(_spatial_reddit_rank, plan.sizes(), C, SPATIAL)
+    ranks_s = time.perf_counter() - t0
+    rec = {"plan_build_s": plan_s, "handoff_s": handoff_s,
+           "ranks_s": ranks_s, "stats": plan.stats(),
+           "sizes": {k: getattr(plan, k) for k in (
+               "n_owned_max", "halo_max", "s_max", "hk_max", "e_max",
+               "el_max", "er_max")},
+           "setting": "ranks sharing one card over gloo", **SPATIAL}
+    counts = {}
+    for name, ref, tol, need in (
+            ("gcn", gcn_ref, LAYER_TOL, ("segment_sum.fwd",
+                                         "segment_sum.rev")),
+            ("gat", gat_ref, GAT_TOL, ("gat_fwd", "gat_bwd"))):
+        out = H.unshard_rows(plan, np.stack([r_[name]["logits"]
+                                             for r_ in res]),
+                             g.num_dst_nodes)
+        err = rel_err(torch.from_numpy(out), ref)
+        width = {"gcn": [SPATIAL["gcn_hidden"]] * 2,
+                 "gat": [ds.features.shape[1],
+                         SPATIAL["gat_hidden"] * SPATIAL["gat_heads"][0]]}
+        # forward of every layer's exchange, and the backward of those
+        # whose input takes a gradient (all but GAT's first: the features)
+        fwd_b = sum(_exchange_bytes(plan, w_) for w_ in width[name])
+        bwd_b = sum(_exchange_bytes(plan, w_) for w_ in (
+            width[name] if name == "gcn" else width[name][1:]))
+        rec[name] = {
+            "rel_err_vs_single": err, "tol": tol,
+            "losses": res[0][name]["losses"],
+            "step_ms": [r_[name]["step_ms"] for r_ in res],
+            "exchange_ms": [r_[name]["exchange_ms"] for r_ in res],
+            "a2a_bytes_per_step_per_rank": fwd_b + bwd_b,
+            "launches": [r_[name]["launches"] for r_ in res]}
+        if not err <= tol:
+            checks.failures.append(f"spatial_reddit {name}: rel err {err:.3g}"
+                                   f" > {tol}")
+        for i, r_ in enumerate(res):
+            c = r_[name]["launches"]
+            if r_[name]["plain"] or any(_launched(c, k) < 1 for k in need):
+                checks.failures.append(f"spatial_reddit {name} rank {i}: "
+                                       f"launches {c}")
+            if not all(np.isfinite(r_[name]["losses"])):
+                checks.failures.append(f"spatial_reddit {name} rank {i}: "
+                                       "loss not finite")
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+    rec["ready_s"] = [r_["ready_s"] for r_ in res]
+    rec["peak_gb_per_rank"] = [r_["peak_gb"] for r_ in res]
+    emit({"phase": "spatial_reddit", **rec})
+    checks.raise_if_failed("spatial_reddit")
+    return counts
+
+
+SPATIAL_KERNEL_CASES = (
+    # (plan, reduce_op, overlap, weighted, wire dtype)
+    *(("plain", red, ov, False, None) for red in ("sum", "mean", "max",
+                                                  "min")
+      for ov in (True, False)),
+    ("plain", "sum", True, True, None), ("plain", "sum", False, True, None),
+    ("hub", "sum", True, False, None), ("hub", "max", True, False, None),
+    ("dense", "sum", True, False, None), ("dense", "mean", True, False,
+                                          None),
+    ("plain", "sum", True, False, "bf16"))
+
+
+def _spatial_kernels_rank(device, plans, x, w, cot):
+    """Every case of ``SPATIAL_KERNEL_CASES`` on this rank: its output rows
+    and the gradient of sum(out * cot) with respect to its rows of x (the
+    weights' too where weighted), with its launches."""
+    import torch.distributed as dist
+    from dgl_hack_tpu_torch.ops.cuda import build
+    from dgl_hack_tpu_torch.parallel import halo as H
+    r = dist.get_rank()
+    devs = {k: p.device_arrays(r, device) for k, p in plans.items()}
+    build.LAUNCHES.reset()
+    res = []
+    for key, red, ov, weighted, wire in SPATIAL_KERNEL_CASES:
+        plan, dev = plans[key], devs[key]
+        xs = torch.from_numpy(H.shard_features(plan, x)[r]).to(
+            device).requires_grad_()
+        cs = torch.from_numpy(H.shard_features(plan, cot)[r]).to(device)
+        ws = () if not weighted else tuple(
+            torch.from_numpy(a[r]).to(device).requires_grad_()
+            for a in H.shard_edata(plan, w, layout="split"))
+        f = H.make_halo_gspmm(plan, None, reduce_op=red, overlap=ov,
+                              weighted=weighted,
+                              comm_dtype=torch.bfloat16 if wire else None)
+        out = f(xs, dev, *ws)
+        (out * cs).sum().backward()
+        res.append([out.detach().cpu().numpy(), xs.grad.cpu().numpy()])
+    torch.cuda.synchronize(device)
+    counts, plain = _rank_counts(build)
+    return res, counts, plain
+
+
+def phase_spatial_kernels(dt, build, pool, checks, dev):
+    """The halo gspmm at the dry run's size (planted partition, 512 nodes a
+    rank, F = 32) on ``SPATIAL["parts"]`` ranks sharing the card over
+    gloo: sum, mean, max and min with overlap on and off, weighted
+    u_mul_e (both), hub replication (sum, max), the distributed dense hub
+    (sum, mean) and bf16 on the wire.  The forward and dx of every case
+    are held against the single-graph gspmm on the card (K1, K4/K5):
+    within LAYER_TOL of max|ref|, and the bf16 wire's within 2^-8 of each
+    row's sum of |terms| (each shipped value or returning partial sum is
+    rounded once)."""
+    from dgl_hack_tpu_torch.data import planted_partition
+    from dgl_hack_tpu_torch.parallel import halo as H
+    P = SPATIAL["parts"]
+    ds = planted_partition(512 * P, 4, 32, avg_degree=4.0, seed=0,
+                           train_per_class=4, num_val=8, num_test=8)
+    gh = ds.graph
+    plans = {"plain": H.build_spatial_plan(gh, P, "fennel", seed=0),
+             "hub": H.build_spatial_plan(gh, P, "fennel", seed=0, hub_k=16),
+             "dense": H.attach_spmm_plans(H.build_spatial_plan(
+                 gh, P, "fennel", seed=0, hub_k=8, dense_threshold=16))}
+    rng = np.random.default_rng(17)
+    n, E = gh.num_nodes(), gh.num_edges()
+    x = rng.standard_normal((n, 32)).astype(np.float32)
+    w = rng.standard_normal(E).astype(np.float32)
+    cot = rng.standard_normal((n, 32)).astype(np.float32)
+    t0 = time.perf_counter()
+    out = pool.run(_spatial_kernels_rank, plans, x, w, cot)
+    ranks_s = time.perf_counter() - t0
+    g = gh.to(dev)
+    w_int = torch.from_numpy(w).to(dev)
+    if g.int2user is not None:
+        w_int = w_int[g.int2user.long()]
+    cot_d = torch.from_numpy(cot).to(dev)
+    cases = []
+    for i, (key, red, ov, weighted, wire) in enumerate(SPATIAL_KERNEL_CASES):
+        plan = plans[key]
+        got = [H.unshard_rows(plan, np.stack([o[0][i][j] for o in out]), n)
+               for j in (0, 1)]
+        xd = torch.from_numpy(x).to(dev).requires_grad_()
+        if weighted:
+            ref = dt.gspmm(g, "mul", red, xd, w_int[:, None], "u", "e")
+        else:
+            ref = dt.gspmm(g, "copy_lhs", red, xd)
+        (ref * cot_d).sum().backward()
+        errs = [rel_err(torch.from_numpy(got[0]), ref.detach().cpu()),
+                rel_err(torch.from_numpy(got[1]), xd.grad.cpu())]
+        ok = all(e_ <= LAYER_TOL for e_ in errs)
+        if wire:
+            # each cut edge's value (forward) and each returning partial
+            # sum (dx) rounded once to bf16: |err| <= 2^-8 sum |terms|
+            xa = torch.from_numpy(np.abs(x)).to(dev).requires_grad_()
+            fb = dt.gspmm(g, "copy_lhs", "sum", xa)
+            (fb * cot_d.abs()).sum().backward()
+            lim = [2.0 ** -8 * fb.detach().cpu() + 1e-6,
+                   2.0 ** -8 * xa.grad.cpu() + 1e-6]
+            ok = all(bool((torch.from_numpy(got[j]) - r_.cpu()).abs().le(
+                lim[j]).all()) for j, r_ in ((0, ref.detach()),
+                                             (1, xd.grad)))
+        cases.append({"plan": key, "reduce": red, "overlap": ov,
+                      "weighted": weighted, "wire": wire or "float32",
+                      "rel_err": errs, "ok": ok})
+        if not ok:
+            checks.failures.append(f"spatial_kernels {cases[-1]}")
+    counts = {}
+    for i, (_, c, plain) in enumerate(out):
+        if plain or _launched(c, "segment_sum") < 1 or \
+                _launched(c, "segment_max") < 1:
+            checks.failures.append(f"spatial_kernels rank {i}: launches {c}"
+                                   f", plain {plain}")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    emit({"phase": "spatial_kernels", "ranks_s": ranks_s, "nodes": n,
+          "edges": E, "cases": cases,
+          "stats": {k: p.stats() for k, p in plans.items()},
+          "launches": [o[1] for o in out],
+          "setting": "ranks sharing one card over gloo"})
+    checks.raise_if_failed("spatial_kernels")
+    return counts
+
+
+def _dryrun_rank_counted(device, inputs, phases, on_cpu):
+    """The dry-run twin's phases on this rank (on the CPU where
+    ``on_cpu``), with its launches."""
+    from dgl_hack_tpu_torch.ops.cuda import build
+    from dgl_hack_tpu_torch.parallel import dryrun
+    build.LAUNCHES.reset()
+    losses = dryrun.dryrun_rank(torch.device("cpu") if on_cpu else device,
+                                inputs, None, phases)
+    if not on_cpu:
+        torch.cuda.synchronize(device)
+    return losses, _rank_counts(build)
+
+
+def phase_multichip_dryrun(pool, checks):
+    """The twin of ``__graft_entry__.dryrun_multichip`` (parallel/dryrun.py)
+    at ``SPATIAL["parts"]`` ranks on the card (mesh node 2 x tp 2), gloo
+    between ranks that share the card: its line, every loss finite, the
+    five dropout-free losses within 1e-4 of the same ranks running the
+    twin on the CPU, and the gspmd loss at dropout 0 too (a dropout mask
+    drawn on the card is not the CPU's).  K1 and K2/K3 launch on every
+    rank, no plain path."""
+    from dgl_hack_tpu_torch.parallel import dryrun
+    P = SPATIAL["parts"]
+    inputs = dryrun.prepare(P)
+    t0 = time.perf_counter()
+    card = pool.run(_dryrun_rank_counted, inputs, dryrun.PHASES, False)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = pool.run(_dryrun_rank_counted, inputs, dryrun.PHASES, True)
+    cpu_s = time.perf_counter() - t0
+    inputs0 = dryrun.prepare(P, gspmd_dropout=0.0)
+    g0 = [pool.run(_dryrun_rank_counted, inputs0, ("gspmd",), on)[0][0]
+          ["gspmd"] for on in (False, True)]
+    line = dryrun.format_line(P, card[0][0])
+    print(line, flush=True)
+    errs = {k: abs(card[0][0][k] - cpu[0][0][k])
+            / max(1.0, abs(cpu[0][0][k])) for k in dryrun.PHASES
+            if k != "gspmd"}
+    errs["gspmd_dropout0"] = abs(g0[0] - g0[1]) / max(1.0, abs(g0[1]))
+    counts = {}
+    for i, (losses, (c, plain)) in enumerate(card):
+        if not all(np.isfinite(losses[k]) for k in dryrun.PHASES):
+            checks.failures.append(f"multichip_dryrun rank {i}: {losses}")
+        if any(losses[k] != card[0][0][k] for k in dryrun.PHASES):
+            checks.failures.append(f"multichip_dryrun: rank {i} differs")
+        if plain or _launched(c, "segment_sum") < 1 or \
+                _launched(c, "gat_fwd") < 1 or _launched(c, "gat_bwd") < 1:
+            checks.failures.append(f"multichip_dryrun rank {i}: launches "
+                                   f"{c}, plain {plain}")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    for k, e_ in errs.items():
+        if not e_ <= 1e-4:
+            checks.failures.append(f"multichip_dryrun {k}: card vs CPU "
+                                   f"{e_:.3g} > 1e-4")
+    emit({"phase": "multichip_dryrun", "line": line,
+          "card": {k: card[0][0][k] for k in dryrun.PHASES},
+          "cpu": {k: cpu[0][0][k] for k in dryrun.PHASES},
+          "gspmd_dropout0": g0, "rel_err_card_vs_cpu": errs,
+          "card_s": card_s, "cpu_s": cpu_s, "launches": card[0][1][0],
+          "setting": "ranks sharing one card over gloo"})
+    checks.raise_if_failed("multichip_dryrun")
+    return counts
+
+
+def _nccl_one_rank(device):
+    """Spatial GCN over a one-part plan of the dry run's graph in a
+    one-rank NCCL group, against GraphConv x2 over the whole graph with the
+    same weights."""
+    import torch.distributed as dist
+    from dgl_hack_tpu_torch.data import planted_partition
+    from dgl_hack_tpu_torch.ops.cuda import build
+    from dgl_hack_tpu_torch.parallel import halo as H
+    ds = planted_partition(2048, 4, 32, avg_degree=4.0, seed=0,
+                           train_per_class=4, num_val=8, num_test=8)
+    plan = H.build_spatial_plan(ds.graph, 1)
+    dev = plan.device_arrays(0, device)
+    init, fwd = H.make_spatial_gcn(plan, None, hidden=16,
+                                   out_feats=ds.num_classes)
+    p = init(0, 32, device)
+    x = torch.from_numpy(ds.features).to(device)
+    build.LAUNCHES.reset()
+    with torch.no_grad():
+        out = fwd(p, x[torch.from_numpy(plan.owned_ids[0]).long().to(
+            device)], dev)
+    torch.cuda.synchronize(device)
+    counts, plain = _rank_counts(build)
+    ref = _gcn_ref(ds.graph.to(device), x, p, ds.num_classes, device)
+    got = H.unshard_rows(plan, out.cpu().numpy()[None], ds.graph.num_nodes())
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "rel_err": rel_err(torch.from_numpy(got), ref.cpu()),
+            "launches": counts, "plain": plain}
+
+
+def phase_nccl_one_rank(checks):
+    """A one-rank NCCL group on the card (the only NCCL group one card
+    allows): spatial GCN over a one-part plan equals the single-graph
+    forward within LAYER_TOL; K1 launched, no plain path."""
+    from dgl_hack_tpu_torch.parallel.launch import RankPool
+    t0 = time.perf_counter()
+    with RankPool(1, "nccl", "cuda", timeout=300) as pool:
+        start_s = time.perf_counter() - t0
+        res = pool.run(_nccl_one_rank)[0]
+    emit({"phase": "nccl_one_rank", "start_s": start_s, **res})
+    if res["backend"] != "nccl" or not res["rel_err"] <= LAYER_TOL or \
+            res["plain"] or _launched(res["launches"], "segment_sum") < 1:
+        checks.failures.append(f"nccl_one_rank: {res}")
+    checks.raise_if_failed("nccl_one_rank")
+    return res["launches"]
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -6297,8 +6779,17 @@ def main() -> int:
     phase_k1_rows(sk, g, ds, checks, dev, timings)
     c_cluster = phase_cluster_gcn_train(dt, build, sk, ds, checks, dev,
                                         timings)
-    del ds, g
-    torch.cuda.empty_cache()
+    from dgl_hack_tpu_torch.parallel.launch import RankPool
+    t0 = time.perf_counter()
+    with RankPool(SPATIAL["parts"], "gloo", "cuda", timeout=300) as pool:
+        emit({"phase": "rank_pool", "ranks": SPATIAL["parts"],
+              "backend": "gloo", "start_s": time.perf_counter() - t0})
+        c_spatial = phase_spatial_reddit(dt, build, pool, ds, g, checks, dev)
+        del ds, g
+        torch.cuda.empty_cache()
+        c_skern = phase_spatial_kernels(dt, build, pool, checks, dev)
+        c_mdry = phase_multichip_dryrun(pool, checks)
+    c_nccl = phase_nccl_one_rank(checks)
     c_tf = phase_transformer(build, k6, checks, dev, timings)
     c_gin = phase_gin_train(build, checks, dev)
     phase_layers(dt, build, checks, dev)
@@ -6324,9 +6815,10 @@ def main() -> int:
             c_hetero, c_pr, c_sub, c_lstm, c_rmax, c_topo, c_prefetch,
             c_nodeflow, c_pinsage, c_cv, c_adaptive, c_packed, c_han,
             c_capsule, c_writer, c_chem, c_chem_twins, c_small, c_ckpt,
-            c_cluster, *c_headline.values())
-    max_runs = (c_sage, c_sampled, c_hetero, c_rmax, c_nodeflow)
-    gat_runs = (c_gat, c_packed, c_han, c_chem)
+            c_cluster, c_spatial, c_skern, c_mdry, c_nccl,
+            *c_headline.values())
+    max_runs = (c_sage, c_sampled, c_hetero, c_rmax, c_nodeflow, c_skern)
+    gat_runs = (c_gat, c_packed, c_han, c_chem, c_spatial, c_mdry)
     sddmm_runs = (c_tf, c_capsule, c_writer, c_chem, c_small)
     launches = {
         "segment_sum": sum(v for c in runs for k, v in c.items()

@@ -15,8 +15,8 @@ per partition, in compact int32 LOCAL id spaces:
   hash) partition of the compacted graph into ``BigPartition``s whose
   ``node_map64``/``edge_map64`` recover the conceptual int64 ids; each
   part's local graph is a normal int32 ``Graph``.
-* ``BigGraph.spatial_plan(k)`` -- needs ``parallel/halo.py``, which this
-  package has not ported yet: it raises ``NotImplementedError``.
+* ``BigGraph.spatial_plan(k)`` -- a ``parallel.halo.SpatialPlan`` over
+  the compacted graph for multi-GPU training.
 
 The ACTUAL (materialised) node/edge counts must fit host memory and the
 per-part counts must fit int32; conceptual id VALUES are unbounded int64.
@@ -135,8 +135,11 @@ class BigGraph:
 
     def spatial_plan(self, k: int, method: str = "fennel", seed: int = 0,
                      hub_k: int = 0):
-        """SpatialPlan over the compacted graph for multi-GPU training
-        (``parallel/halo.py``), not ported yet."""
-        raise NotImplementedError(
-            "BigGraph.spatial_plan needs parallel/halo.py, which this "
-            "package has not ported yet ('multi-gpu')")
+        """SpatialPlan over the compacted graph for multi-GPU training;
+        pair with the BigPartition node_map64 to address features keyed
+        by conceptual int64 ids (e.g. a distributed KVStore)."""
+        from ..parallel.halo import build_spatial_plan
+        g, uids = self.compact_graph()
+        plan = build_spatial_plan(g, k, method=method, seed=seed,
+                                  hub_k=hub_k)
+        return plan, uids

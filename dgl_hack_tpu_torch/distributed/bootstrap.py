@@ -3,8 +3,9 @@
 python/dgl/contrib/dis_kvstore.py:24 read_ip_config).
 
 ``initialize_from_env`` reads the JAX package's variables and calls
-``torch.distributed.init_process_group`` over a ``tcp://`` rendezvous:
-NCCL when the caller's device is a card, gloo for the CPU.  Nothing
+``torch.distributed.init_process_group`` over a ``tcp://`` rendezvous,
+with the backend the caller names, or by default NCCL when the caller's
+device is a card and gloo for the CPU.  Nothing
 tells a process of a cluster otherwise; with none of the variables set
 it does nothing (a single process), as in the JAX package.
 """
@@ -29,14 +30,16 @@ def read_ip_config(filename: str) -> List[Tuple[str, int]]:
 def initialize_from_env(coordinator: Optional[str] = None,
                         num_processes: Optional[int] = None,
                         process_id: Optional[int] = None,
-                        device="cuda") -> bool:
+                        device="cuda", backend: Optional[str] = None
+                        ) -> bool:
     """Initialise the default process group from arguments, environment
     variables or an ip-config file; returns whether it did.
 
     Env: DGL_TPU_COORDINATOR (ip:port), DGL_TPU_NUM_PROC, DGL_TPU_PROC_ID,
     or DGL_TPU_IP_CONFIG pointing at a reference-style ip_config.txt
-    (first entry = the rendezvous).  ``device`` picks the backend: NCCL
-    for a card, gloo for the CPU.
+    (first entry = the rendezvous).  ``backend`` names the backend
+    ("nccl", or "gloo", also for ranks that share a card); without it
+    ``device`` picks one: NCCL for a card, gloo for the CPU.
     """
     import torch
     import torch.distributed as dist
@@ -54,7 +57,8 @@ def initialize_from_env(coordinator: Optional[str] = None,
     num_processes = num_processes or int(os.environ["DGL_TPU_NUM_PROC"])
     process_id = process_id if process_id is not None \
         else int(os.environ["DGL_TPU_PROC_ID"])
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
     return True

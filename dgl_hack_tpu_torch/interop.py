@@ -37,6 +37,13 @@ mapping.
 tensors: the JAX tables come from ``jax.random.uniform``, which the port
 cannot draw.
 
+``spatial_params_from_jax`` takes the JAX spatial models' parameters
+(``parallel/halo.py``): the spatial GCN's raw ``{W1, b1, W2, b2}`` as
+they are, the spatial GAT's and R-GCN's per-layer flax trees (``l1``,
+``l2``) through ``flax_to_state_dict``.  The GCN of the gspmd dry run,
+``RelGraphConv`` and the block-list ``GraphSAGE`` go through
+``flax_to_state_dict`` as they are.
+
 A bipartite ``GATConv``'s ``fc_src`` and ``fc_dst`` are Denses like any
 other, both ways; the port's ``GATConv`` takes that layout when it loads a
 state dict holding ``fc_src`` (``nn/conv.py``).  A block-list
@@ -208,3 +215,20 @@ def kg_params_from_jax(params: Mapping, state=None, device="cpu"):
     sums = next(s.sum_of_squares for s in state
                 if hasattr(s, "sum_of_squares"))
     return tables, {k: tensor(sums[k]) for k in ("entity", "relation")}
+
+
+def spatial_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX spatial model's parameters (``parallel.halo``) as the port's:
+    the spatial GCN's raw ``{W1, b1, W2, b2}`` keep their names and
+    ``(in, out)`` layout; the spatial GAT's and R-GCN's ``{"l1": flax
+    tree, "l2": flax tree}`` become one state dict of a ``SpatialPair``
+    (keys ``l1.…`` and ``l2.…``, through ``flax_to_state_dict``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, Mapping):
+            for key, val in flax_to_state_dict(leaf).items():
+                out[f"{name}.{key}"] = val
+        else:
+            out[name] = torch.from_numpy(np.array(leaf, dtype=np.float32,
+                                                  order="C"))
+    return out

@@ -31,8 +31,13 @@ traced one, computed over both branches and selected).
 (one ``(B, D) @ (D, N)`` product for l2 and the dot-product scores, chunks
 of entities for l1, RotatE and TransR), where the JAX function
 broadcasts the table to ``(B, N, D)`` and lets XLA fuse the copy away.
-``KEModel.shard`` raises ``NotImplementedError('multi-gpu')`` (ROADMAP
-Queue 1 item 8).
+
+``KEModel.shard(mesh)`` row-shards the entity table over the ranks of the
+mesh's first dimension (the JAX package's ``P(axis, None)``), the
+relation table replicated: each rank keeps its block of rows, and both
+trainers all-gather the table (23.9 MB at FB15k's 14,951 x 400), run the
+step on it, and update their own rows only, so the shards hold what the
+unsharded step gives.
 """
 from __future__ import annotations
 
@@ -293,6 +298,24 @@ def _device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 # KEModel
 # ---------------------------------------------------------------------------
+def gather_entity(model: "KEModel", ent: Tensor) -> Tensor:
+    """The whole entity table: ``ent`` itself, or, once the model is
+    sharded, every rank's block of it gathered (not differentiable)."""
+    sh = model.entity_shard
+    return ent if sh is None else sh._replace(local=ent).full()
+
+
+def _own_rows(sh, rows: Tensor, grads: Tensor):
+    """(rows, grads) in this rank's block's row ids: rows it does not hold
+    become row 0 with a zero gradient (no-ops)."""
+    from ..parallel.collectives import rank
+    B = sh.local.shape[0]
+    lo = rows - rank(sh.group) * B
+    mine = (lo >= 0) & (lo < B)
+    return (torch.where(mine, lo, torch.zeros_like(lo)),
+            grads * mine[:, None].to(grads.dtype))
+
+
 class KEModel:
     """KEModel (reference: general_models.py:52): the score function and
     its tables.  ``params`` is ``{"entity": (num_entities, ent_dim),
@@ -322,6 +345,7 @@ class KEModel:
             # relation vector + flattened per-relation projection matrix
             rel_dim = hidden_dim + ent_dim * hidden_dim
         self.emb_init = args["emb_init"]
+        self.entity_shard = None
         gen = torch.Generator().manual_seed(seed)
         self.params = {
             name: torch.empty(shape).uniform_(
@@ -330,11 +354,18 @@ class KEModel:
                                 ("relation", (num_relations, rel_dim)))}
 
     def shard(self, mesh) -> None:
-        """Row-shard the entity table over several cards (the JAX
-        package's mesh sharding): not ported."""
-        raise NotImplementedError(
-            "'multi-gpu': KEModel.shard needs the multi-card slice "
-            "(ROADMAP Queue 1 item 8)")
+        """Row-shard the entity table over the ranks of ``mesh``'s first
+        dimension (a ``DeviceMesh``; a process group, or None for the
+        default group, is taken as it is): this rank keeps its row block
+        of ``parallel.spmd.shard_rows``, the last block padded with zero
+        rows; ``relation`` stays replicated (model parallelism for the
+        embedding table, reference: KVStore partition_book)."""
+        from ..parallel.spmd import shard_rows
+        names = getattr(mesh, "mesh_dim_names", None)
+        self.entity_shard = shard_rows(mesh, self.params["entity"],
+                                       names[0] if names else "node")
+        self.params = {"entity": self.entity_shard.local,
+                       "relation": self.params["relation"]}
 
     # -- loss ---------------------------------------------------------------
     def loss_fn(self, params, heads, rels, tails, neg_ents,
@@ -453,12 +484,17 @@ def make_train_step(model: KEModel, tx: Adagrad, chunk_size: int,
     neg_is_head) -> (params, opt_state, loss)``: dense gradients of both
     tables, ``tx`` applied in place."""
     def step(params, opt_state, heads, rels, tails, neg_ents, neg_is_head):
-        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        sh = model.entity_shard
+        p = {k: (gather_entity(model, v) if k == "entity" else v)
+             .detach().requires_grad_(True) for k, v in params.items()}
         loss = model.loss_fn(p, heads, rels, tails, neg_ents, neg_is_head,
                              chunk_size, neg_adversarial_sampling,
                              adversarial_temperature, regularization_coef)
-        grads = torch.autograd.grad(loss, list(p.values()))
-        tx.update(params, dict(zip(p, grads)), opt_state)
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        if sh is not None:         # this rank's block of the gradient
+            from ..parallel.spmd import shard_rows
+            grads["entity"] = shard_rows(sh.group, grads["entity"]).local
+        tx.update(params, grads, opt_state)
         return params, opt_state, loss.detach()
     return step
 
@@ -472,9 +508,9 @@ def make_train_step(model: KEModel, tx: Adagrad, chunk_size: int,
 # ---------------------------------------------------------------------------
 def init_sparse_state(model: KEModel) -> Dict[str, Tensor]:
     """Per-row Adagrad accumulators for both embedding tables."""
-    dev = model.params["entity"].device
-    return {"ent_sum": torch.zeros(model.num_entities, device=dev),
-            "rel_sum": torch.zeros(model.num_relations, device=dev)}
+    ent = model.params["entity"]
+    return {"ent_sum": torch.zeros(ent.shape[0], device=ent.device),
+            "rel_sum": torch.zeros(model.num_relations, device=ent.device)}
 
 
 def _coalesce(rows: Tensor, grads: Tensor):
@@ -524,7 +560,7 @@ def make_sparse_train_step(model: KEModel, lr: float, chunk_size: int,
     rel_dim)``, whose zero rows are no-ops.
     """
     def compute(params, heads, rels, tails, neg_ents, neg_is_head):
-        ent, rel = params["entity"], params["relation"]
+        ent, rel = gather_entity(model, params["entity"]), params["relation"]
         heads, rels, tails, neg_ents = (x.long() for x in
                                         (heads, rels, tails, neg_ents))
         rows = [ent[heads], rel[rels], ent[tails], ent[neg_ents]]
@@ -539,6 +575,9 @@ def make_sparse_train_step(model: KEModel, lr: float, chunk_size: int,
 
     def apply(params, state, upd):
         ent_rows, ent_grads, rel_rows, rel_grads = upd
+        if model.entity_shard is not None:
+            ent_rows, ent_grads = _own_rows(model.entity_shard, ent_rows,
+                                            ent_grads)
         _adagrad_rows(params["entity"], state["ent_sum"], ent_rows,
                       ent_grads, lr)
         _adagrad_rows(params["relation"], state["rel_sum"], rel_rows,

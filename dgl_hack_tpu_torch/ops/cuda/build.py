@@ -180,6 +180,15 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def run(name: str, entry, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current
+    stream of ``device``, and ``check`` its status.  The entry points
+    launch on the current device, so ``device`` (the tensors' own) is made
+    current for the call: every launch of K1-K6 goes through here."""
+    with torch.cuda.device(device):
+        check(name, entry(*args, stream_ptr(device)))
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 

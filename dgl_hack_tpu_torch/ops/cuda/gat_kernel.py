@@ -57,8 +57,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .build import (LAUNCHES, check, counted, library, ptr, require,
-                    stream_ptr)
+from .build import LAUNCHES, counted, library, ptr, require, run
 from .segment_max_kernel import MINMAX_NEG, segment_max
 from .spmm_kernel import (_I32_MAX, FEATURE_DTYPES, RowPlan,
                           check_cuda_call, checked_plan, graph_row_plan,
@@ -212,11 +211,10 @@ def gat_fwd_launcher(indptr: Tensor, src: Tensor, wh: Tensor, el: Tensor,
         lane_floats = max(lane_floats or K2_LANE_FLOATS, vec)
         rst = torch.empty((N, HD), dtype=torch.float32, device=dev)
         den = torch.empty((N, H), dtype=torch.float32, device=dev)
-        check("gat_fwd", entry(
+        run("gat_fwd", entry, dev,
             ptr(indptr), ptr(src), ptr(wh), ptr(el), ptr(er), ptr(w),
             ptr(shift), ptr(rst), ptr(den), N, H, D, float(slope), vec,
-            lane_floats, *plan_args(plan, _scratch(plan, HD, H, dev)),
-            stream_ptr(dev)))
+            lane_floats, *plan_args(plan, _scratch(plan, HD, H, dev)))
         return rst, den
     return launch, shift
 
@@ -328,11 +326,11 @@ def gat_bwd_launcher(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
         draw = torch.empty((E, H), dtype=torch.float32, device=dev)
         dw = torch.empty((E, H), dtype=torch.float32, device=dev) \
             if w is not None and want_dw else None
-        check("gat_bwd", entry(
+        run("gat_bwd", entry, dev,
             ptr(csr_indptr), ptr(csr_eids), ptr(dst_csr), ptr(wh), ptr(el),
             ptr(dstp), ptr(dout), ptr(w), ptr(dwh), ptr(del_), ptr(draw),
             ptr(dw), Ns, H, D, float(slope), vec, lane_floats,
-            *plan_args(plan, _scratch(plan, HD, H, dev)), stream_ptr(dev)))
+            *plan_args(plan, _scratch(plan, HD, H, dev)))
         return dwh, del_, draw, dw
     return launch
 

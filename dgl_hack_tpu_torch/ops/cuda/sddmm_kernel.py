@@ -32,8 +32,7 @@ from typing import Optional
 import torch
 
 from ..common import apply_binary
-from .build import (LAUNCHES, check, counted, library, ptr, require,
-                    stream_ptr)
+from .build import LAUNCHES, counted, library, ptr, require, run
 from .spmm_kernel import (_I32_MAX, FEATURE_DTYPES, PLAIN_CHUNK_ELEMS,
                           check_cuda_call, graph_row_plan, segment_sum,
                           widened)
@@ -132,9 +131,9 @@ def sddmm(op: str, dst: Tensor, rhs: Tensor, lhs: Optional[Tensor] = None,
     lib = library()
     LAUNCHES.add(f"{counted('sddmm', kind)}.{site}")
     entry = lib.sddmm_bf16 if kind == torch.bfloat16 else lib.sddmm_f32
-    check("sddmm", entry(
+    run("sddmm", entry, dev,
         ptr(src), ptr(dst), ptr(lhs), ptr(rhs), ptr(out), OPS[op], E, F,
-        dot_d, stream_ptr(dev)))
+        dot_d)
     return out.to(want)
 
 

@@ -51,8 +51,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import (LAUNCHES, check, counted, library, ptr, require,
-                    stream_ptr)
+from .build import LAUNCHES, counted, library, ptr, require, run
 from .spmm_kernel import (_I32_MAX, FEATURE_DTYPES, SUM_MAX_VALUES, RowPlan,
                           accumulate_dtype, check_cuda_call, checked_plan,
                           edges_per_row, flat_weight, graph_row_plan,
@@ -183,10 +182,10 @@ def segment_max_launcher(indptr: Tensor, x: Tensor, gidx: Tensor,
             slice_cols = slice_width(x.shape[0], F, False, x.element_size(),
                                      reuse)
         out = torch.empty((num_rows, F), dtype=x.dtype, device=dev)
-        check("segment_max", getattr(library(), entry)(
+        run("segment_max", getattr(library(), entry), dev,
             ptr(indptr), ptr(gidx), ptr(x), ptr(w), w_kind, ptr(out),
             num_rows, F, vec, slice_cols,
-            *plan_args(plan, plan_scratch(plan, F)), stream_ptr(dev)))
+            *plan_args(plan, plan_scratch(plan, F)))
         return out
     return launch
 
@@ -324,11 +323,10 @@ def segment_max_bwd_launcher(csr_indptr: Tensor, dst_csr: Tensor,
         dx = torch.empty((Ns, Fx), dtype=x.dtype, device=dev)
         dw = torch.empty(w.shape, dtype=torch.float32, device=dev) \
             if want_dw else None
-        check("segment_max_bwd", getattr(library(), entry)(
+        run("segment_max_bwd", getattr(library(), entry), dev,
             ptr(csr_indptr), ptr(dst_csr), ptr(csr_eids), ptr(x), ptr(w),
             w_kind, ptr(raw), ptr(g), ptr(dx), ptr(dw), Ns, F, Fx, vec,
-            vec_x, slice_cols, *plan_args(plan, plan_scratch(plan, Fx)),
-            stream_ptr(dev)))
+            vec_x, slice_cols, *plan_args(plan, plan_scratch(plan, Fx)))
         return dx, None if dw is None else dw.to(w_dtype)
     return launch
 

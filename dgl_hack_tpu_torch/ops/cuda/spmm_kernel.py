@@ -57,8 +57,7 @@ import numpy as np
 import torch
 
 from ...core.graph import Graph
-from .build import (LAUNCHES, check, counted, library, ptr, require,
-                    stream_ptr)
+from .build import LAUNCHES, counted, library, ptr, require, run
 
 Tensor = torch.Tensor
 
@@ -451,13 +450,12 @@ def segment_sum_launcher(indptr: Tensor, x: Tensor,
         head = (ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind,
                 ptr(out))
         tail = (num_rows, F, vec, slice_cols,
-                *plan_args(plan, plan_scratch(plan, F)), stream_ptr(dev))
+                *plan_args(plan, plan_scratch(plan, F)))
         if x.dtype == torch.float32:
-            err = library().segment_sum_f32(*head, *tail)
+            run("segment_sum", library().segment_sum_f32, dev, *head, *tail)
         else:
-            err = library().segment_sum_bf16(
-                *head, int(out_dtype == torch.float32), *tail)
-        check("segment_sum", err)
+            run("segment_sum", library().segment_sum_bf16, dev, *head,
+                int(out_dtype == torch.float32), *tail)
         return out
     return launch
 

@@ -4,7 +4,9 @@ without ``--device cpu`` they refuse to run; their stand-in datasets are
 the JAX package's.  The Tree-LSTM twin's first five losses agree with the
 JAX example's loop (``pull`` per topological frontier, a UDF reduce over
 the mailbox, Adam) from the same parameters to 1e-5 (relative), and the
-PageRank twin with the JAX example's iteration to 1e-6."""
+PageRank twin with the JAX example's iteration to 1e-6; the spatial
+twin's first five losses (two spawned gloo ranks) the JAX example's loop
+on a 2-device mesh, from its initial parameters, to 2e-5."""
 import importlib.util
 import json
 import os
@@ -78,6 +80,8 @@ CLI_CASES = [
                                 "16", "--eval_triples", "50"]),
     ("train_dgmg_torch.py", ["--epochs", "6", "--n_graphs", "12",
                              "--samples", "4"]),
+    ("train_spatial_torch.py", ["--epochs", "3", "--parts", "2",
+                                "--backend", "gloo", "--nodes", "600"]),
 ]
 # the dataset name each CLI prints (the JAX twin's)
 DATASETS = {"train_gin_torch.py": "SBM-mixture",
@@ -208,6 +212,12 @@ def test_example_cli(runs, script, args):
         assert out["nll_last"] < out["nll_first"]
         assert np.isfinite(out["nll_last"])
         assert 0.0 <= out["sample_valid_frac"] <= 1.0
+        return
+    if script == "train_spatial_torch.py":
+        # the JAX CLI's line
+        assert set(out) == {"parts", "test_acc", "train_time_s", "loss"}
+        assert out["parts"] == 2 and 0.0 <= out["test_acc"] <= 1.0
+        assert np.isfinite(out["loss"]) and out["train_time_s"] > 0
         return
     if script in OTHER_LINES:
         assert set(out) == OTHER_LINES[script]
@@ -568,3 +578,44 @@ def test_dgmg_twin_matches_jax():
                             device="cpu")
     res = twin.train(model, sts, lbs, epochs=3, lr=3e-3, device="cpu")
     np.testing.assert_allclose(res["losses"], ref, rtol=1e-5)
+
+
+def test_spatial_twin_matches_jax():
+    """examples/train_spatial.py's loop (plan, spatial GCN from
+    PRNGKey(0), adam) on 2 of the 8 CPU devices, its first five losses,
+    against the twin on 2 spawned gloo ranks from the same parameters,
+    to 2e-5 relative: float32 sums in another order, which five Adam
+    steps grow (the fifth read 1.0e-5 relative)."""
+    from jax.sharding import Mesh
+    from dgl_hack_tpu.data import planted_partition
+    from dgl_hack_tpu.parallel import (build_spatial_plan, make_spatial_gcn,
+                                       shard_features, spatial_train_step)
+    twin = _twin("train_spatial_torch")
+    parts, nodes, epochs, hidden, lr = 2, 600, 5, 32, 1e-2
+    ds = planted_partition(nodes, 6, 64, avg_degree=8.0, homophily=0.88,
+                           feat_noise=1.5, seed=0, train_per_class=40,
+                           num_val=300, num_test=600)
+    mesh = Mesh(np.asarray(jax.devices()[:parts]), ("node",))
+    plan = build_spatial_plan(ds.graph, parts, method="fennel")
+    dev = plan.device_arrays()
+    init, forward = make_spatial_gcn(plan, mesh, hidden=hidden,
+                                     out_feats=ds.num_classes)
+    params = init(jax.random.PRNGKey(0), ds.features.shape[1])
+    tx = optax.adam(lr)
+    opt = tx.init(params)
+    step = spatial_train_step(forward, tx)
+    xs, ys, ms = (jnp.asarray(shard_features(plan, a)) for a in
+                  (ds.features, ds.labels, ds.train_mask))
+    ref = []
+    p = params
+    with mesh:
+        for _ in range(epochs):
+            p, opt, loss = step(p, opt, xs, dev, ys, ms)
+            ref.append(float(loss))
+    res, tplan, _ = twin.run(parts=parts, epochs=epochs, hidden=hidden,
+                             nodes=nodes, lr=lr, device="cpu",
+                             backend="gloo",
+                             params=jax.tree.map(np.asarray, params),
+                             timeout=120)
+    np.testing.assert_array_equal(tplan.owned_ids, plan.owned_ids)
+    np.testing.assert_allclose(res["losses"], ref, rtol=2e-5)

@@ -13,7 +13,8 @@
   losses to 1e-5 and the tables and accumulators to 1e-5 of their
   largest entry;
 * ``_coalesce`` with duplicate rows; ``save_emb`` files loaded by the
-  other package both ways; ``shard`` raising ``'multi-gpu'``."""
+  other package both ways; ``shard`` over a one-rank gloo group (the
+  8-rank case is in tests/test_torch_parallel.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -270,6 +271,36 @@ def test_save_emb_files_cross_packages(tmp_path):
 
 
 def test_shard_raises_multi_gpu():
-    _, tm = _models("DistMult")
-    with pytest.raises(NotImplementedError, match="'multi-gpu'"):
+    """Named when ``shard`` raised ``'multi-gpu'``: over a one-rank gloo
+    group it now shards, and a dense step from the sharded table equals
+    the JAX model's unsharded step."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        jm, tm = _models("DistMult")
         tm.shard(None)
+        assert tm.entity_shard.local.shape[0] == NE
+        rng = np.random.default_rng(5)
+        h, r, t = (rng.integers(0, n, C * S).astype(np.int32)
+                   for n in (NE, NR, NE))
+        neg = rng.integers(0, NE, (C, N)).astype(np.int32)
+        tx = tkg.adagrad(0.1)
+        tstate = tx.init(tm.params)
+        step = tkg.make_train_step(tm, tx, chunk_size=S)
+        _, _, tloss = step(tm.params, tstate, *map(torch.from_numpy,
+                                                   (h, r, t, neg)), False)
+        jtx = optax.adagrad(0.1)
+        jstep = jkg.make_train_step(jm, jtx, chunk_size=S)
+        jp, _, jloss = jstep(jm.params, jtx.init(jm.params),
+                             *map(jnp.asarray, (h, r, t, neg)),
+                             jnp.asarray(False))
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+        for k in ("entity", "relation"):
+            _close(tm.params[k].numpy(), jp[k])
+    finally:
+        dist.destroy_process_group()

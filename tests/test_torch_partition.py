@@ -11,8 +11,9 @@ packages (the JAX function's behaviour, which the port keeps);
 ``BigGraph`` compacts and partitions ids above 2^31 as the JAX one does
 through Fennel, and through the stateless hash, whose JAX branch raises
 (its constant overflows np.int64), by that expression in wrapping 64-bit
-arithmetic; ``spatial_plan`` raises until ``parallel/halo.py`` is
-ported."""
+arithmetic; ``spatial_plan`` gives the JAX plan (since
+``parallel/halo.py`` was ported; tests/test_torch_spatial_plan.py holds
+the plans field by field)."""
 import importlib
 
 import numpy as np
@@ -213,6 +214,13 @@ def test_biggraph_hash_partition():
 
 
 def test_biggraph_spatial_plan_raises():
+    """Named when the port's ``spatial_plan`` raised ``'multi-gpu'``; it
+    now builds the plan, equal to the JAX one over the compacted graph,
+    and raises nothing."""
     s, d, e = _big_edges()
-    with pytest.raises(NotImplementedError, match="'multi-gpu'"):
-        TBig(s, d, e).spatial_plan(2)
+    jp, ju = JBig(s, d, e).spatial_plan(2, method="fennel", seed=0)
+    tp, tu = TBig(s, d, e).spatial_plan(2, method="fennel", seed=0)
+    np.testing.assert_array_equal(tu, ju)
+    for name in ("src_ext", "dst_loc", "edge_mask", "send_idx", "owned_ids",
+                 "in_deg", "out_deg", "rsrc", "lsrc"):
+        np.testing.assert_array_equal(getattr(tp, name), getattr(jp, name))

@@ -173,5 +173,7 @@ def test_port_imports_with_jax_blocked():
                 "partition.partition", "core.biggraph", "data.kg",
                 "models.kg", "models.dgmg", "distributed.bootstrap",
                 "distributed.kvstore", "distributed.feature_store",
-                "distributed.dis_sampler", "native"):
+                "distributed.dis_sampler", "native", "parallel",
+                "parallel.halo", "parallel.spmd", "parallel.collectives",
+                "parallel.launch", "parallel.dryrun"):
         assert f"dgl_hack_tpu_torch.{mod}" in names, mod
