@@ -265,6 +265,23 @@ Phases, one JSON line each:
      ``nccl_one_rank``: spatial GCN over a one-part plan in a one-rank
      NCCL group against the single-graph forward.  K1, K2/K3 and K4/K5
      launch from the ranks; no plain path.
+ 40. the port's tools (``tools``, after ``hybrid``): tools/
+     regression_torch.py on its train_gcn, train_gat and pagerank rows
+     (each row ok), tools/tune_hybrid_torch.py's sweep at two (threshold,
+     budget) points in float32 and bf16 on ``headline``'s graph,
+     tools/scaling_torch.py at P = 1 and 2 over gloo with spatial GAT at
+     P = 2 on 20,000 nodes (rows ok, all_to_all bytes equal to
+     tools/scaling.py's formula) and tools/partition_torch.py on the cora
+     stand-in; ``dispatch``: DGL_TPU_DEBUG_DISPATCH=1 over gspmm sum, max,
+     a hybrid, a masked block, gsddmm and gat_attention on the card, each
+     line once after two calls;
+ 41. ``rank_kernels`` (after ``nccl_one_rank``): the kernels as the ranks
+     of ``parallel/`` run them, in one process: K1's forward and dx over
+     rank 0's local and remote splits of ``spatial_reddit``'s plan at F =
+     16, K2/K3 over its partition's real-edge view at H = 8, D = 8 and
+     H = 1, D = 41, K4/K5 over rank 0's splits of the dry run's graph at
+     F = 32, each against its plain version, timed beside it, its bound
+     and the library call.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -332,7 +349,14 @@ HYBRID_TOL = 1e-5      # a float32 hybrid against K1 alone
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2329,11 +2353,11 @@ def phase_masked_kernels(dt, sk, sm, gk, k6, checks, dev):
     return timings
 
 
-def _load_twin(name="train_sage_sampling_torch"):
-    """examples/<name>.py, imported by path."""
+def _load_twin(name="train_sage_sampling_torch", folder="examples"):
+    """<folder>/<name>.py, imported by path."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        name, os.path.join(REPO, "examples", f"{name}.py"))
+        name, os.path.join(REPO, folder, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -6447,7 +6471,7 @@ def phase_spatial_reddit(dt, build, pool, ds, g, checks, dev):
     rec["peak_gb_per_rank"] = [r_["peak_gb"] for r_ in res]
     emit({"phase": "spatial_reddit", **rec})
     checks.raise_if_failed("spatial_reddit")
-    return counts
+    return counts, plan
 
 
 SPATIAL_KERNEL_CASES = (
@@ -6683,6 +6707,383 @@ def phase_nccl_one_rank(checks):
     return res["launches"]
 
 
+TOOL_DIR = os.path.join(REPO, "build", "tools")
+# the tools phase's grid points of tools/tune_hybrid_torch.py: the port's
+# default breakeven and the JAX grid's first threshold, both at 3 GB
+TUNE_POINTS = ((None, 3), (66_000, 3))
+
+
+def _start_tool(procs, name, argv, env=None):
+    """Start python3 tools/<argv> with its output in TOOL_DIR/<name>.out
+    and .err; appended to ``procs``."""
+    with open(os.path.join(TOOL_DIR, name + ".out"), "w") as out, \
+            open(os.path.join(TOOL_DIR, name + ".err"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tools", argv[0])]
+            + argv[1:], cwd=REPO, stdout=out, stderr=err, env=env)
+    procs.append((name, argv, proc, time.perf_counter()))
+
+
+def _wait_tools(procs, timeout):
+    """Wait for every started tool: {name: (stdout, host seconds)}.  A
+    tool that exits non-zero, or runs past ``timeout`` seconds from now,
+    fails the run."""
+    deadline = time.perf_counter() + timeout
+    out = {}
+    for name, argv, proc, t0 in procs:
+        rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+        s = time.perf_counter() - t0
+        with open(os.path.join(TOOL_DIR, name + ".out")) as f:
+            text = f.read()
+        if rc != 0:
+            with open(os.path.join(TOOL_DIR, name + ".err")) as f:
+                err = f.read()
+            raise SystemExit(f"tools {argv}: rc {rc}\n{text[-3000:]}\n"
+                             f"{err[-3000:]}")
+        out[name] = (text, s)
+    return out
+
+
+def _json_lines(text):
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def phase_tools(dt, gb, checks, dev):
+    """The port's tools on the card (``tools``): tools/tune_hybrid_torch.py's
+    sweep at ``TUNE_POINTS`` in float32 and bf16 (F = 128) on bench.py's
+    graph ``gb`` (the one ``headline`` built, in this process, with the
+    card to itself); then, all started together, tools/regression_torch.py
+    on three rows of its matrix (train_gcn, train_gat, pagerank: a
+    process each), each row ok; tools/scaling_torch.py at P = 1 and 2
+    over gloo (ranks sharing the card) with spatial GAT at P = 2 on 20,000
+    nodes, every row ok and its all_to_all bytes equal to tools/
+    scaling.py's formula (P^2 s_max + P^2 hk_max rows a layer at the
+    wire's bytes); and tools/partition_torch.py on the cora stand-in (4
+    parts, a file a part; host only).  The tools share the card and the
+    host here, so their times are a smoke reading, not a measurement (the
+    tools alone are, e.g. the sweep in PERF.md).  A tool that fails fails
+    the run; no tool outlives the phase."""
+    os.makedirs(TOOL_DIR, exist_ok=True)
+    rec = {}
+    # tune_hybrid_torch.py's sweep on this process's bench.py graph
+    tune = _load_twin("tune_hybrid_torch", "tools")
+    x32 = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(gb.num_src_nodes, 128)).astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    rec["tune_hybrid"] = []
+    for dtype in (torch.float32, BF16):
+        rec["tune_hybrid"] += tune.sweep(gb, x32.to(dtype), TUNE_POINTS)
+    rec["tune_hybrid_s"] = time.perf_counter() - t0
+    del x32
+    torch.cuda.empty_cache()
+    for r_ in rec["tune_hybrid"]:
+        if not (np.isfinite(r_["ms"]) and r_["ms"] > 0):
+            checks.failures.append(f"tools tune_hybrid: {r_}")
+    procs = []
+    try:
+        # the other tools together: three rows of regression_torch.py's
+        # matrix, scaling_torch.py (P = 1, 2 over gloo, spatial GAT at
+        # P = 2) and the partition tool (host only)
+        rows_wanted = ("train_gcn", "train_gat", "pagerank")
+        t0 = time.perf_counter()
+        for row in rows_wanted:
+            _start_tool(procs, f"regression_{row}", [
+                "regression_torch.py", "--only", row, "--out",
+                os.path.join(TOOL_DIR, f"regression_{row}.json")])
+        _start_tool(procs, "scaling", [
+            "scaling_torch.py", "--backend", "gloo", "--parts", "1", "2",
+            "--nodes", "20000", "--models", "gat", "--model-nodes", "20000",
+            "--model-parts", "2", "--clustered-nodes", "4000"])
+        prefix = os.path.join(TOOL_DIR, "parts", "cora")
+        _start_tool(procs, "partition", [
+            "partition_torch.py", "--dataset", "cora", "--num-parts", "4",
+            "--output", prefix], env=dict(
+                os.environ, DGL_DOWNLOAD_DIR=os.path.join(TOOL_DIR,
+                                                          "nodata")))
+        done = _wait_tools(procs, timeout=600)
+        rec["tools_s"] = time.perf_counter() - t0
+    finally:
+        for _, _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rows, device = [], None
+    for row in rows_wanted:
+        with open(os.path.join(TOOL_DIR, f"regression_{row}.json")) as f:
+            rep = json.load(f)
+        rows += rep["runs"]
+        device = rep["device"]
+    for r_ in rows:
+        print(json.dumps(r_), flush=True)
+    if sorted(r_["script"] for r_ in rows) != [
+            "pagerank_torch.py", "train_gat_torch.py",
+            "train_gcn_torch.py"] or not all(r_["ok"] for r_ in rows):
+        checks.failures.append(f"tools regression: {rows}")
+    rec["regression"] = {"device": device, "rows": [
+        {k: r_[k] for k in ("script", "ok", "wall_s", "result")}
+        for r_ in rows]}
+    out, rec["scaling_s"] = done["scaling"]
+    lines = _json_lines(out)
+    rec["scaling"] = lines
+    wire = {"f32": 4, "bf16": 2}
+    seen = set()
+    for r_ in lines:
+        if "compare" in r_:
+            continue
+        P = r_["P"]
+        # padded rows an exchange: P^2 s_max pairwise + P^2 hk_max hubs
+        rows_ = r_["halo_rows_padded"] + P * r_["hub_rows_padded"]
+        nb = wire[r_["comm_dtype"]]
+        if "model" in r_:
+            # spatial GAT: F = 128 in, 4 heads x 32 hidden out of layer 1
+            want_layer = [rows_ * w_ * nb for w_ in (128, 4 * 32)]
+            ok = r_["a2a_bytes_per_layer_fwd"] == want_layer and \
+                r_["a2a_bytes_per_step"] == 2 * sum(want_layer)
+            seen.add(("gat", P))
+        else:
+            ok = r_["a2a_bytes_per_step"] == rows_ * 128 * nb
+            seen.add(("copy", P))
+        if not (ok and r_["ok"] and r_["backend"] == "gloo"
+                and r_["ranks_share_card"] == (P > 1)):
+            checks.failures.append(f"tools scaling: {r_}")
+    if seen != {("copy", 1), ("copy", 2), ("gat", 2)}:
+        checks.failures.append(f"tools scaling: rows {sorted(seen)}")
+    out, rec["partition_s"] = done["partition"]
+    rec["partition"] = [ln for ln in out.splitlines()
+                        if ln.startswith("part ")]
+    if len(rec["partition"]) != 4 or not all(
+            os.path.exists(f"{prefix}.part{i}.npz") for i in range(4)):
+        checks.failures.append(f"tools partition: {out}")
+    emit({"phase": "tools", **rec})
+    checks.raise_if_failed("tools")
+
+
+def phase_dispatch(dt, build, checks, dev):
+    """``DGL_TPU_DEBUG_DISPATCH=1`` on the card (``dispatch``): gspmm sum
+    (K1), max (K4/K5), a hybrid (dense hub + K1), a masked block (K1
+    through the real-edge view), gsddmm (K6) and gat_attention (K2), each
+    called twice: every expected line printed exactly once, no composed
+    route, each kernel launched."""
+    import contextlib as _cl
+    import io
+    from dgl_hack_tpu_torch.utils import env
+    rng = np.random.default_rng(31)
+    n, e = 4096, 40_000
+    src = rng.integers(0, n, e)
+    dst = np.where(rng.random(e) < 0.8, rng.integers(0, 40, e),
+                   rng.integers(0, n, e))
+    g = dt.graph((src, dst), num_nodes=n).to(dev)
+    gh = dt.prepare_spmm(g, dense_threshold=512)
+    ms, md = rng.integers(0, 2048, 20_000), np.sort(rng.integers(0, 512,
+                                                                 20_000))
+    gm = dt.block((ms, md), 2048, 512, edge_mask=rng.random(20_000) < 0.7
+                  ).to(dev)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev)
+    x, xm = t(n, 16), t(2048, 16)
+    fs, el, er = t(n, 4, 4), t(n, 4), t(n, 4)
+    calls = (
+        (lambda: dt.gspmm(g, "copy_lhs", "sum", x),
+         "gspmm: kernel (copy_lhs.sum, K1, cuda)"),
+        (lambda: dt.gspmm(g, "copy_lhs", "max", x),
+         "gspmm: kernel (copy_lhs.max, K4/K5, cuda)"),
+        (lambda: dt.gspmm(gh, "copy_lhs", "sum", x),
+         "gspmm: hybrid (copy_lhs.sum, cuda)"),
+        (lambda: dt.gspmm(gm, "copy_lhs", "sum", xm),
+         "gspmm: kernel (copy_lhs.sum, K1, real-edge-view, cuda)"),
+        (lambda: dt.gsddmm(g, "dot", x, x),
+         "gsddmm: kernel (dot u-op-v, K6, cuda)"),
+        (lambda: dt.gat_attention(g, fs, el, er),
+         "gat: kernel (K2/K3, H=4 D=4 softmax=shift packed=False)"))
+    if "hybrid" not in gh.derived:
+        raise SystemExit("dispatch failed: no hybrid built")
+    old = os.environ.get("DGL_TPU_DEBUG_DISPATCH")
+    os.environ["DGL_TPU_DEBUG_DISPATCH"] = "1"
+    env._PRINTED.clear()
+    build.LAUNCHES.reset()
+    buf = io.StringIO()
+    with _cl.redirect_stdout(buf), torch.no_grad():
+        for _ in range(2):
+            for call, _ in calls:
+                call()
+        torch.cuda.synchronize()
+    if old is None:
+        del os.environ["DGL_TPU_DEBUG_DISPATCH"]
+    else:
+        os.environ["DGL_TPU_DEBUG_DISPATCH"] = old
+    counts = dict(build.LAUNCHES.counts)
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("[dgl-tpu dispatch] ")]
+    want = ["[dgl-tpu dispatch] " + w for _, w in calls]
+    seen = {w: lines.count(w) for w in want}
+    emit({"phase": "dispatch", "lines": lines, "counts": seen,
+          "launches": counts})
+    if any(c != 1 for c in seen.values()) or any(
+            "composed" in ln for ln in lines) or any(
+            _launched(counts, k) < 1 for k in (
+                "segment_sum", "segment_max", "sddmm", "gat_fwd")) or any(
+            k.startswith("plain.") for k in counts):
+        raise SystemExit(f"dispatch failed: {seen}, {lines}, {counts}")
+
+
+def _rank_k1(sk, g, F, checks, rng, tag):
+    """K1's forward and dx over a rank's split graph ``g`` (masked) through
+    its real-edge view at gspmm's run width, each against the plain
+    version in float64, timed beside it and torch.sparse.mm, with the
+    bound of what the real edges need."""
+    kg = sk.real_edges(g).graph
+    Ns, Nd, R = kg.num_src_nodes, kg.num_dst_nodes, kg.num_edges()
+    rows_read = int(torch.unique(kg.src).numel())
+    dst_rows = int((kg.in_degrees() > 0).sum())
+    x = torch.from_numpy(rng.normal(size=(Ns, F)).astype(np.float32)).to(
+        kg.device)
+    Fp = sk.run_width(x, None, kg)
+    xp = sk.pad_columns(x, Fp)
+    p_fwd, p_rev = sk.graph_row_plan(kg, "csc"), sk.graph_row_plan(kg, "csr")
+    fwd = (kg.csc_indptr, xp, kg.src)
+    err = {"fwd": checks.compare(
+        "segment_sum", f"{tag} F={F} fwd", sk.segment_sum(*fwd, plan=p_fwd),
+        k1_ref(sk, *fwd), K1_TOL, sk.segment_sum(*fwd, plan=p_fwd))}
+    shape = (f"{tag}: {Ns} src rows, {Nd} dst rows, {R} real of "
+             f"{g.num_edges()} slots, F={F}" + (f" padded to {Fp}"
+                                                if Fp != F else ""))
+    A = csr_matrix(kg)
+    out = {"k1_fwd": timing(
+        both_ms(lambda: sk.segment_sum(*fwd, plan=p_fwd)),
+        cuda_ms(lambda: sk.segment_sum_plain(*fwd), reps=3),
+        nbytes(kg.csc_indptr, kg.src) + 4 * F * (rows_read + Nd), R * F,
+        shape + ", fwd",
+        library_ms=cuda_ms(lambda: torch.sparse.mm(A, xp), reps=3))}
+    dout = torch.from_numpy(rng.normal(size=(Nd, Fp)).astype(np.float32)
+                            ).to(kg.device)
+    rev = (kg.csr_indptr, dout, sk.rev_gidx(kg), kg.csr_eids)
+    err["dx"] = checks.compare(
+        "segment_sum", f"{tag} F={F} dx", sk.segment_sum(*rev, plan=p_rev),
+        k1_ref(sk, *rev), K1_TOL, sk.segment_sum(*rev, plan=p_rev))
+    At = csr_matrix(kg, reverse=True)
+    out["k1_dx"] = timing(
+        both_ms(lambda: sk.segment_sum(*rev, plan=p_rev)),
+        cuda_ms(lambda: sk.segment_sum_plain(*rev), reps=3),
+        nbytes(kg.csr_indptr, rev[2]) + 4 * F * (dst_rows + Ns), R * F,
+        shape + ", dx",
+        library_ms=cuda_ms(lambda: torch.sparse.mm(At, dout), reps=3))
+    out["rel_err"] = err
+    return out
+
+
+def _rank_gat(gk, sk, kg, H, D, checks, rng, tag):
+    """K2 and K3 (and K1's der) over a rank's partition view ``kg`` (an
+    unmasked block: src rows [own || halo || hubs], dst rows the owned) at
+    head shape (H, D) with attn_w, each against its plain version within
+    GAT_TOL and repeated bitwise; timed beside it (K3 with no dw, as the
+    main path runs it), each input and output counted once in the
+    bound."""
+    dev = kg.device
+    Ns, Nd, E = kg.num_src_nodes, kg.num_dst_nodes, kg.num_edges()
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev)
+    wh, el, er, dout = t(Ns, H * D), t(Ns, H), t(Nd, H), t(Nd, H * D)
+    w = torch.from_numpy((rng.random((E, H)) > 0.6).astype(np.float32)
+                         / 0.4).to(dev)
+    shift = gk.shift_bound(el, er, 0.2).contiguous()
+    p_fwd, p_rev = sk.graph_row_plan(kg, "csc"), sk.graph_row_plan(kg, "csr")
+    fwd_args = (kg.csc_indptr, kg.src, wh, el, er, w, shift, 0.2, False)
+    rst, den, sh = gk.gat_fwd(*fwd_args, plan=p_fwd)
+    again = gk.gat_fwd(*fwd_args, plan=p_fwd)
+    ref = gk.gat_fwd_plain(*fwd_args)
+    err = {}
+    for i, name in enumerate(("rst", "den")):
+        err[name] = checks.compare("gat_fwd", f"{tag} H={H} D={D} {name}",
+                                   (rst, den)[i], ref[i], GAT_TOL, again[i])
+    sds = (rst.view(Nd, H, D) * dout.view(Nd, H, D)).sum(-1).contiguous()
+    bwd_args = (kg.csr_indptr, kg.csr_eids, sk.rev_gidx(kg), wh, el, er, sh,
+                den, sds, dout, w, 0.2)
+    outs = gk.gat_bwd(*bwd_args, plan=p_rev)
+    outs2 = gk.gat_bwd(*bwd_args, plan=p_rev)
+    refs = gk.gat_bwd_plain(*bwd_args)
+    for name, a, b, r in zip(("dwh", "del", "draw", "dw"), outs, outs2,
+                             refs):
+        err[name] = checks.compare("gat_bwd", f"{tag} H={H} D={D} {name}",
+                                   a, r, GAT_TOL, b)
+    shape = (f"{tag}: {Ns} src rows, {Nd} dst rows, {E} edges, H={H}, "
+             f"D={D}, attn_w")
+    res = {"rel_err": err, "gat_fwd": timing(
+        both_ms(lambda: gk.gat_fwd(*fwd_args, plan=p_fwd)),
+        cuda_ms(lambda: gk.gat_fwd_plain(*fwd_args), reps=3),
+        nbytes(kg.csc_indptr, kg.src, wh, el, er, w, shift, rst, den),
+        E * H * (8 + 2 * D), shape + ", shift mode")}
+    res["gat_bwd"] = timing(
+        both_ms(lambda: gk.gat_bwd(*bwd_args, False, plan=p_rev)),
+        cuda_ms(lambda: gk.gat_bwd_plain(*bwd_args, False), reps=3),
+        nbytes(*bwd_args[:11], *outs[:3]), E * H * (12 + 4 * D),
+        shape + ", no dw")
+    del ref, refs, outs, outs2, fwd_args, bwd_args
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_rank_kernels(dt, sk, sm, gk, plan, checks, dev):
+    """The kernels as the ranks of ``parallel/`` run them, in this one
+    process (``rank_kernels``): K1's forward and dx over rank 0's local
+    and remote split graphs of ``spatial_reddit``'s plan (Reddit in 4
+    Fennel parts, hubs replicated) at the spatial GCN's F = 16; K2/K3 over
+    rank 0's partition through its real-edge view at the spatial GAT's
+    H = 8, D = 8 and H = 1, D = 41; K4/K5 over rank 0's splits of the dry
+    run's graph (``spatial_kernels``' plan: 2,048 nodes in 4 parts) at
+    F = 32.  Each against its plain version (K1, K5 in float64; K4
+    exactly; K2/K3 within GAT_TOL), timed with ``cuda_ms`` beside it,
+    its bound and the library call (``torch.sparse.mm`` for K1; none for
+    K2/K3 and K4/K5: no single PyTorch call computes either)."""
+    from dgl_hack_tpu_torch.data import planted_partition
+    from dgl_hack_tpu_torch.parallel import halo as H
+    rng = np.random.default_rng(41)
+    t0 = time.perf_counter()
+    d0 = plan.device_arrays(0, dev)
+    res = {"device_arrays_s": time.perf_counter() - t0}
+    for split in ("local", "remote"):
+        res[f"k1_{split}"] = _rank_k1(
+            sk, H.split_graph(plan, d0, split), SPATIAL["gcn_hidden"],
+            checks, rng, f"Reddit rank 0 {split} split")
+    view = sk.real_edges(H.local_graph(plan, d0))
+    kg = view.graph
+    res["partition"] = {"src_rows": kg.num_src_nodes,
+                        "dst_rows": kg.num_dst_nodes,
+                        "real_edges": kg.num_edges(),
+                        "slots": H.local_graph(plan, d0).num_edges()}
+    for Hh, D in ((SPATIAL["gat_heads"][0], SPATIAL["gat_hidden"]),
+                  (1, 41)):
+        res[f"gat_H{Hh}_D{D}"] = _rank_gat(
+            gk, sk, kg, Hh, D, checks, rng,
+            "Reddit rank 0 partition (real-edge view)")
+    del d0, view, kg
+    torch.cuda.empty_cache()
+    P = SPATIAL["parts"]
+    ds = planted_partition(512 * P, 4, 32, avg_degree=4.0, seed=0,
+                           train_per_class=4, num_val=8, num_test=8)
+    dry = H.build_spatial_plan(ds.graph, P, "fennel", seed=0)
+    d0 = dry.device_arrays(0, dev)
+    for split in ("local", "remote"):
+        kg = sk.real_edges(H.split_graph(dry, d0, split)).graph
+        x = torch.relu(torch.from_numpy(rng.normal(
+            size=(kg.num_src_nodes, 32)).astype(np.float32)).to(dev))
+        gout = torch.from_numpy(rng.normal(
+            size=(kg.num_dst_nodes, 32)).astype(np.float32)).to(dev)
+        tag = (f"dry run's graph, rank 0 {split} split: "
+               f"{kg.num_src_nodes} src rows, {kg.num_dst_nodes} dst rows, "
+               f"{kg.num_edges()} edges, F=32")
+        raw, errs, _ = _k4k5_case(sm, sk, kg, x, None, gout, checks, tag)
+        k4, k5 = _k4k5_timings(sm, sk, kg, x, gout, raw, tag)
+        res[f"k4k5_{split}"] = {"rel_err": errs, "k4": k4, "k5": k5}
+    emit({"phase": "rank_kernels", **res,
+          "library": "torch.sparse.mm for K1; none for K2/K3 and K4/K5 "
+                     "(no single PyTorch call computes them)"})
+    checks.raise_if_failed("rank_kernels")
+
+
 def phase_entry(dt, dev):
     """Twin of __graft_entry__.entry(): GAT forward on a 512-node graph,
     held against the same model on the CPU (plain path)."""
@@ -6746,7 +7147,11 @@ def main() -> int:
                                         checks, dev, timings)
     g_hybrid, c_headline = phase_headline(dt, sk, g_bench, checks, dev)
     phase_hybrid(dt, sk, g_bench, g_hybrid, checks, dev)
-    del g_bench, g_hybrid
+    del g_hybrid
+    torch.cuda.empty_cache()
+    phase_tools(dt, g_bench, checks, dev)
+    phase_dispatch(dt, build, checks, dev)
+    del g_bench
     torch.cuda.empty_cache()
     phase_k4k5_small(sm, sk, g_small, checks)
     phase_k4k5_plan(dt, sm, sk, plan_edges, checks, dev)
@@ -6784,12 +7189,16 @@ def main() -> int:
     with RankPool(SPATIAL["parts"], "gloo", "cuda", timeout=300) as pool:
         emit({"phase": "rank_pool", "ranks": SPATIAL["parts"],
               "backend": "gloo", "start_s": time.perf_counter() - t0})
-        c_spatial = phase_spatial_reddit(dt, build, pool, ds, g, checks, dev)
+        c_spatial, reddit_plan = phase_spatial_reddit(dt, build, pool, ds, g,
+                                                      checks, dev)
         del ds, g
         torch.cuda.empty_cache()
         c_skern = phase_spatial_kernels(dt, build, pool, checks, dev)
         c_mdry = phase_multichip_dryrun(pool, checks)
     c_nccl = phase_nccl_one_rank(checks)
+    phase_rank_kernels(dt, sk, sm, gk, reddit_plan, checks, dev)
+    del reddit_plan
+    torch.cuda.empty_cache()
     c_tf = phase_transformer(build, k6, checks, dev, timings)
     c_gin = phase_gin_train(build, checks, dev)
     phase_layers(dt, build, checks, dev)

@@ -14,6 +14,8 @@ fsrc's dtype; each operand's gradient comes back in its own dtype, rounded
 once.  With ``DGL_TPU_GAT_PACKED=1`` the features are read rounded to bf16
 (round to nearest even) where H * D is even, the logits exact, and the
 gradient goes straight through the rounding (``_gat_fused_bwd``).
+``DGL_TPU_DEBUG_DISPATCH=1`` prints ``kernel`` (the card) or ``plain`` (the
+CPU) once per distinct call (``utils/env.py:dispatch_log``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..utils.env import get_config
+from ..utils.env import dispatch_log, get_config
 from .cuda.gat_kernel import gat_attention_fused
 from .cuda.spmm_kernel import widened
 from .edge_softmax import edge_softmax
@@ -77,13 +79,18 @@ def gat_attention(g, fsrc: Tensor, el: Tensor, er: Tensor,
     if attn_w is not None and g.edge_mask is not None:
         attn_w = attn_w * g.edge_mask[:, None].to(attn_w.dtype)
     cfg = get_config()
+    H, D = fsrc.shape[1], fsrc.shape[2]
+    detail = (f"H={H} D={D} softmax={cfg.gat_softmax} "
+              f"packed={cfg.gat_packed}")
     if fsrc.is_cuda:
+        dispatch_log("gat", "kernel", "K2/K3, " + detail + (
+            ", real-edge-view" if g.edge_mask is not None else ""))
         return gat_attention_fused(g, fsrc, el, er, negative_slope, attn_w,
                                    softmax=cfg.gat_softmax,
                                    packed=cfg.gat_packed)
+    dispatch_log("gat", "plain", detail)
     out_dtype = fsrc.dtype
     fsrc, el, er, attn_w = map(widened, (fsrc, el, er, attn_w))
-    H, D = fsrc.shape[1], fsrc.shape[2]
     if cfg.gat_packed and (H * D) % 2 == 0:
         fsrc = RoundToBf16.apply(fsrc)
     e = gsddmm(g, "add", el[:, :, None], er[:, :, None], "u", "v")

@@ -11,6 +11,8 @@ Dispatch as in ``dgl_hack_tpu.ops.sddmm.gsddmm``:
   on CUDA, its plain version on the CPU;
 * everything else composes (gather both operands per edge and combine);
   on CUDA it counts ``plain.gsddmm_composed``.
+* ``DGL_TPU_DEBUG_DISPATCH=1`` prints ``kernel`` or ``composed`` once
+  per distinct call (``utils/env.py:dispatch_log``);
 * a masked graph takes the same dispatch over **every** edge, the padded
   ones included, and never reads the mask: the function the JAX package
   computes, whose gsddmm composes on masked graphs without the mask.
@@ -24,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.env import dispatch_log
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
 from .cuda.sddmm_kernel import gsddmm_kernel
@@ -67,6 +70,9 @@ def gsddmm(g, op: str, lhs_data: Optional[Tensor] = None,
         lhs_target, rhs_target = rhs_target, "v"
     if rhs_target == "v" and _kernel_eligible(g, op, lhs_data, rhs_data,
                                               lhs_target):
+        dispatch_log("gsddmm", "kernel",
+                     f"{op} {lhs_target}-op-v, K6, "
+                     f"{'cuda' if data.is_cuda else 'cpu, plain version'}")
         out = gsddmm_kernel(g, op, None if op == "copy_rhs" else lhs_data,
                             rhs_data, lhs_target)
         if swap_sign:
@@ -75,6 +81,9 @@ def gsddmm(g, op: str, lhs_data: Optional[Tensor] = None,
         if swap_sign:            # undo the normalisation for composing
             lhs_data, rhs_data = rhs_data, lhs_data
             lhs_target, rhs_target = "v", lhs_target
+        dispatch_log("gsddmm", "composed",
+                     f"{op} {lhs_target}-op-{rhs_target}, "
+                     f"{data.device.type}")
         if data.is_cuda:
             LAUNCHES.add("plain.gsddmm_composed")
         lhs = None if op == "copy_rhs" else gather_edge_operand(

@@ -49,6 +49,11 @@ A masked graph reaches K1 and K4/K5 through its real-edge view
 (``ops/cuda/spmm_kernel.py:real_edges``), and mean divides by the count
 of real in-edges (``real_in_degrees``), as the JAX package's masked
 reduction does.
+
+With ``DGL_TPU_DEBUG_DISPATCH=1`` each call names its route once
+(``utils/env.py:dispatch_log``): ``v-rewrite``, ``hybrid``, ``rows``,
+``kernel`` (K1 or K4/K5; the plain versions on the CPU), and for the rest
+``composed`` on the card, ``plain`` on the CPU.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.env import dispatch_log
 from . import segment
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
@@ -95,6 +101,16 @@ def _hybrid_eligible(g, op: str, reduce_op: str, lhs_data,
             and op == "copy_lhs" and lhs_target == "u"
             and reduce_op in ("sum", "mean")
             and lhs_data.is_floating_point())
+
+
+def _on(data: Tensor) -> str:
+    """Where a route runs, for the dispatch log: the kernel on the card,
+    its plain version on the CPU."""
+    return "cuda" if data.is_cuda else "cpu, plain version"
+
+
+def _view(g) -> str:
+    return ", real-edge-view" if g.edge_mask is not None else ""
 
 
 def _mean(g, out: Tensor) -> Tensor:
@@ -179,12 +195,15 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
     if reduce_op not in REDUCERS:
         raise ValueError(f"unknown reducer {reduce_op!r}")
     data = lhs_data if lhs_data is not None else rhs_data
+    combo = f"{op}.{reduce_op}"
     if "v" in (lhs_target, rhs_target):
         out = _v_side_decompose(g, op, reduce_op, lhs_data, rhs_data,
                                 lhs_target, rhs_target)
         if out is not None:
+            dispatch_log("gspmm", "v-rewrite", combo)
             return out
     if _hybrid_eligible(g, op, reduce_op, lhs_data, lhs_target):
+        dispatch_log("gspmm", "hybrid", f"{combo}, {_on(data)}")
         out = gspmm_hybrid(g, lhs_data)
         return _mean(g, out) if reduce_op == "mean" else out
     copied = (lhs_target if op == "copy_lhs" else
@@ -192,17 +211,26 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
     if copied == "e" and reduce_op in ("sum", "mean") \
             and data.is_floating_point() \
             and (data.is_cuda or g.edge_mask is None):
+        dispatch_log("gspmm", "rows", f"{combo}, K1 over segments, "
+                     f"{_on(data)}")
         return gspmm_rows(g, data, reduce_op)
     kernel = data.is_floating_point() and _kernel_shaped(
         op, lhs_data, rhs_data, lhs_target, rhs_target)
     w = rhs_data if op == "mul" else None
     if kernel and reduce_op in ("max", "min"):
+        dispatch_log("gspmm", "kernel", f"{combo}, K4/K5{_view(g)}, "
+                     f"{_on(data)}")
         return gspmm_max(g, lhs_data, w, reduce_op)
     if kernel and data.is_cuda and reduce_op in ("sum", "mean"):
+        dispatch_log("gspmm", "kernel", f"{combo}, K1{_view(g)}, "
+                     f"{_on(data)}")
         out = gspmm_sum(g, lhs_data, w)
         return _mean(g, out) if reduce_op == "mean" else out
     if data.is_cuda:
+        dispatch_log("gspmm", "composed", combo)
         LAUNCHES.add("plain.gspmm_composed")
+    else:
+        dispatch_log("gspmm", "plain", combo)
     acc = accumulate_dtype(data.dtype)
     narrow = reduce_op in ("sum", "mean") and acc != data.dtype
     if narrow:

@@ -9,6 +9,11 @@
       (round to nearest even) where H*D is even, with float32 logits; the
       backward differentiates that function straight through (dWh in
       float32).  Anything else: off.
+  DGL_TPU_DEBUG_DISPATCH  "1": gspmm, gsddmm and gat_attention print which
+      route a call took, ``[dgl-tpu dispatch] {op}: {path} ({detail})``,
+      once per distinct line per process (``dispatch_log``).  The JAX
+      package prints once per trace; eager torch dispatches every call,
+      so a line already printed is not printed again.
 
 The variables are the JAX package's own, so one setting drives both
 packages in the parity tests.  The port has no switch that turns a kernel
@@ -26,6 +31,11 @@ GAT_SOFTMAX_MODES = ("shift", "exact")
 class Config:
     gat_softmax: str = "shift"
     gat_packed: bool = False
+    debug_dispatch: bool = False
+
+
+def _debug_dispatch() -> bool:
+    return os.environ.get("DGL_TPU_DEBUG_DISPATCH", "0") == "1"
 
 
 def get_config() -> Config:
@@ -34,4 +44,24 @@ def get_config() -> Config:
         raise ValueError(f"DGL_TPU_GAT_SOFTMAX={mode!r}; expected one of "
                          f"{GAT_SOFTMAX_MODES}")
     return Config(gat_softmax=mode,
-                  gat_packed=os.environ.get("DGL_TPU_GAT_PACKED", "0") == "1")
+                  gat_packed=os.environ.get("DGL_TPU_GAT_PACKED", "0") == "1",
+                  debug_dispatch=_debug_dispatch())
+
+
+# the dispatch lines this process has printed
+_PRINTED: set = set()
+
+
+def dispatch_log(op: str, path: str, detail: str = "") -> None:
+    """Print ``[dgl-tpu dispatch] {op}: {path} ({detail})`` where
+    ``DGL_TPU_DEBUG_DISPATCH=1`` and this process has not printed that line
+    yet.  The variable is read at each call; unset, nothing is printed.
+    It reports the route; it chooses none."""
+    if not _debug_dispatch():
+        return
+    msg = f"[dgl-tpu dispatch] {op}: {path}"
+    if detail:
+        msg += f" ({detail})"
+    if msg not in _PRINTED:
+        _PRINTED.add(msg)
+        print(msg, flush=True)

@@ -178,8 +178,11 @@ def train(ds, *, fanouts=(10, 25), batch_size=1024, num_hidden=16,
 
 def main():
     p = argparse.ArgumentParser()
+    # either name loads RedditDataset: the raw files under
+    # DGL_DOWNLOAD_DIR where they are there, else the synthetic stand-in
+    # at --reddit-scale (the JAX example reads no value from the flag)
     p.add_argument("--dataset", default="reddit-synth",
-                   choices=["reddit-synth"])
+                   choices=["reddit-synth", "reddit"])
     p.add_argument("--reddit-scale", type=float, default=0.05)
     p.add_argument("--num-epochs", type=int, default=3)
     p.add_argument("--batch-size", type=int, default=1024)

@@ -3,7 +3,8 @@
 * Per-step losses of train_node_classifier against a JAX loop of
   model.apply + optax.adamw from the same parameters, dropout 0: 1e-4
   relative (five AdamW steps compound the f32 rounding).
-* The port imports neither jax, flax, optax nor dgl_hack_tpu.
+* The port, chip_smoke.py, the twins and the port's tools
+  (tools/*_torch.py) import neither jax, flax, optax nor dgl_hack_tpu.
 """
 import os
 import pathlib
@@ -136,8 +137,12 @@ _FORBIDDEN = re.compile(
 
 def test_port_never_imports_jax_source():
     files = sorted((ROOT / "dgl_hack_tpu_torch").rglob("*.py"))
+    tools = sorted((ROOT / "tools").glob("*_torch.py"))
+    assert {f.name for f in tools} >= {
+        "partition_torch.py", "regression_torch.py", "tune_hybrid_torch.py",
+        "scaling_torch.py", "validate_real_torch.py"}
     files += [ROOT / "chip_smoke.py",
-              *sorted((ROOT / "examples").glob("*_torch.py"))]
+              *sorted((ROOT / "examples").glob("*_torch.py")), *tools]
     assert len(files) > 15
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
@@ -154,6 +159,12 @@ def test_port_imports_with_jax_blocked():
         " 'dgl_hack_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "import glob, importlib.util\n"
+        "for path in sorted(glob.glob('tools/*_torch.py')):\n"
+        "    spec = importlib.util.spec_from_file_location('t', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    assert not any(k.split('.')[0] == 'dgl_hack_tpu'\n"
+        "                   for k in sys.modules if sys.modules[k])\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax')\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
         "print(' '.join(names))\n"
