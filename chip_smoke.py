@@ -110,6 +110,14 @@ Phases, one JSON line each:
      shapes (the pair graph's forward with no weight and with an (E,)
      norm, its dx over the CSR rows, the edge-row pair sum) against its
      plain version, timed beside torch.sparse.mm / torch.segment_reduce;
+     K1's packed route (``k1_short_rows``): the pair graph's forward, dx
+     and per-dst sums, a 0-hop Cluster-GCN part and a mixed graph of hub
+     pieces, short, single and empty rows, at F in {1, 7, 8, 10, 16, 32,
+     41}, every weight kind, float32 and bf16, a misaligned x, against
+     the plain version in float64 and bitwise repeated, timed beside the
+     rows route, the bound, the plain version and the library, with each
+     graph's route and its gspmm dispatch line (K1 packed on the pair
+     graph and the 0-hop part);
      a small RelGraphConv (basis with and without w_comp, with and
      without the plan, bdd, a norm) against the CPU; a warm-up step and 5
      epochs with peak memory, prepare_rgcn's seconds and one profiled
@@ -2765,6 +2773,237 @@ def _rgcn_k1(sk, plan, x, checks):
     return res
 
 
+# K1's packed route over short rows (``k1_short_rows``)
+SHORT_FS = (1, 7, 8, 10, 16, 32, 41)
+# (weight kind, dtype) cases: every weight kind in float32, none and (E,)
+# over bf16 rows (a bf16 x loads the same weights)
+SHORT_CASES = (("none", torch.float32), ("E", torch.float32),
+               ("EF", torch.float32), ("head", torch.float32),
+               ("none", torch.bfloat16), ("E", torch.bfloat16))
+ZERO_HOP_ROWS = 28_831          # a 0-hop Cluster-GCN part of Reddit
+
+
+def _mixed_short_graph(dt, dev, rng, n=200_000):
+    """A graph of many short rows around long ones: 3 hub dst rows of
+    40,000 edges (157 pieces each), rows of 17-200 edges (a warp each),
+    and runs of one-edge, 2-16-edge and empty rows; src uniform."""
+    kind = rng.random(n)
+    deg = np.where(kind < 0.55, 1, np.where(kind < 0.75, 0, np.where(
+        kind < 0.95, rng.integers(2, 17, n), rng.integers(17, 201, n))))
+    deg[[7, n // 2, n - 3]] = 40_000
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n, dst.shape[0])
+    return dt.prepare_spmm(dt.graph((src, dst), num_nodes=n),
+                           dense_hub=False, device=dev)
+
+
+def _short_modes(sk, g):
+    """{mode: (indptr, gidx, eid, rows of x, plan, csr for the library)}:
+    the forward over the CSC rows, dx over the CSR rows and edge-row mode
+    over the CSC rows."""
+    return {
+        "fwd": (g.csc_indptr, g.src, None, g.num_src_nodes,
+                sk.graph_row_plan(g, "csc"), csr_matrix(g)),
+        "dx": (g.csr_indptr, sk.rev_gidx(g), g.csr_eids, g.num_dst_nodes,
+               sk.graph_row_plan(g, "csr"), csr_matrix(g, reverse=True)),
+        "edge": (g.csc_indptr, None, None, g.num_edges(),
+                 sk.graph_row_plan(g, "csc"), None)}
+
+
+def _short_weight(kind, E, F, gen, dev):
+    """An edge weight of ``kind``: None, (E,), (E, F), or per head ((E, H,
+    1) broadcast over H heads of F / H columns, H = 2 where F is even, as
+    flat_weight hands it to K1)."""
+    from dgl_hack_tpu_torch.ops.cuda.spmm_kernel import flat_weight
+    if kind == "none":
+        return None
+    if kind == "E":
+        return torch.rand(E, generator=gen, device=dev)
+    if kind == "EF":
+        return torch.randn(E, F, generator=gen, device=dev)
+    H = 2 if F % 2 == 0 else 1
+    return flat_weight(torch.randn(E, H, 1, generator=gen, device=dev),
+                       (1, H, F // H))
+
+
+def _short_checks(sk, name, modes, checks, gen, dev):
+    """Every mode, F of SHORT_FS and case of SHORT_CASES on the packed
+    route against K1's plain version in float64 (bf16 by ``bf16_check``),
+    two launches bitwise equal; a misaligned x (4-byte aligned rows of 10)
+    too.  Returns each (mode, F)'s route by the rule and the largest
+    errors."""
+    routes, worst = {}, {"f32_rel": 0.0, "bf16_ulps": 0.0}
+    for mode, (indptr, gidx, eid, rows, plan, _) in modes.items():
+        E = gidx.numel() if gidx is not None else rows
+        routes[mode] = {}
+        for F in SHORT_FS:
+            x = torch.randn(rows, F, generator=gen, device=dev)
+            routes[mode][F] = sk.segment_sum_launcher(
+                indptr, x, gidx, eid, plan=plan).route()
+            for kind, dtype in SHORT_CASES:
+                w = _short_weight(kind, E, F, gen, dev)
+                xk = x.to(dtype)
+                launch = sk.segment_sum_launcher(indptr, xk, gidx, eid, w,
+                                                 plan)
+                out = launch(None, None, "packed")
+                again = launch(None, None, "packed")
+                ref = k1_ref(sk, indptr, xk, gidx, eid, w)
+                what = f"{name} {mode} F={F} w={kind} packed"
+                if dtype == torch.float32:
+                    worst["f32_rel"] = max(worst["f32_rel"], checks.compare(
+                        "segment_sum", what, out, ref, K1_TOL, again))
+                else:
+                    worst["bf16_ulps"] = max(worst["bf16_ulps"], bf16_check(
+                        checks, "segment_sum_bf16", what, out, ref, again))
+                del w, out, again, ref
+            del x
+        buf = torch.randn(rows * 10 + 1, generator=gen, device=dev)
+        xm = buf[1:].view(rows, 10)
+        launch = sk.segment_sum_launcher(indptr, xm, gidx, eid, plan=plan)
+        checks.compare("segment_sum", f"{name} {mode} F=10 misaligned x",
+                       launch(None, None, "packed"),
+                       k1_ref(sk, indptr, xm, gidx, eid), K1_TOL,
+                       launch(None, None, "packed"))
+        del buf, xm
+    return routes, worst
+
+
+def _short_timings(sk, name, modes, F, gen, dev, weights=("none", "E")):
+    """Each mode at F, with no weight and an (E,) one: the packed route,
+    the rows route (a warp a row, as before the windows), the plain version,
+    the bound and the library call (torch.sparse.mm on the CSR matrix;
+    torch.segment_reduce for edge rows without a weight)."""
+    res = {}
+    for mode, (indptr, gidx, eid, rows, plan, A) in modes.items():
+        E = gidx.numel() if gidx is not None else rows
+        x = torch.randn(rows, F, generator=gen, device=dev)
+        for kind in weights:
+            w = _short_weight(kind, E, F, gen, dev)
+            launch = sk.segment_sum_launcher(indptr, x, gidx, eid, w, plan)
+            out = launch(None, None, "packed")
+            if A is not None:
+                vals = A.values() if w is None else (
+                    w if eid is None else w[eid.long()])
+                Aw = torch.sparse_csr_tensor(A.crow_indices(),
+                                             A.col_indices(), vals,
+                                             size=A.shape)
+                lib = cuda_ms(lambda: torch.sparse.mm(Aw, x))
+            elif w is None:
+                lengths = (indptr[1:] - indptr[:-1]).long()
+                lib = cuda_ms(lambda: torch.segment_reduce(
+                    x, "sum", lengths=lengths))
+            else:
+                lib = None
+            rec = timing(
+                both_ms(lambda: launch(None, None, "packed")),
+                cuda_ms(lambda: sk.segment_sum_plain(indptr, x, gidx, eid,
+                                                     w), reps=3),
+                nbytes(indptr, gidx, eid, x, w, out),
+                E * F * (2 if w is not None else 1),
+                f"{name} {mode}, {indptr.numel() - 1} rows, {E} edges, "
+                f"F={F}, w={kind}", library_ms=lib)
+            rec.update(rows_route_ms=cuda_ms(
+                lambda: launch(None, None, "rows")),
+                route=launch.route(),
+                short_rows=plan.short_rows(indptr.numel() - 1),
+                singles=plan.singles.numel(), pieces=plan.pieces.shape[0])
+            res[f"{mode} w={kind}"] = rec
+            del w, out
+        del x
+    return res
+
+
+def _short_dispatch(dt, graphs, gen, dev):
+    """DGL_TPU_DEBUG_DISPATCH=1 over gspmm copy_u sum on each graph (and
+    copy_e sum, the rows route, on the 0-hop part): the lines printed."""
+    import io
+    from dgl_hack_tpu_torch.utils import env
+    old = os.environ.get("DGL_TPU_DEBUG_DISPATCH")
+    os.environ["DGL_TPU_DEBUG_DISPATCH"] = "1"
+    buf = io.StringIO()
+    lines = {}
+    with torch.no_grad():
+        for name, (g, F) in graphs.items():
+            env._PRINTED.clear()
+            x = torch.randn(g.num_src_nodes, F, generator=gen, device=dev)
+            with contextlib.redirect_stdout(buf):
+                dt.gspmm(g, "copy_lhs", "sum", x)
+                if name == "zero_hop":
+                    dt.gspmm(g, "copy_rhs", "sum", None, torch.randn(
+                        g.num_edges(), F, generator=gen, device=dev))
+            lines[name] = [ln for ln in buf.getvalue().splitlines()
+                           if ln.startswith("[dgl-tpu dispatch] ")]
+            buf.seek(0)
+            buf.truncate()
+    torch.cuda.synchronize()
+    if old is None:
+        del os.environ["DGL_TPU_DEBUG_DISPATCH"]
+    else:
+        os.environ["DGL_TPU_DEBUG_DISPATCH"] = old
+    env._PRINTED.clear()
+    return lines
+
+
+def phase_k1_short_rows(dt, sk, plan, checks, dev):
+    """K1's packed route (``k1_short_rows``, in ``rgcn_train``) over the
+    graphs of short rows: synthetic AM's (dst, etype)-pair graph (its
+    forward over 11.2 M pair rows, dx over the src rows, and the per-dst
+    sums of the pair rows in edge-row mode over the dst segments), a 0-hop
+    Cluster-GCN part (ZERO_HOP_ROWS rows of one self loop) and a mixed
+    graph of hub pieces, one-edge, short, single and empty rows
+    (``_mixed_short_graph``): each mode, F and case held to the plain
+    version (``_short_checks``), timed beside the rows route, its bound,
+    its plain version and the library (``_short_timings``; AM's forward at
+    every F), each graph's route by the rule and the dispatch line of
+    gspmm on it."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    rng = np.random.default_rng(33)
+    pg = plan.pair_graph
+    seg = plan.dst_segments
+    am = _short_modes(sk, pg)
+    # AM's edge-row mode is the per-dst sums over the pair rows
+    am["edge"] = (seg.indptr, None, None, plan.num_pairs, seg.plan, None)
+    idx = np.arange(ZERO_HOP_ROWS)
+    g0 = dt.prepare_spmm(dt.graph((idx, idx), num_nodes=ZERO_HOP_ROWS),
+                         dense_hub=False, device=dev)
+    gm = _mixed_short_graph(dt, dev, rng)
+    graphs = {"am_pair": (am, 10), "zero_hop": (_short_modes(sk, g0), 32),
+              "mixed": (_short_modes(sk, gm), 16)}
+    res = {}
+    for name, (modes, F) in graphs.items():
+        routes, worst = _short_checks(sk, name, modes, checks, gen, dev)
+        res[name] = {"routes": routes, "worst": worst,
+                     "timed": _short_timings(sk, name, modes, F, gen, dev)}
+    fwd = am["fwd"]
+    x_by_f = {}
+    for F in SHORT_FS:
+        x = torch.randn(pg.num_src_nodes, F, generator=gen, device=dev)
+        launch = sk.segment_sum_launcher(fwd[0], x, fwd[1], plan=fwd[4])
+        x_by_f[F] = {"route": launch.route(),
+                     "packed_ms": cuda_ms(lambda: launch(None, None,
+                                                         "packed"), reps=5),
+                     "rows_ms": cuda_ms(lambda: launch(None, None, "rows"),
+                                        reps=5)}
+        del x
+    res["am_pair"]["fwd_by_F"] = x_by_f
+    lines = _short_dispatch(dt, {"am_pair": (pg, 10), "zero_hop": (g0, 32),
+                                 "mixed": (gm, 16)}, gen, dev)
+    for name in ("am_pair", "zero_hop"):
+        if not lines[name] or not all("K1 packed" in ln
+                                      for ln in lines[name]):
+            checks.failures.append(f"k1_short_rows {name}: dispatch "
+                                   f"{lines[name]}")
+    emit({"phase": "k1_short_rows", "seconds": time.perf_counter() - t0,
+          "pairs": plan.num_pairs, "pair_edges": pg.num_edges(),
+          "zero_hop_rows": ZERO_HOP_ROWS, "mixed_rows": gm.num_dst_nodes,
+          "mixed_edges": gm.num_edges(), "graphs": res, "dispatch": lines})
+    checks.raise_if_failed("k1_short_rows")
+    del g0, gm, am, graphs
+    torch.cuda.empty_cache()
+
+
 def _relgraphconv_cases(dt, dev, checks):
     """A small RelGraphConv (basis with and without w_comp, each with the
     pair plan and without, bdd; a per-edge norm, self-loop) forward and
@@ -2892,6 +3131,7 @@ def phase_rgcn_train(dt, build, sk, checks, dev):
         size=(g.num_nodes(), hp["hidden"])).astype(np.float32)).to(dev)
     k1 = _rgcn_k1(sk, plan, x, checks)
     del x
+    phase_k1_short_rows(dt, sk, plan, checks, dev)
     layer = _relgraphconv_cases(dt, dev, checks)
     checks.raise_if_failed("rgcn_train (kernels and layer)")
     res, counts, peak, prof = _rgcn_train(dt, build, ds, g, plan, 6, hp, dev,
@@ -3144,6 +3384,11 @@ def phase_pagerank(dt, build, sk, gb, checks, dev, timings):
         nbytes(gb.csc_indptr, gb.src, x1, out), gb.num_edges(),
         "bench.py graph, F=1, fwd (PageRank's gspmm)",
         library_ms=cuda_ms(lambda: torch.sparse.mm(A, x1), reps=3))
+    launch = sk.segment_sum_launcher(*fwd, plan=p_fwd)
+    timings["k1_bench_F1"].update(
+        route=launch.route(), short_rows=p_fwd.short_rows(gb.num_dst_nodes),
+        rows_route_ms=cuda_ms(lambda: launch(None, None, "rows")),
+        packed_ms=cuda_ms(lambda: launch(None, None, "packed")))
     del A, out
     emit({"phase": "pagerank", "nodes": gb.num_nodes(),
           "edges": gb.num_edges(), "iters": PR_ITERS,
@@ -6885,8 +7130,8 @@ def phase_dispatch(dt, build, checks, dev):
     x, xm = t(n, 16), t(2048, 16)
     fs, el, er = t(n, 4, 4), t(n, 4), t(n, 4)
     calls = (
-        (lambda: dt.gspmm(g, "copy_lhs", "sum", x),
-         "gspmm: kernel (copy_lhs.sum, K1, cuda)"),
+        (lambda: dt.gspmm(g, "copy_lhs", "sum", x),      # 2 edges a row
+         "gspmm: kernel (copy_lhs.sum, K1 packed, cuda)"),
         (lambda: dt.gspmm(g, "copy_lhs", "max", x),
          "gspmm: kernel (copy_lhs.max, K4/K5, cuda)"),
         (lambda: dt.gspmm(gh, "copy_lhs", "sum", x),

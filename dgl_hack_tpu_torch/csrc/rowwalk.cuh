@@ -14,7 +14,11 @@
 //   scratch (pieces x F floats); row_fixup then combines each long row's
 //   partials in piece order.  No float atomics, so every result repeats
 //   bitwise.  Pieces come first in the grid so the heavy work starts early
-//   and the short rows fill the tail.
+//   and the short rows fill the tail.  K1 alone has a third kind of item
+//   (segment_sum.cu, sum_pack): the rows of at most 16 edges of an aligned
+//   window of 32 rows, one lane group a row, for graphs whose rows are
+//   mostly that short; work_item and WorkItem are as K4, K5, K2 and K3 use
+//   them.
 // * Loads (load, store).  A lane reads V consecutive values of a row, at
 //   most 16 bytes: V = 4, 2 or 1 of float32, 8, 4, 2 or 1 of bf16, chosen
 //   by the wrapper from F's divisibility and the pointers' alignment

@@ -40,15 +40,18 @@ _F = ctypes.c_float
 # a row plan (spmm_kernel.py:plan_args): T, long_rows, piece_ptr, pieces,
 # piece_row, num_long, num_pieces, partial
 _PLAN = [_I, _P, _P, _P, _P, _I, _I, _P]
+# K1's packed route (spmm_kernel.py:pack_args): short_limit, singles,
+# num_singles
+_PACKS = [_I, _P, _I]
 # C signatures of the entry points in csrc/*.cu
 SIGNATURES = {
     # indptr, gidx, eid, x, w, w_kind, out, num_rows, F, vec, slice, plan,
-    # stream
+    # packed route, stream
     "segment_sum_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                        *_PLAN, _P],
+                        *_PLAN, *_PACKS, _P],
     # as segment_sum_f32, with out_f32 after out
     "segment_sum_bf16": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                         *_PLAN, _P],
+                         *_PLAN, *_PACKS, _P],
     # indptr, gidx, x, w, w_kind, raw, num_rows, F, vec, slice, plan, stream
     "segment_max_f32": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, *_PLAN, _P],
     "segment_max_bf16": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, *_PLAN,

@@ -200,25 +200,72 @@ def line_cols(elem_bytes: int = 4) -> int:
 PAD_DEVICES = ("cuda",)
 
 
+# The packed route (csrc/segment_sum.cu, sum_pack).  A warp sums the rows
+# of at most K1_SHORT edges of an aligned window of K1_PACK_ROWS rows, one
+# lane group a row, where a warp holds at least K1_PACK_GROUPS lane groups
+# and at least K1_PACK_SHARE of the rows are short (``k1_route``); the
+# rows of more edges, up to K1_PIECE, are listed in the plan and walked a
+# warp each (``single_rows``).  The R-GCN pair graph (11.2 M rows of 1.07
+# edges), its per-dst sums (6.7 pairs a dst) and Cluster-GCN's 0-hop
+# parts (one edge a row) take it; bench.py's graph at F = 128 (one lane
+# group a warp), synthetic Reddit (101 edges a row), the transformer's
+# graph (64) and the readouts do not.  On an H100 80GB HBM3 at 700 W
+# (chip_smoke.py's k1_short_rows, PERF.md) the windows took K1 over AM's
+# pair graph at F = 10 from 4.6 ms to 0.63; at F = 41, one lane group a
+# warp, they won too (3.34 against 5.57 ms), but the rule keeps that case
+# on the rows route: there it would also take the masked layer-0 block's
+# dx at F = 602, which was not measured.  The windows are implicit: a
+# list of runs of short rows cut into packs (cummax and cummin over the
+# rows) took the message API's per-call row plans over half of bench.py's
+# graph from 1.30-1.42 ms to 12.3-13.7 there.
+K1_SHORT = 16
+K1_PACK_ROWS = 32
+K1_PACK_GROUPS = 2
+K1_PACK_SHARE = 0.5
+
+
 class RowPlan(NamedTuple):
     """The rows of an indptr longer than ``K1_PIECE`` edges, and their
     pieces: long row l is ``long_rows[l]``, its pieces are
     ``pieces[piece_ptr[l]:piece_ptr[l + 1]]``, in edge order, and piece p
     covers edges ``[pieces[p, 0], pieces[p, 1])`` of row ``piece_row[p]``.
-    All int32, on the indptr's device."""
+    For K1's packed route, ``singles`` lists the rows of more than
+    ``K1_SHORT`` edges and at most ``K1_PIECE`` (``single_rows``).  All
+    int32, on the indptr's device."""
     long_rows: Tensor     # (L,)
     piece_ptr: Tensor     # (L + 1,)
     pieces: Tensor        # (P, 2)
     piece_row: Tensor     # (P,)
+    singles: Tensor       # (S,)
 
     def to(self, device) -> "RowPlan":
         return RowPlan(*(t.to(device) for t in self))
+
+    def short_rows(self, num_rows: int) -> int:
+        """Rows of at most ``K1_SHORT`` edges, from the plan's shapes (no
+        device sync)."""
+        return num_rows - self.long_rows.numel() - self.singles.numel()
+
+
+def short_limit(piece: int = K1_PIECE) -> int:
+    """The most edges of a packed row: ``K1_SHORT``, and never a long
+    row's."""
+    return min(K1_SHORT, piece)
+
+
+def single_rows(deg: Tensor, piece: int = K1_PIECE) -> Tensor:
+    """The rows of the degrees ``deg`` that the packed route walks a warp
+    each: more than ``short_limit(piece)`` edges and at most ``piece``;
+    (S,) int32 on deg's device."""
+    return torch.nonzero((deg > short_limit(piece)) & (deg <= piece)
+                         ).squeeze(1).to(torch.int32)
 
 
 def row_plan(indptr: Tensor, piece: int = K1_PIECE) -> RowPlan:
     """K1's row plan of ``indptr``, from torch ops on its device: degrees,
     the mask of rows longer than ``piece``, ceil(deg / piece) pieces each,
-    and their cumulative sum."""
+    and their cumulative sum; and the packed route's single rows
+    (``single_rows``)."""
     ip = indptr.long()
     deg = ip[1:] - ip[:-1]
     long_rows = torch.nonzero(deg > piece).squeeze(1)
@@ -235,7 +282,36 @@ def row_plan(indptr: Tensor, piece: int = K1_PIECE) -> RowPlan:
     i32 = torch.int32
     return RowPlan(long_rows.to(i32), piece_ptr.to(i32),
                    torch.stack([beg, end], 1).to(i32).contiguous(),
-                   piece_row.to(i32))
+                   piece_row.to(i32), single_rows(deg, piece))
+
+
+def edge_lanes(width: int, vec: int) -> int:
+    """Lanes per edge of K1, K4 and K5 over ``width`` columns (a slice's,
+    or F) at ``vec`` values a load: width / vec rounded up to a power of
+    two, at most 32 (rowwalk.cuh:launch_shape)."""
+    lanes = 1
+    while lanes < 32 and lanes * vec < width:
+        lanes *= 2
+    return lanes
+
+
+def k1_route(num_rows: int, short_rows: int, width: int, vec: int) -> str:
+    """K1's route over ``num_rows`` rows of which ``short_rows`` have at
+    most ``K1_SHORT`` edges, at ``width`` columns a pass and ``vec``
+    values a load: ``"packed"`` where a warp holds at least
+    ``K1_PACK_GROUPS`` lane groups (32 / ``edge_lanes``) and at least
+    ``K1_PACK_SHARE`` of the rows are short, else ``"rows"`` (a warp a row,
+    long rows in pieces)."""
+    groups = 32 // edge_lanes(width, vec)
+    if groups >= K1_PACK_GROUPS and short_rows > 0 \
+            and short_rows >= K1_PACK_SHARE * num_rows:
+        return "packed"
+    return "rows"
+
+
+def plan_route(plan: RowPlan, num_rows: int, width: int, vec: int) -> str:
+    """``k1_route`` from the plan's counts."""
+    return k1_route(num_rows, plan.short_rows(num_rows), width, vec)
 
 
 def graph_row_plan(g, direction: str) -> RowPlan:
@@ -284,6 +360,14 @@ def plan_args(plan: RowPlan, partial: Optional[Tensor]) -> tuple:
     return (K1_PIECE, ptr(plan.long_rows), ptr(plan.piece_ptr),
             ptr(plan.pieces), ptr(plan.piece_row), plan.long_rows.numel(),
             plan.pieces.shape[0], ptr(partial))
+
+
+def pack_args(plan: RowPlan, route: str) -> tuple:
+    """K1's packed route as its C entry points take it: short_limit,
+    singles, num_singles; short_limit 0 on the ``"rows"`` route."""
+    if route != "packed":
+        return (0, None, 0)
+    return (short_limit(), ptr(plan.singles), plan.singles.numel())
 
 
 # The most values a lane of K1 and K5 loads at a time.  In bf16 their
@@ -393,17 +477,63 @@ def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
     return launch(None)
 
 
+class K1Launch:
+    """K1's launch over checked arguments (``segment_sum_launcher``):
+    ``launch(slice_cols, vec, route)`` runs the kernel at that slice width,
+    load width and route, or at ``slice_width``'s, ``vector_width``'s and
+    ``k1_route``'s where None, and returns the result; ``route(...)`` names
+    the route that call takes."""
+
+    def __init__(self, indptr, x, gidx, eid, w, w_kind, plan, out_dtype,
+                 vec_rule, reuse):
+        self.args = (indptr, x, gidx, eid, w, w_kind, plan, out_dtype)
+        self.vec_rule, self.reuse = vec_rule, reuse
+
+    def widths(self, slice_cols: Optional[int], vec: Optional[int]):
+        indptr, x, gidx = self.args[:3]
+        if slice_cols is None:
+            slice_cols = slice_width(x.shape[0], x.shape[1], gidx is None,
+                                     x.element_size(), self.reuse)
+        return slice_cols, vec or self.vec_rule
+
+    def route(self, slice_cols: Optional[int] = None,
+              vec: Optional[int] = None) -> str:
+        slice_cols, vec = self.widths(slice_cols, vec)
+        indptr, x, plan = self.args[0], self.args[1], self.args[6]
+        return plan_route(plan, indptr.numel() - 1,
+                          min(slice_cols, x.shape[1]), vec)
+
+    def __call__(self, slice_cols: Optional[int] = None,
+                 vec: Optional[int] = None,
+                 route: Optional[str] = None) -> Tensor:
+        indptr, x, gidx, eid, w, w_kind, plan, out_dtype = self.args
+        route = route or self.route(slice_cols, vec)
+        slice_cols, vec = self.widths(slice_cols, vec)
+        num_rows, F, dev = indptr.numel() - 1, x.shape[1], x.device
+        out = torch.empty((num_rows, F), dtype=out_dtype, device=dev)
+        head = (ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind,
+                ptr(out))
+        tail = (num_rows, F, vec, slice_cols,
+                *plan_args(plan, plan_scratch(plan, F)),
+                *pack_args(plan, route))
+        if x.dtype == torch.float32:
+            run("segment_sum", library().segment_sum_f32, dev, *head, *tail)
+        else:
+            run("segment_sum", library().segment_sum_bf16, dev, *head,
+                int(out_dtype == torch.float32), *tail)
+        return out
+
+
 def segment_sum_launcher(indptr: Tensor, x: Tensor,
                          gidx: Optional[Tensor] = None,
                          eid: Optional[Tensor] = None,
                          w: Optional[Tensor] = None,
                          plan: Optional[RowPlan] = None,
-                         out_dtype: Optional[torch.dtype] = None):
-    """Check K1's arguments on CUDA and return ``launch(slice_cols,
-    vec)``, which runs the kernel at that slice width and load width, or
-    at ``slice_width``'s and ``vector_width``'s where None, and returns
-    the result.  ``segment_sum`` launches through it; ``chip_smoke.py``
-    times the slice and load widths with it."""
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> K1Launch:
+    """Check K1's arguments on CUDA and return their ``K1Launch``.
+    ``segment_sum`` launches through it; ``chip_smoke.py`` times the slice
+    and load widths and the routes with it."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"segment_sum takes x of shape (rows, F), got "
@@ -438,26 +568,8 @@ def segment_sum_launcher(indptr: Tensor, x: Tensor,
     plan = checked_plan(plan, indptr, "segment_sum")
     vec_rule = vector_width(F, x, w if w_kind == 2 else None,
                             max_values=SUM_MAX_VALUES)
-    reuse = edges_per_row(E, x.shape[0], num_rows)
-
-    def launch(slice_cols: Optional[int], vec: Optional[int] = None
-               ) -> Tensor:
-        vec = vec or vec_rule
-        if slice_cols is None:
-            slice_cols = slice_width(x.shape[0], F, gidx is None,
-                                     x.element_size(), reuse)
-        out = torch.empty((num_rows, F), dtype=out_dtype, device=dev)
-        head = (ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind,
-                ptr(out))
-        tail = (num_rows, F, vec, slice_cols,
-                *plan_args(plan, plan_scratch(plan, F)))
-        if x.dtype == torch.float32:
-            run("segment_sum", library().segment_sum_f32, dev, *head, *tail)
-        else:
-            run("segment_sum", library().segment_sum_bf16, dev, *head,
-                int(out_dtype == torch.float32), *tail)
-        return out
-    return launch
+    return K1Launch(indptr, x, gidx, eid, w, w_kind, plan, out_dtype,
+                    vec_rule, edges_per_row(E, x.shape[0], num_rows))
 
 
 def rev_gidx(g) -> Tensor:
@@ -623,6 +735,19 @@ def gspmm_sum(g, x: Tensor, w: Optional[Tensor] = None) -> Tensor:
     return out.reshape((out.shape[0],) + tuple(shape[1:]))
 
 
+def gspmm_sum_route(g, x: Tensor, w: Optional[Tensor] = None) -> str:
+    """The route K1 takes in ``gspmm_sum(g, x, w)``'s forward on x's
+    device (``k1_route``; on the CPU the plain version runs whatever it
+    says).  For the dispatch log: it pads a copy of x as the forward
+    does."""
+    shape = x.shape
+    x2 = x.reshape(shape[0], -1)
+    g, w = on_real_edges(g, flat_weight(w, shape))
+    return segment_sum_launcher(
+        g.csc_indptr, pad_columns(x2, run_width(x2, w, g)), g.src, w=w,
+        plan=graph_row_plan(g, "csc")).route()
+
+
 class Segments(NamedTuple):
     """Runs of consecutive rows that K1's edge-row mode sums: segment r is
     rows ``[indptr[r], indptr[r + 1])`` of x; ``ids`` is the segment of
@@ -698,6 +823,16 @@ def segment_mean_rows(x: Tensor, seg: Segments) -> Tensor:
     out = segment_sum_rows(x, seg)
     cnt = (seg.indptr[1:] - seg.indptr[:-1]).to(out.dtype).clamp(min=1)
     return out / cnt.reshape((-1,) + (1,) * (out.dim() - 1))
+
+
+def gspmm_rows_route(g, data: Tensor) -> str:
+    """The route K1 takes in ``gspmm_rows(g, data, ...)`` (``k1_route``),
+    as ``gspmm_sum_route``."""
+    g, data = on_real_edges(g, data)
+    seg = graph_segments(g, "csc")
+    return segment_sum_launcher(
+        seg.indptr, data.reshape(data.shape[0], -1).contiguous(),
+        plan=seg.plan).route()
 
 
 def gspmm_rows(g, data: Tensor, reduce_op: str) -> Tensor:

@@ -53,7 +53,9 @@ reduction does.
 With ``DGL_TPU_DEBUG_DISPATCH=1`` each call names its route once
 (``utils/env.py:dispatch_log``): ``v-rewrite``, ``hybrid``, ``rows``,
 ``kernel`` (K1 or K4/K5; the plain versions on the CPU), and for the rest
-``composed`` on the card, ``plain`` on the CPU.
+``composed`` on the card, ``plain`` on the CPU.  On the card a K1 line
+names K1's route: ``K1 packed`` where it packs short rows
+(``ops/cuda/spmm_kernel.py:k1_route``), else ``K1``.
 """
 from __future__ import annotations
 
@@ -67,7 +69,8 @@ from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
 from .cuda.segment_max_kernel import gspmm_max
 from .cuda.spmm_kernel import (accumulate_dtype, gspmm_hybrid, gspmm_rows,
-                               gspmm_sum, real_in_degrees)
+                               gspmm_rows_route, gspmm_sum, gspmm_sum_route,
+                               real_in_degrees)
 
 Tensor = torch.Tensor
 
@@ -107,6 +110,13 @@ def _on(data: Tensor) -> str:
     """Where a route runs, for the dispatch log: the kernel on the card,
     its plain version on the CPU."""
     return "cuda" if data.is_cuda else "cpu, plain version"
+
+
+def _k1(data: Tensor, route, *args) -> str:
+    """K1's name in the dispatch log: "K1 packed" where the kernel packs
+    short rows (``route(*args)``, on the card), else "K1"."""
+    return "K1 packed" if data.is_cuda and route(*args) == "packed" \
+        else "K1"
 
 
 def _view(g) -> str:
@@ -211,8 +221,9 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
     if copied == "e" and reduce_op in ("sum", "mean") \
             and data.is_floating_point() \
             and (data.is_cuda or g.edge_mask is None):
-        dispatch_log("gspmm", "rows", f"{combo}, K1 over segments, "
-                     f"{_on(data)}")
+        dispatch_log("gspmm", "rows", lambda: (
+            f"{combo}, {_k1(data, gspmm_rows_route, g, data)} over "
+            f"segments, {_on(data)}"))
         return gspmm_rows(g, data, reduce_op)
     kernel = data.is_floating_point() and _kernel_shaped(
         op, lhs_data, rhs_data, lhs_target, rhs_target)
@@ -222,8 +233,9 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
                      f"{_on(data)}")
         return gspmm_max(g, lhs_data, w, reduce_op)
     if kernel and data.is_cuda and reduce_op in ("sum", "mean"):
-        dispatch_log("gspmm", "kernel", f"{combo}, K1{_view(g)}, "
-                     f"{_on(data)}")
+        dispatch_log("gspmm", "kernel", lambda: (
+            f"{combo}, {_k1(data, gspmm_sum_route, g, lhs_data, w)}"
+            f"{_view(g)}, {_on(data)}"))
         out = gspmm_sum(g, lhs_data, w)
         return _mean(g, out) if reduce_op == "mean" else out
     if data.is_cuda:

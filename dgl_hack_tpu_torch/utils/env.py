@@ -52,13 +52,16 @@ def get_config() -> Config:
 _PRINTED: set = set()
 
 
-def dispatch_log(op: str, path: str, detail: str = "") -> None:
+def dispatch_log(op: str, path: str, detail="") -> None:
     """Print ``[dgl-tpu dispatch] {op}: {path} ({detail})`` where
     ``DGL_TPU_DEBUG_DISPATCH=1`` and this process has not printed that line
     yet.  The variable is read at each call; unset, nothing is printed.
-    It reports the route; it chooses none."""
+    ``detail`` may be a function that returns it, called only where the
+    log is on.  It reports the route; it chooses none."""
     if not _debug_dispatch():
         return
+    if callable(detail):
+        detail = detail()
     msg = f"[dgl-tpu dispatch] {op}: {path}"
     if detail:
         msg += f" ({detail})"
