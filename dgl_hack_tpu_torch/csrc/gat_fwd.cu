@@ -54,15 +54,33 @@
 //   bitwise.
 // * No feature slices: slices of whole heads lost on the card at every
 //   width (PERF.md), since Wh at Reddit (60 MB) nearly fits the L2 whole.
-// * bf16 Wh halves the gathered row (128 B at H = 8, D = 8); a lane loads
-//   V = 4 (8 bytes) or 8 (16 bytes) bf16 values (gat_kernel.py:
-//   K2_BF16_VALUES, from chip_smoke.py's sweep).  It bought no time: on
-//   an H100 (80GB HBM3, 700 W) K2 over bf16 Wh took 2.06 ms against
-//   float32's 1.83 at synthetic Reddit's hidden layer, and 2.35 against
-//   2.11 at H = 1, D = 41, where both load one value at a time (PERF.md):
-//   the kernel is held by latency and issue, not bytes, and each value
-//   costs a widening instruction before its fma.
-#include "rowwalk.cuh"
+// * bf16 Wh halves the gathered row (128 B at H = 8, D = 8).  On this
+//   walk (gat_fwd_bf16, a lane loading V = 4 or 8 bf16 values:
+//   gat_kernel.py:K2_BF16_VALUES) it bought no time: on an H100 (80GB
+//   HBM3, 700 W) 2.06 ms against float32's 1.83 at synthetic Reddit's
+//   hidden layer, 2.35 against 2.11 at H = 1, D = 41 (PERF.md).  The rows
+//   a warp has in flight sit in registers (kUnroll edges a lane group),
+//   so memory-level parallelism is paid in registers, and the bf16 build
+//   took more of them (112 against 98) just where the bytes got cheaper.
+//
+// The staged route (gat_fwd_bf16_staged, below; the wrapper's rule,
+// gat_kernel.py:gat_route, takes it for every bf16 Wh whose heads fit one
+// lane group): stage.cuh's walk copies each edge's Wh row, el row and w
+// row into a per-warp ring in shared memory with cp.async and works on
+// one stage while the next arrives; the lane layout, the fixed-order sums
+// and the fix-up are the walk's above, so results repeat bitwise (and
+// equal the head-major walk's at 32 edges a stage).  A head width whose
+// bf16 row is no whole number of 16-byte pieces (H*D not a multiple of
+// 8: the output layer's 41) reads the wrapper's copy padded with zero
+// columns to Dp (48), and rst is written at D.  What bounds it: the
+// gathered rows come from the L2 (Wh in bf16 is 30 MB at Reddit), at
+// 192 B an edge at H = 8, D = 8, and each warp's ring costs shared memory,
+// so fewer and smaller stages hold more warps: 2 stages of 16 edges won
+// (chip_smoke.py's sweep).  On the H100 at synthetic Reddit's hidden
+// layer it takes 1.44 ms against float32's 1.88 and the head-major
+// walk's 2.05 over the same bf16 Wh, and 1.48 against 2.10 and 2.33 at
+// H = 1, D = 41 (PERF.md).
+#include "stage.cuh"
 
 namespace {
 
@@ -226,6 +244,106 @@ int gat_fwd(const int* indptr, const int* src, const TW* wh, const float* el,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The staged route (gat_fwd_bf16_staged): the same function over a bf16 Wh
+// whose rows the warp gathers through its shared-memory ring (stage.cuh).
+// An edge's record: its Wh row (2*H*Dp bytes, Dp >= D: the wrapper's copy
+// with each head padded by zero columns where 2*H*D is no multiple of 16),
+// its el row (4*H) and its w row (4*H, by CSC position).
+struct StagedArgs {
+  const int* indptr;    // CSC
+  const int* src;       // src of each CSC edge
+  const float* er;      // (N_dst, H)
+  const float* shift;   // (N_dst, H)
+  float* rst;           // (N_dst, H*D)
+  float* den;           // (N_dst, H)
+  int num_dst, H, D, Dp;
+  float slope;
+  RowPlan plan;         // partial: (P, H*D) num, then (P, H) den
+  Staging st;
+};
+
+// grid of staged_shape, kStageWarps warps a block; W: attn_w given; NC: s.NC
+template <int V, int W, int NC>
+__global__ void __launch_bounds__(kStageWarps * 32)
+gat_fwd_staged_kernel(StagedArgs a, HeadWalk s) {
+  extern __shared__ __align__(16) char smem[];
+  WorkItem it;
+  if (!staged_item(a.plan, a.indptr, a.num_dst, it)) return;  // warp-uniform
+  const int H = a.H, D = a.D;
+  const int64_t HD = (int64_t)H * D;
+  const bool piece = it.piece >= 0;
+  float* num_row =
+      piece ? a.plan.partial + it.piece * HD : a.rst + it.row * HD;
+  float* den_row = piece ? a.plan.partial + a.plan.num_pieces * HD +
+                               it.piece * H
+                         : a.den + it.row * H;
+  const int grp = (threadIdx.x & 31) / s.lanes;
+  const int groups = 32 / s.lanes;
+  char* ring = smem + (threadIdx.x >> 5) * a.st.S * a.st.stage;
+  const HeadLane<NC> L = head_lane<V, NC>(s, 0, H, 0, a.Dp);
+  const float erv = L.on ? __ldg(a.er + it.row * H + L.h) : 0.0f;
+  const float sh = L.on ? __ldg(a.shift + it.row * H + L.h) : 0.0f;
+  const int rec = a.st.rec, off_el = a.st.seg[1].off,
+            off_w = a.st.seg[2].off, xoff = L.h * a.Dp;
+  float num[NC][V], dsum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+#pragma unroll
+    for (int i = 0; i < V; ++i) num[k][i] = 0.0f;
+  staged_walk(it.beg, it.end, a.src, nullptr, a.st, ring,
+              [&](const char* stg, int n) {
+    if (!L.on) return;
+#pragma unroll 2
+    for (int t = grp; t < n; t += groups) {
+      const char* r = stg + t * rec;
+      const float elv = reinterpret_cast<const float*>(r + off_el)[L.h];
+      const float p = expf(leaky(elv + erv, a.slope) - sh);
+      const float pw =
+          W ? p * reinterpret_cast<const float*>(r + off_w)[L.h] : p;
+      dsum += p;
+      const bf16* x = reinterpret_cast<const bf16*>(r) + xoff;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        if (!L.cok[k]) continue;
+        float xv[V];
+        lds<V>(x + L.col[k], xv);
+#pragma unroll
+        for (int i = 0; i < V; ++i) num[k][i] = fmaf(pw, xv[i], num[k][i]);
+      }
+    }
+  });
+  dsum = group_sum(dsum, s.lanes);
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+#pragma unroll
+    for (int i = 0; i < V; ++i) num[k][i] = group_sum(num[k][i], s.lanes);
+  if (grp == 0 && L.on) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (!L.cok[k]) continue;
+      if (!piece)
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          num[k][i] = dsum > 0.0f ? num[k][i] / dsum : 0.0f;
+      store_cols<V>(num_row + (int64_t)L.h * D, L.col[k], D, num[k]);
+    }
+    if (L.q == 0) den_row[L.h] = dsum;
+  }
+}
+
+struct StagedLaunch {
+  template <int V, int W, int NC>
+  static void go(const dim3& grid, const int& smem,
+                 const cudaStream_t& stream, const StagedArgs& a,
+                 const HeadWalk& s) {
+    auto kernel = gat_fwd_staged_kernel<V, W, NC>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    kernel<<<grid, kStageWarps * 32, smem, stream>>>(a, s);
+  }
+};
+
 }  // namespace
 
 // vec: values per load of Wh and floats per store of rst (1, 2, 4, and 8
@@ -261,4 +379,54 @@ extern "C" int gat_fwd_bf16(const int* indptr, const int* src, const bf16* wh,
                        H, D, slope, vec, lane_floats, T, long_rows,
                        piece_ptr, pieces, piece_row, num_long, num_pieces,
                        partial, stream);
+}
+
+// The staged route over a bf16 Wh (stage.cuh).  wh: (N_src, H*Dp), Dp >=
+// D, zero in each head's columns [D, Dp), 2*H*Dp a multiple of 16 and wh
+// 16-byte aligned; rst and den at the caller's width D.  vec: values per
+// shared-memory load of Wh and floats per store of rst (1, 2, 4 or 8;
+// divides Dp); lane_floats as gat_fwd_bf16; stages (2-4), chunk (8, 16 or
+// 32 edges a stage); el_gran, w_gran: bytes a copy of an el row and of a
+// w row (16, 8 or 4, dividing 4*H and the pointer's alignment); the rest
+// as gat_fwd_bf16.
+extern "C" int gat_fwd_bf16_staged(const int* indptr, const int* src,
+                                   const bf16* wh, const float* el,
+                                   const float* er, const float* w,
+                                   const float* shift, float* rst,
+                                   float* den, int num_dst, int H, int D,
+                                   int Dp, float slope, int vec,
+                                   int lane_floats, int stages, int chunk,
+                                   int el_gran, int w_gran, int T,
+                                   const int* long_rows,
+                                   const int* piece_ptr, const int* pieces,
+                                   const int* piece_row, int num_long,
+                                   int num_pieces, float* partial,
+                                   cudaStream_t stream) {
+  if (num_dst <= 0 || H <= 0 || D <= 0) return (int)cudaGetLastError();
+  const RowPlan plan{T, long_rows, piece_ptr, pieces, piece_row, num_long,
+                     num_pieces, partial};
+  dim3 grid;
+  HeadWalk s;
+  if (Dp < D || (2 * H * Dp) % 16 != 0 || shift == nullptr ||
+      !staged_shape(num_dst, H, Dp, vec, lane_floats, plan, grid, s) ||
+      !aligned(rst, vec_bytes<float>(vec)))
+    return (int)cudaErrorInvalidValue;
+  Staging st{};
+  st.S = stages;
+  st.C = chunk;
+  add_segment(st, 0, wh, 2 * H * Dp, 16, 0);
+  add_segment(st, 1, el, 4 * H, el_gran, 0);
+  add_segment(st, 2, w, w != nullptr ? 4 * H : 0, w_gran, 1);
+  const int smem = staging_bytes(st);
+  if (smem < 0 || smem > kSharedMax) return (int)cudaErrorInvalidValue;
+  const StagedArgs a{indptr, src, er, shift, rst, den, num_dst, H, D, Dp,
+                     slope, plan, st};
+  head_launch<StagedLaunch, true>(vec, w != nullptr, s, grid, smem, stream,
+                                  a, s);
+  const int64_t HD = (int64_t)H * D;
+  if (num_long > 0)
+    gat_fwd_fixup<<<dim3((unsigned)num_long,
+                         (unsigned)((HD + kFixCols - 1) / kFixCols)),
+                    kFixCols, 0, stream>>>(plan, rst, den, H, D);
+  return (int)cudaGetLastError();
 }

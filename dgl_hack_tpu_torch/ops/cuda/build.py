@@ -12,7 +12,8 @@ Nothing here runs at import: the CPU tests import every module of the
 port, and this machine may have no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name (``counted``: bf16 launches
-under ``<name>_bf16``).  A wrapper adds one where it launches its kernel
+under ``<name>_bf16``; K2's and K3's staged route under
+``<name>_bf16.staged``).  A wrapper adds one where it launches its kernel
 and nowhere else; a plain version that runs on a CUDA tensor adds one
 under ``plain.<name>``, so a run can show that its main path went through
 the kernels.
@@ -69,6 +70,11 @@ SIGNATURES = {
     # as gat_fwd_f32, with a bf16 wh
     "gat_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _F, _I, _I, *_PLAN, _P],
+    # as gat_fwd_bf16, with Dp after D and stages, chunk, el_gran, w_gran
+    # after lane_floats: the staged route (csrc/stage.cuh)
+    "gat_fwd_bf16_staged": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                            *_PLAN, _P],
     # csr_indptr, csr_eids, dst_csr, wh, el, dst_packed, dout, w, dwh,
     # del, draw, dw, num_src, H, D, slope, vec, lane_floats, plan, stream
     "gat_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -76,6 +82,11 @@ SIGNATURES = {
     # as gat_bwd_f32, with a bf16 wh
     "gat_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _I, _I, _I, _F, _I, _I, *_PLAN, _P],
+    # as gat_bwd_bf16, with Dp after D and stages, chunk, dout_bf16,
+    # w_gran, cuts, pass, passes after lane_floats
+    "gat_bwd_bf16_staged": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                            _I, _I, _P, _I, _I, *_PLAN, _P],
     # src, dst, lhs, rhs, out, op, E, F, D, stream
     "sddmm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # as sddmm_f32, with bf16 lhs, rhs and out
