@@ -43,8 +43,11 @@ Phases, one JSON line each:
      {7, 16, 41, 128}, every op with an 'u' and an 'e' lhs; dot at (H, D)
      in {(1, 16), (4, 16), (2, 7), (1, 41), (1, 128)}), and GsddmmFn's
      gradients (K6 + K1) against autograd through the plain version;
-  9. K6 at bench.py's shape (u_dot_v and u_sub_v, F = 128), timed with its
-     plain version and cuSPARSE's SDDMM (torch.sparse.sampled_addmm);
+  9. K6 at bench.py's shape (u_sub_v at F = 128, u_dot_v at F = 128 and
+     at H = 2, D = 64, float32 and bf16) at the rule's load width and
+     lanes and at 1, 2 and 4 loads a lane, each checked and timed, the
+     rule's beside its plain version and cuSPARSE's SDDMM
+     (torch.sparse.sampled_addmm);
  10. graph-transformer training (examples/train_transformer.py at its
      full width: Dm 64, 4 heads, vocab 16, 2 + 2 layers) at batch 256 and
      sequence length 64, 5 steps after a warm-up step, with K6 and K1 at
@@ -297,7 +300,12 @@ Phases, one JSON line each:
      16, K2/K3 over its partition's real-edge view at H = 8, D = 8 and
      H = 1, D = 41, K4/K5 over rank 0's splits of the dry run's graph at
      F = 32, each against its plain version, timed beside it, its bound
-     and the library call.
+     and the library call;
+ 42. ``k6_dgcnn`` (after phase 9): K6's u_sub_v at DGCNN's shape (32
+     point clouds of 1,024 points, k = 20: 655,360 edges) at F = 3, 64
+     and 128 in float32 and bf16, equal to its plain version and timed
+     beside it (and at 1, 2 and 4 loads a lane), and through
+     ``dt.gsddmm`` with its launches.
 Then the card's name and power limit, the per-kernel JSON line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero.
 
@@ -1746,10 +1754,93 @@ def _k6_bwd_case(k6, g, op, kind, F, D, checks, rng):
             for n, r1, r2, r in zip(names, *runs, grefs)}
 
 
+def _k6_variants(k6, a):
+    """(vec, lanes) of K6's rule over the arguments ``a`` (``k6_widths``)
+    and, on a vector route, the lanes for 1, 2 and 4 loads a lane over a
+    row (a dot's head): the sweep behind ``ELEM_LANE_VECTORS`` and
+    ``DOT_LANE_VECTORS``; none beside ``dot4``."""
+    vec, lanes = k6.k6_widths(a.op, a.rhs, a.lhs, a.dot_d, a.dst.numel())
+    out = [(vec, lanes)]
+    if lanes:
+        width = a.dot_d if a.op == "dot" else a.rhs.shape[1]
+        for per in (1, 2, 4):
+            x = k6.edge_lanes(width, per * vec)
+            if (vec, x) not in out:
+                out.append((vec, x))
+    return out
+
+
+def _k6_check(checks, op, what, out, ref, again):
+    """A K6 result against its reference (``ref``: the plain version, in
+    float64 for dot): elementwise equal to it, a dot within K6_DOT_TOL
+    (bf16 by ``bf16_check``); repeated bitwise (``again``).  Returns the
+    dot's error, or "equal"."""
+    name = "sddmm_bf16" if out.dtype == BF16 else "sddmm"
+    if op != "dot":
+        checks.exact(name, what, out, ref, again)
+        return "equal"
+    if out.dtype == BF16:
+        return bf16_check(checks, name, what, out, ref, again,
+                          tol=K6_DOT_TOL)
+    return checks.compare(name, what, out, ref.float(), K6_DOT_TOL, again)
+
+
+def _k6_route_cases(k6, g, checks, rng):
+    """K6's routes on the small graph at the rule's load width and lanes
+    and at those beside them (``_k6_variants``): the elementwise ops at F
+    = 16, 24, 64, 130 and 602 and the dot at H x D of 1 x 64, 2 x 32
+    (dot4), 1 x 130, 1 x 602, 2 x 64 and 3 x 33, float32 and bf16,
+    with a 'u' and an 'e' lhs, and with lhs one value off its 16-byte
+    alignment (narrower loads);
+    elementwise equal to the plain version, dots within K6_DOT_TOL of it in
+    float64 (bf16 by ``bf16_check``); every result repeated bitwise.
+    Returns {case: route or dot error}."""
+    dev, res = g.device, {}
+
+    def one(op, D, lhs, rhs, src):
+        a = k6.k6_args(op, g.dst, rhs, lhs, src, D if op == "dot" else 0)
+        ref = k6.sddmm_plain("dot", g.dst, rhs.double(), lhs.double(), src,
+                             D) if op == "dot" else \
+            k6.sddmm_plain(op, g.dst, rhs, lhs, src)
+        got = {}
+        for vec, lanes in _k6_variants(k6, a):
+            route = k6.k6_route(op, vec, lanes)
+            what = (f"small {op} F={rhs.shape[1]} D={D} {rhs.dtype} "
+                    f"{'u' if src is not None else 'e'} {route}")
+            got[route] = _k6_check(
+                checks, op, what, k6.k6_run(a, vec=vec, lanes=lanes), ref,
+                k6.k6_run(a, vec=vec, lanes=lanes))
+        return got
+
+    Ns, E = g.num_src_nodes, g.num_edges()
+    Ds = {64: (64, 32), 130: (130,), 602: (602,), 128: (64,), 99: (33,)}
+    elem = K6_ELEM_OPS + ("dot",)
+    for F, ops in ((16, K6_ELEM_OPS), (24, K6_ELEM_OPS), (64, elem),
+                   (130, elem), (602, elem), (128, ("dot",)),
+                   (99, ("dot",))):
+        for dtype in (torch.float32, BF16):
+            flat = _signed(rng, (Ns * F + 1,), dev).to(dtype)
+            lhs_u, skewed = flat[:-1].view(Ns, F), flat[1:].view(Ns, F)
+            lhs_e = _signed(rng, (E, F), dev).to(dtype)
+            rhs = _signed(rng, (g.num_dst_nodes, F), dev).to(dtype)
+            for op in ops:
+                for D in (Ds[F] if op == "dot" else (0,)):
+                    key = f"{op}.F{F}.D{D}.{dtype}"
+                    res[f"{key}.u"] = one(op, D, lhs_u, rhs, g.src)
+                    if op != "copy_rhs":
+                        res[f"{key}.e"] = one(op, D, lhs_e, rhs, None)
+                    # lhs one value off its 16-byte alignment
+                    res[f"{key}.misaligned"] = one(op, D, skewed, rhs, g.src)
+            del flat, lhs_u, skewed, lhs_e, rhs
+    return res
+
+
 def phase_k6_small(k6, g, checks):
     """K6 on phase 2's small graph (zero-in-degree rows 4000.., a hub of
-    12,010 in-edges), forward and backward."""
+    12,010 in-edges), forward and backward, and its vector routes at the
+    load widths and lanes beside the rule's (``_k6_route_cases``)."""
     rng = np.random.default_rng(6)
+    routes = _k6_route_cases(k6, g, checks, rng)
     for F in (7, 16, 41, 128):
         _k6_elem_cases(k6, g, F, checks, "small", rng)
     dot = {f"H{H}D{D}.{kind}": _k6_dot_case(k6, g, H, D, kind, checks,
@@ -1768,7 +1859,7 @@ def phase_k6_small(k6, g, checks):
                 k6, g, "dot", kind, H * D, D, checks, rng)
     emit({"phase": "k6_small", "nodes": g.num_src_nodes,
           "edges": g.num_edges(), "elementwise": "bitwise equal to plain",
-          "dot_rel_err": dot, "bwd_rel_err": bwd})
+          "dot_rel_err": dot, "bwd_rel_err": bwd, "routes": routes})
     checks.raise_if_failed("k6_small")
 
 
@@ -1786,42 +1877,138 @@ def library_sddmm_ms(g, lhs, rhs, H, reps=10):
                    reps=reps)
 
 
-def phase_k6_bench(k6, gb, checks):
-    """K6 at bench.py's shape (power-law, N = 1M, in-degree 16, F = 128,
-    a hub row of ~173k in-edges): u_dot_v against the float64 plain
-    version and u_sub_v bitwise against the plain version, timed."""
-    rng = np.random.default_rng(8)
-    F, E = 128, gb.num_edges()
-    lhs = _signed(rng, (gb.num_src_nodes, F), gb.device)
-    rhs = _signed(rng, (gb.num_dst_nodes, F), gb.device)
-    args = (gb.dst, rhs, lhs, gb.src)
-    out = k6.sddmm("dot", *args, F)
-    ref = k6.sddmm_plain("dot", gb.dst, rhs.double(), lhs.double(),
-                         gb.src, F).float()
-    dot_err = checks.compare("sddmm", "bench dot F=128", out, ref,
-                             K6_DOT_TOL, k6.sddmm("dot", *args, F))
-    del ref
-    lib_ms = library_sddmm_ms(gb, lhs, rhs, 1)
-    res = {"dot": timing(
-        cuda_ms(lambda: k6.sddmm("dot", *args, F)),
-        cuda_ms(lambda: k6.sddmm_plain("dot", *args, F), reps=3),
-        nbytes(gb.src, gb.dst, lhs, rhs, out), 2 * E * F,
-        "bench.py graph, u_dot_v, F=128", library_ms=lib_ms)}
-    del out
-    out = k6.sddmm("sub", *args)
-    checks.exact("sddmm", "bench sub F=128", out,
-                 k6.sddmm_plain("sub", *args), k6.sddmm("sub", *args))
-    res["sub"] = timing(
-        cuda_ms(lambda: k6.sddmm("sub", *args)),
-        cuda_ms(lambda: k6.sddmm_plain("sub", *args), reps=3),
-        nbytes(gb.src, gb.dst, lhs, rhs, out), E * F,
-        "bench.py graph, u_sub_v, F=128")
-    del out
+def _k6_bench_case(k6, gb, op, H, D, lhs, rhs, checks):
+    """One K6 route at bench.py's shape: ``op`` (sub, or dot over H heads
+    of D) over lhs and rhs (rows, H * D), at the rule's load width and
+    lanes and at 1, 2 and 4 loads a lane (``_k6_variants``), each checked
+    (sub equal to the plain version, dot within K6_DOT_TOL of it run in
+    float64, bf16 by ``bf16_check``; every result repeated bitwise) and
+    timed behind the queue; the rule's route also beside its plain
+    version, bound and library call."""
+    F, E, dtype = H * D, gb.num_edges(), lhs.dtype
+    dot_d = D if op == "dot" else 0
+    args = (op, gb.dst, rhs, lhs, gb.src, dot_d)
+    a = k6.k6_args(*args)
+    tag = f"bench {op} H={H} D={D} {'bf16' if dtype == BF16 else 'f32'}"
+    ref = k6.sddmm_plain(op, gb.dst, rhs.double(), lhs.double(), gb.src,
+                         dot_d) if op == "dot" else k6.sddmm_plain(*args)
+    routes, errs = {}, {}
+    for vec, lanes in _k6_variants(k6, a):
+        route = k6.k6_route(op, vec, lanes)
+        errs[route] = _k6_check(checks, op, f"{tag} {route}",
+                                k6.k6_run(a, vec=vec, lanes=lanes), ref,
+                                k6.k6_run(a, vec=vec, lanes=lanes))
+        routes[route] = cuda_ms(lambda: k6.k6_run(a, vec=vec, lanes=lanes),
+                                queued=True)
+    route = k6.k6_route(op, *_k6_variants(k6, a)[0])
+    out = k6.sddmm(*args)
+    lib = None                        # no library call subtracts
+    if op == "dot" and dtype != BF16:
+        lib = library_sddmm_ms(gb, lhs, rhs, H)
+    elif op == "dot" and H == 1:      # sampled_addmm, one head, in bf16
+        lib = bf16_sddmm_lib_ms(gb, lhs, rhs)
+    res = timing(routes[route],
+                 cuda_ms(lambda: k6.sddmm_plain(*args), reps=3),
+                 nbytes(gb.src, gb.dst, lhs, rhs, out),
+                 2 * E * F if op == "dot" else E * F,
+                 f"bench.py graph, u_{op}_v, H={H}, D={D}, "
+                 f"{'bf16' if dtype == BF16 else 'f32'}",
+                 library_ms=lib)
+    del out, ref
     torch.cuda.empty_cache()
+    return {**res, "route": route, "routes_ms": routes, "rel_err": errs}
+
+
+def phase_k6_bench(k6, gb, checks):
+    """K6 at bench.py's shape (power-law, N = 1M, in-degree 16, a hub row
+    of ~173k in-edges): u_sub_v at F = 128 and u_dot_v at F = 128 (one
+    head) and at H = 2, D = 64, in float32 and bf16, each at the rule's
+    route and at 1, 2 and 4 loads a lane (``_k6_bench_case``): the
+    gathered lhs misses the L2 there."""
+    rng = np.random.default_rng(8)
+    E = gb.num_edges()
+    lhs = _signed(rng, (gb.num_src_nodes, 128), gb.device)
+    rhs = _signed(rng, (gb.num_dst_nodes, 128), gb.device)
+    res = {}
+    for dtype in (torch.float32, BF16):
+        t = "bf16" if dtype == BF16 else "f32"
+        ins = (lhs.to(dtype), rhs.to(dtype))
+        res[f"sub.{t}"] = _k6_bench_case(k6, gb, "sub", 1, 128, *ins,
+                                         checks)
+        res[f"dot.{t}"] = _k6_bench_case(k6, gb, "dot", 1, 128, *ins,
+                                         checks)
+        res[f"dot.H2D64.{t}"] = _k6_bench_case(k6, gb, "dot", 2, 64, *ins,
+                                               checks)
+        del ins
+    del lhs, rhs
     emit({"phase": "k6_bench_shape", "nodes": gb.num_src_nodes, "edges": E,
-          "F": F, "dot_rel_err": dot_err,
-          **res, "dot_edges_per_s": E / (res["dot"]["ms"] * 1e-3)})
+          "F": 128, **res,
+          "dot_edges_per_s": E / (res["dot.f32"]["ms"] * 1e-3)})
     checks.raise_if_failed("k6_bench_shape")
+
+
+# DGCNN's EdgeConv inputs (Wang et al., "Dynamic Graph CNN for Learning on
+# Point Clouds", ModelNet40 classification): a batch of 32 clouds of 1,024
+# points, k = 20 nearest neighbours (655,360 edges), features of the
+# points (3) and of the EdgeConv layers (64, 128)
+DGCNN = {"clouds": 32, "points": 1024, "k": 20, "F": (3, 64, 128)}
+
+
+def phase_k6_dgcnn(dt, build, k6, checks, dev):
+    """K6's u_sub_v (EdgeConv's x_u - x_v) at DGCNN's shape (``DGCNN``:
+    ``dt.knn_graph`` of each cloud, ``dt.batch``), F = 3, 64 and 128 in
+    float32 and bf16: equal to the plain version, repeated bitwise, timed
+    beside it and its bound (no library call computes it), and at 1, 2
+    and 4 loads a lane (``_k6_variants``); then the same through
+    ``dt.gsddmm`` at F = 64 with its launches.  Every operand fits the
+    L2."""
+    rng = np.random.default_rng(21)
+    pts = rng.normal(size=(DGCNN["clouds"], DGCNN["points"], 3)
+                     ).astype(np.float32)
+    t0 = time.perf_counter()
+    g = dt.batch([dt.knn_graph(p, DGCNN["k"]) for p in pts]).to(dev)
+    build_s = time.perf_counter() - t0
+    N, E = g.num_src_nodes, g.num_edges()
+    rows = {}
+    for dtype in (torch.float32, BF16):
+        t = "bf16" if dtype == BF16 else "f32"
+        name = "sddmm_bf16" if dtype == BF16 else "sddmm"
+        for F in DGCNN["F"]:
+            x = _signed(rng, (N, F), dev).to(dtype)
+            args = ("sub", g.dst, x, x, g.src)
+            out, ref = k6.sddmm(*args), k6.sddmm_plain(*args)
+            checks.exact(name, f"dgcnn sub F={F} {t}", out, ref,
+                         k6.sddmm(*args))
+            a = k6.k6_args(*args)
+            routes = {}
+            for vec, lanes in _k6_variants(k6, a)[1:]:
+                route = k6.k6_route("sub", vec, lanes)
+                checks.exact(name, f"dgcnn sub F={F} {t} {route}",
+                             k6.k6_run(a, vec=vec, lanes=lanes), ref,
+                             k6.k6_run(a, vec=vec, lanes=lanes))
+                routes[route] = cuda_ms(
+                    lambda: k6.k6_run(a, vec=vec, lanes=lanes), queued=True)
+            rows[f"F{F}.{t}"] = {
+                **timing(both_ms(lambda: k6.sddmm(*args)),
+                         cuda_ms(lambda: k6.sddmm_plain(*args), reps=3),
+                         nbytes(g.src, g.dst, x, out), E * F,
+                         f"DGCNN batch, u_sub_v, F={F}, {t}"),
+                "route": k6.k6_route("sub", *_k6_variants(k6, a)[0]),
+                "routes_ms": routes}
+            del out, ref
+    x = _signed(rng, (N, 64), dev)
+    build.LAUNCHES.reset()
+    diff = dt.gsddmm(g, "sub", x, x, "u", "v")
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES.counts)
+    checks.exact("sddmm", "dgcnn gsddmm sub F=64", diff,
+                 k6.sddmm_plain("sub", g.dst, x, x, g.src),
+                 dt.gsddmm(g, "sub", x, x, "u", "v"))
+    if counts.get("sddmm.fwd", 0) < 1 or _launched(counts, "plain"):
+        checks.failures.append(f"dgcnn gsddmm launches: {counts}")
+    emit({"phase": "k6_dgcnn", **DGCNN, "nodes": N, "edges": E,
+          "graph_build_s": build_s, "rows": rows, "launches": counts})
+    checks.raise_if_failed("k6_dgcnn")
 
 
 TF_B, TF_L, TF_VOCAB, TF_DIM, TF_HEADS = 256, 64, 16, 64, 4
@@ -7323,9 +7510,9 @@ def phase_tools(dt, gb, checks, dev):
 def phase_dispatch(dt, build, checks, dev):
     """``DGL_TPU_DEBUG_DISPATCH=1`` on the card (``dispatch``): gspmm sum
     (K1), max (K4/K5), a hybrid (dense hub + K1), a masked block (K1
-    through the real-edge view), gsddmm (K6) and gat_attention (K2), each
-    called twice: every expected line printed exactly once, no composed
-    route, each kernel launched."""
+    through the real-edge view), gsddmm (K6's dot4 and vector routes) and
+    gat_attention (K2), each called twice: every expected line printed
+    exactly once, no composed route, each kernel launched."""
     import contextlib as _cl
     import io
     from dgl_hack_tpu_torch.utils import env
@@ -7344,7 +7531,7 @@ def phase_dispatch(dt, build, checks, dev):
     def t(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
                                 ).to(dev)
-    x, xm = t(n, 16), t(2048, 16)
+    x, xm, x64 = t(n, 16), t(2048, 16), t(n, 64)
     fs, el, er = t(n, 4, 4), t(n, 4), t(n, 4)
     calls = (
         (lambda: dt.gspmm(g, "copy_lhs", "sum", x),      # 2 edges a row
@@ -7356,7 +7543,10 @@ def phase_dispatch(dt, build, checks, dev):
         (lambda: dt.gspmm(gm, "copy_lhs", "sum", xm),
          "gspmm: kernel (copy_lhs.sum, K1, real-edge-view, cuda)"),
         (lambda: dt.gsddmm(g, "dot", x, x),
-         "gsddmm: kernel (dot u-op-v, K6, cuda)"),
+         "gsddmm: kernel (dot u-op-v, K6 dot4, cuda)"),
+        (lambda: dt.gsddmm(g, "sub", x64, x64),
+         "gsddmm: kernel (sub u-op-v, K6 vector, 4 a load, 16 lanes, "
+         "cuda)"),
         (lambda: dt.gat_attention(g, fs, el, er),
          "gat: kernel (K2/K3, H=4 D=4 softmax=shift packed=False)"))
     if "hybrid" not in gh.derived:
@@ -7601,6 +7791,7 @@ def main() -> int:
     c_sub = phase_message_subsets(dt, build, sk, g_bench, checks, dev,
                                   timings)
     phase_k6_bench(k6, g_bench, checks)
+    phase_k6_dgcnn(dt, build, k6, checks, dev)
     phase_k4k5_bench(sm, sk, g_bench, checks)
     phase_gat_bench(gk, sk, g_bench, checks)
     phase_bf16_kernels(dt, build, sk, sm, g_small, g_bench, checks, dev,

@@ -87,10 +87,10 @@ SIGNATURES = {
     "gat_bwd_bf16_staged": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                             _I, _I, _P, _I, _I, *_PLAN, _P],
-    # src, dst, lhs, rhs, out, op, E, F, D, stream
-    "sddmm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # src, dst, lhs, rhs, out, op, E, F, D, vec, lanes, stream
+    "sddmm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # as sddmm_f32, with bf16 lhs, rhs and out
-    "sddmm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sddmm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

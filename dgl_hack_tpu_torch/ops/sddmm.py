@@ -11,8 +11,9 @@ Dispatch as in ``dgl_hack_tpu.ops.sddmm.gsddmm``:
   on CUDA, its plain version on the CPU;
 * everything else composes (gather both operands per edge and combine);
   on CUDA it counts ``plain.gsddmm_composed``.
-* ``DGL_TPU_DEBUG_DISPATCH=1`` prints ``kernel`` or ``composed`` once
-  per distinct call (``utils/env.py:dispatch_log``);
+* ``DGL_TPU_DEBUG_DISPATCH=1`` prints ``kernel`` (on the card with K6's
+  route, ``gsddmm_route``) or ``composed`` once per distinct call
+  (``utils/env.py:dispatch_log``);
 * a masked graph takes the same dispatch over **every** edge, the padded
   ones included, and never reads the mask: the function the JAX package
   computes, whose gsddmm composes on masked graphs without the mask.
@@ -29,7 +30,7 @@ import torch
 from ..utils.env import dispatch_log
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
-from .cuda.sddmm_kernel import gsddmm_kernel
+from .cuda.sddmm_kernel import gsddmm_kernel, gsddmm_route
 
 Tensor = torch.Tensor
 
@@ -70,9 +71,11 @@ def gsddmm(g, op: str, lhs_data: Optional[Tensor] = None,
         lhs_target, rhs_target = rhs_target, "v"
     if rhs_target == "v" and _kernel_eligible(g, op, lhs_data, rhs_data,
                                               lhs_target):
-        dispatch_log("gsddmm", "kernel",
-                     f"{op} {lhs_target}-op-v, K6, "
-                     f"{'cuda' if data.is_cuda else 'cpu, plain version'}")
+        dispatch_log("gsddmm", "kernel", lambda: (
+            f"{op} {lhs_target}-op-v, K6 "
+            f"{gsddmm_route(op, lhs_data, rhs_data, g.num_edges())}, cuda"
+            if data.is_cuda
+            else f"{op} {lhs_target}-op-v, K6, cpu, plain version"))
         out = gsddmm_kernel(g, op, None if op == "copy_rhs" else lhs_data,
                             rhs_data, lhs_target)
         if swap_sign:
