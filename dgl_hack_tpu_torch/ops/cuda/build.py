@@ -13,10 +13,11 @@ port, and this machine may have no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name (``counted``: bf16 launches
 under ``<name>_bf16``; K2's and K3's staged route under
-``<name>_bf16.staged``).  A wrapper adds one where it launches its kernel
-and nowhere else; a plain version that runs on a CUDA tensor adds one
-under ``plain.<name>``, so a run can show that its main path went through
-the kernels.
+``<name>_bf16.staged``, K4's and K5's packed walk under
+``segment_max_bf16.fwd.packed`` and ``segment_max_bf16.bwd.packed``).  A
+wrapper adds one where it launches its kernel and nowhere else; a plain
+version that runs on a CUDA tensor adds one under ``plain.<name>``, so a
+run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -63,6 +64,14 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, *_PLAN, _P],
     "segment_max_bwd_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, *_PLAN, _P],
+    # the packed walk over bf16 rows without a weight
+    # (csrc/segment_max_packed.cu): indptr, gidx, x, raw, num_rows, F, vec,
+    # slice, plan, stream
+    "segment_max_bf16_packed": [_P, _P, _P, _P, _I, _I, _I, _I, *_PLAN, _P],
+    # csr_indptr, dst_csr, x, raw, g, dx, num_src, F, Fx, vec, vec_x,
+    # slice, plan, stream
+    "segment_max_bwd_bf16_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, *_PLAN, _P],
     # indptr, src, wh, el, er, w, shift, rst, den,
     # num_dst, H, D, slope, vec, lane_floats, plan, stream
     "gat_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

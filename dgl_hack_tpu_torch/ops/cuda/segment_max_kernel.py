@@ -40,10 +40,20 @@ Both take bf16 rows as the JAX package's packed path does: x, raw, the
 cotangent and dx in one dtype, the weight cast to float32, each message
 rounded to x's dtype (``_message``), so that K5 compares the values K4
 stored; the max is exact, K5's sums run in float32 and round once.  The
-line and slice rules then count two-byte columns (64 to a line).  Left for
-later: K5's g loads, one scattered 16-byte load per (v, f) pair, a third
-of its time; and a slice-major copy in place of the padded one (no line of
-a slice would then hold another slice's columns).
+line and slice rules then count two-byte columns (64 to a line).
+
+Unweighted bf16 rows of an even width take the packed walk
+(``max_route``; ``csrc/segment_max_packed.cu``, entry points
+``segment_max_bf16_packed`` and ``segment_max_bwd_bf16_packed``, launches
+counted as ``segment_max_bf16.fwd.packed`` and ``.bwd.packed``): the same
+work items, walk and slices, with each gathered row piece kept as loaded,
+bf16x2 pairs, which K4 maxes and K5 compares without widening, so a
+16-byte load costs half the registers (K5 then loads 16 bytes a lane,
+``packed_widths``).  Weighted and odd-width bf16 calls and every float32
+call keep ``csrc/segment_max.cu`` (the "walk").  Left for later: K5's g
+loads, one scattered load per lane and hit edge; and a slice-major copy in
+place of the padded one (no line of a slice would then hold another
+slice's columns).
 """
 from __future__ import annotations
 
@@ -90,6 +100,39 @@ def _message(xe: Tensor, we: Optional[Tensor]) -> Tensor:
     acc = accumulate_dtype(xe.dtype)
     m = _weighted(xe.to(acc), None if we is None else we.to(acc))
     return torch.clamp_min(m, MINMAX_NEG).to(xe.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The route: segment_max.cu's walk or the packed walk
+# ---------------------------------------------------------------------------
+def max_route(dtype: torch.dtype, w_kind: int, vec: int) -> str:
+    """K4's or K5's route on the card: ``"packed"``
+    (segment_max_packed.cu) for bf16 rows without a weight at ``vec``
+    values a load of 2 or more (``packed_widths``: an even width, the
+    gathered arrays 4-byte aligned), else ``"walk"`` (segment_max.cu).
+
+    On an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md) the packed walk
+    took K4 4.13 ms against the walk's 6.89 and K5 10.28 against 17.50 at
+    synthetic Reddit (640 columns in 64-column slices), K4 1.51 against
+    1.60 and K5 1.17 against 1.77 at bench.py's graph (F = 128), and K4
+    0.158 against 0.183 and K5 1.62 against 1.99 on the masked layer-0
+    block (F = 602, 2 values a load); a route that staged the gathered rows
+    in shared memory (cp.async) lost to it at all three.  It takes
+    ``slice_width``'s slices, which won its sweep at all three (Reddit: 64
+    columns, K4 4.21 ms and K5 10.26 against 5.55 and 10.71 at 128)."""
+    if dtype == torch.bfloat16 and w_kind == 0 and vec >= 2:
+        return "packed"
+    return "walk"
+
+
+def packed_widths(F: int, rows: Tensor, *more: Tensor) -> int:
+    """Values a lane loads on the packed walk over the gathered ``rows``
+    (and ``more`` read beside them: K5's g): ``vector_width``'s, up to 8 (16
+    bytes; not bound by ``SUM_MAX_VALUES``, since packed pairs cost half
+    the registers of widened floats).  On the card (chip_smoke.py,
+    PERF.md) 8 values took K5 10.26 ms at Reddit against 11.38 at 4 and
+    18.93 at 2, and K4 4.21 against 4.51 and 6.37."""
+    return vector_width(F, rows, *more)
 
 
 # ---------------------------------------------------------------------------
@@ -143,18 +186,21 @@ def segment_max(indptr: Tensor, x: Tensor, gidx: Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"segment_max: unsupported device {x.device}")
     launch = segment_max_launcher(indptr, x, gidx, w, plan)
-    LAUNCHES.add(f"{counted('segment_max', x.dtype)}.fwd")
+    LAUNCHES.add(f"{counted('segment_max', x.dtype)}.fwd"
+                 + (".packed" if launch.route == "packed" else ""))
     return launch(None)
 
 
 def segment_max_launcher(indptr: Tensor, x: Tensor, gidx: Tensor,
                          w: Optional[Tensor] = None,
                          plan: Optional[RowPlan] = None):
-    """Check K4's arguments on CUDA and return ``launch(slice_cols,
-    vec)``, which runs the kernel at that slice width and load width, or
-    at ``slice_width``'s and ``vector_width``'s where None, and returns
-    raw.  ``segment_max`` launches through it; ``chip_smoke.py`` times the
-    slice and load widths with it."""
+    """Check K4's arguments on CUDA and return ``launch(slice_cols, vec,
+    route)``, which runs the kernel on ``route`` (None: ``launch.route``,
+    ``max_route``'s; ``launch.routes`` lists those that take the call) at
+    that slice width and load width, or at ``slice_width``'s and
+    ``vector_width``'s where None, and returns raw.  ``segment_max``
+    launches through it; ``chip_smoke.py`` times the routes, slice and load
+    widths with it."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"segment_max takes x of shape (rows, F), got "
@@ -175,19 +221,42 @@ def segment_max_launcher(indptr: Tensor, x: Tensor, gidx: Tensor,
     entry = "segment_max_f32" if x.dtype == torch.float32 \
         else "segment_max_bf16"
 
-    def launch(slice_cols: Optional[int], vec: Optional[int] = None
-               ) -> Tensor:
+    def launch(slice_cols: Optional[int] = None, vec: Optional[int] = None,
+               route: Optional[str] = None) -> Tensor:
+        route = route or launch.route
         vec = vec or vec_rule
         if slice_cols is None:
             slice_cols = slice_width(x.shape[0], F, False, x.element_size(),
                                      reuse)
         out = torch.empty((num_rows, F), dtype=x.dtype, device=dev)
-        run("segment_max", getattr(library(), entry), dev,
-            ptr(indptr), ptr(gidx), ptr(x), ptr(w), w_kind, ptr(out),
-            num_rows, F, vec, slice_cols,
-            *plan_args(plan, plan_scratch(plan, F)))
+        scratch = plan_args(plan, plan_scratch(plan, F))
+        if route == "packed":
+            _check_packed("segment_max", launch.routes, F, slice_cols, vec,
+                          x)
+            run("segment_max", library().segment_max_bf16_packed, dev,
+                ptr(indptr), ptr(gidx), ptr(x), ptr(out), num_rows, F, vec,
+                slice_cols, *scratch)
+        else:
+            run("segment_max", getattr(library(), entry), dev,
+                ptr(indptr), ptr(gidx), ptr(x), ptr(w), w_kind, ptr(out),
+                num_rows, F, vec, slice_cols, *scratch)
         return out
+    launch.route = max_route(x.dtype, w_kind, vec_rule)
+    launch.routes = ("walk", "packed") if launch.route == "packed" \
+        else ("walk",)
     return launch
+
+
+def _check_packed(what: str, routes, F: int, slice_cols: int, vec: int,
+                  *rows: Tensor) -> None:
+    """Raise where the packed walk does not take a launch: a call it is
+    not a route of (float32, weighted, odd widths), or a load width under
+    2, not dividing F and the slice, or that the gathered rows' alignment
+    does not allow."""
+    if "packed" not in routes or vec < 2 or F % vec or slice_cols % vec \
+            or any(t.data_ptr() % (2 * vec) for t in rows):
+        raise ValueError(f"{what}: no packed route at F={F}, slice "
+                         f"{slice_cols}, {vec} values a load")
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +333,8 @@ def segment_max_bwd(csr_indptr: Tensor, dst_csr: Tensor, csr_eids: Tensor,
         raise ValueError(f"segment_max_bwd: unsupported device {x.device}")
     launch = segment_max_bwd_launcher(csr_indptr, dst_csr, csr_eids, x, w,
                                       raw, g, want_dw, plan)
-    LAUNCHES.add(f"{counted('segment_max', x.dtype)}.bwd")
+    LAUNCHES.add(f"{counted('segment_max', x.dtype)}.bwd"
+                 + (".packed" if launch.route == "packed" else ""))
     return launch(None)
 
 
@@ -273,11 +343,13 @@ def segment_max_bwd_launcher(csr_indptr: Tensor, dst_csr: Tensor,
                              w: Optional[Tensor], raw: Tensor, g: Tensor,
                              want_dw: bool = True,
                              plan: Optional[RowPlan] = None):
-    """Check K5's arguments on CUDA and return ``launch(slice_cols,
-    vec)``, which runs the kernel at that slice width and load width (of
-    raw and g; x's is the narrower of it and x's own), or at
-    ``max_bwd_slice_width``'s and ``max_bwd_load_widths``' where None, and
-    returns (dx, dw)."""
+    """Check K5's arguments on CUDA and return ``launch(slice_cols, vec,
+    route)``, which runs the kernel on ``route`` (None: ``launch.route``,
+    ``max_route``'s; ``launch.routes`` lists those that take the call) at
+    that slice width and load width (of raw and g; x's is the narrower of
+    it and x's own), or at ``max_bwd_slice_width``'s and
+    ``max_bwd_load_widths``' (``packed_widths``' on the packed walk) where
+    None, and returns (dx, dw)."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"segment_max_bwd takes x of shape (rows, F), got "
@@ -307,27 +379,41 @@ def segment_max_bwd_launcher(csr_indptr: Tensor, dst_csr: Tensor,
                          "range")
     want_dw = want_dw and w is not None
     plan = checked_plan(plan, csr_indptr, "segment_max_bwd")
-    vec_rule, vec_x_rule = max_bwd_load_widths(F, x, w, raw, g)
+    vec_walk = max_bwd_load_widths(F, x, w, raw, g)[0]
+    vec_packed = packed_widths(F, raw, g)
     reuse = edges_per_row(E, raw.shape[0], Ns)
     entry = "segment_max_bwd_f32" if x.dtype == torch.float32 \
         else "segment_max_bwd_bf16"
 
-    def launch(slice_cols: Optional[int], vec: Optional[int] = None
+    def launch(slice_cols: Optional[int] = None, vec: Optional[int] = None,
+               route: Optional[str] = None
                ) -> Tuple[Tensor, Optional[Tensor]]:
-        vec_x = vec_x_rule if vec is None else \
-            min(vec, vector_width(Fx, x))
-        vec = vec or vec_rule
+        route = route or launch.route
+        vec = vec or (vec_packed if route == "packed" else vec_walk)
+        vec_x = min(vec, vector_width(Fx, x))
         if slice_cols is None:
             slice_cols = max_bwd_slice_width(raw.shape[0], F, w_kind, want_dw,
                                              raw.element_size(), reuse)
         dx = torch.empty((Ns, Fx), dtype=x.dtype, device=dev)
         dw = torch.empty(w.shape, dtype=torch.float32, device=dev) \
             if want_dw else None
-        run("segment_max_bwd", getattr(library(), entry), dev,
-            ptr(csr_indptr), ptr(dst_csr), ptr(csr_eids), ptr(x), ptr(w),
-            w_kind, ptr(raw), ptr(g), ptr(dx), ptr(dw), Ns, F, Fx, vec,
-            vec_x, slice_cols, *plan_args(plan, plan_scratch(plan, Fx)))
+        scratch = plan_args(plan, plan_scratch(plan, Fx))
+        if route == "packed":
+            _check_packed("segment_max_bwd", launch.routes, F, slice_cols,
+                          vec, raw, g)
+            run("segment_max_bwd", library().segment_max_bwd_bf16_packed,
+                dev, ptr(csr_indptr), ptr(dst_csr), ptr(x), ptr(raw),
+                ptr(g), ptr(dx), Ns, F, Fx, vec, vec_x, slice_cols,
+                *scratch)
+        else:
+            run("segment_max_bwd", getattr(library(), entry), dev,
+                ptr(csr_indptr), ptr(dst_csr), ptr(csr_eids), ptr(x),
+                ptr(w), w_kind, ptr(raw), ptr(g), ptr(dx), ptr(dw), Ns, F,
+                Fx, vec, vec_x, slice_cols, *scratch)
         return dx, None if dw is None else dw.to(w_dtype)
+    launch.route = max_route(x.dtype, w_kind, vec_packed)
+    launch.routes = ("walk", "packed") if launch.route == "packed" \
+        else ("walk",)
     return launch
 
 
@@ -385,3 +471,19 @@ def gspmm_max(g, x: Tensor, w: Optional[Tensor] = None,
     val = -raw if reduce_op == "min" else raw
     out = torch.where(raw > MINMAX_NEG * 0.5, val, torch.zeros_like(val))
     return out.reshape((out.shape[0],) + tuple(shape[1:]))
+
+
+def gspmm_max_routes(g, x: Tensor, w: Optional[Tensor] = None
+                     ) -> Tuple[str, str]:
+    """(K4's, K5's) route in ``gspmm_max(g, x, w)`` on the card
+    (``max_route`` at the width ``GspmmMax`` runs, over x's padded copy
+    and a fresh raw and cotangent).  For the dispatch log."""
+    shape = x.shape
+    x2 = x.reshape(shape[0], -1)
+    g, w = on_real_edges(g, flat_weight(w, shape))
+    F = run_width(x2, w, g)
+    w_kind = _w_kind(w, g.num_edges(), F)
+    fresh = torch.empty((1, F), dtype=x.dtype, device="meta")
+    x_run = x2 if F == x2.shape[1] else fresh
+    return (max_route(x.dtype, w_kind, vector_width(F, x_run)),
+            max_route(x.dtype, w_kind, packed_widths(F, fresh, fresh)))

@@ -67,7 +67,7 @@ from ..utils.env import dispatch_log
 from . import segment
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
-from .cuda.segment_max_kernel import gspmm_max
+from .cuda.segment_max_kernel import gspmm_max, gspmm_max_routes
 from .cuda.spmm_kernel import (accumulate_dtype, gspmm_hybrid, gspmm_rows,
                                gspmm_rows_route, gspmm_sum, gspmm_sum_route,
                                real_in_degrees)
@@ -117,6 +117,19 @@ def _k1(data: Tensor, route, *args) -> str:
     short rows (``route(*args)``, on the card), else "K1"."""
     return "K1 packed" if data.is_cuda and route(*args) == "packed" \
         else "K1"
+
+
+def _k45(data: Tensor, g, x: Tensor, w) -> str:
+    """K4/K5's name in the dispatch log, naming the kernels that take the
+    packed walk on the card (``gspmm_max_routes``): "K4/K5 packed", "K4
+    packed, K5" or "K4, K5 packed"; "K4/K5" where neither does and on the
+    CPU."""
+    if not data.is_cuda:
+        return "K4/K5"
+    r4, r5 = gspmm_max_routes(g, x, w)
+    if r4 == r5:
+        return "K4/K5 packed" if r4 == "packed" else "K4/K5"
+    return "K4 packed, K5" if r4 == "packed" else "K4, K5 packed"
 
 
 def _view(g) -> str:
@@ -229,8 +242,9 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
         op, lhs_data, rhs_data, lhs_target, rhs_target)
     w = rhs_data if op == "mul" else None
     if kernel and reduce_op in ("max", "min"):
-        dispatch_log("gspmm", "kernel", f"{combo}, K4/K5{_view(g)}, "
-                     f"{_on(data)}")
+        dispatch_log("gspmm", "kernel", lambda: (
+            f"{combo}, {_k45(data, g, lhs_data, w)}{_view(g)}, "
+            f"{_on(data)}"))
         return gspmm_max(g, lhs_data, w, reduce_op)
     if kernel and data.is_cuda and reduce_op in ("sum", "mean"):
         dispatch_log("gspmm", "kernel", lambda: (
