@@ -6,7 +6,9 @@ Phases, one JSON line each:
   1. build the kernels from dgl_hack_tpu_torch/csrc (nvcc, sm_90a), with
      ptxas's registers and spills of every K2/K3 kernel, the float32 ones
      held to those of the tree before the staged route (``F32_GAT_PTXAS``),
-     and of every K4/K5 kernel (``max_ptxas``);
+     of every K4/K5 kernel (``max_ptxas``) and of every K1 kernel
+     (``k1_ptxas``), the float32 ones held to those of the tree before K1's
+     pairs walk (``F32_K1_PTXAS``);
   2. K1 (segment sum) against its plain version: forward and dx on a
      small graph (zero-in-degree rows, a hub of >= 10k in-edges, F in
      {7, 16, 41, 128}); gspmm with a dst-side operand, which reduces
@@ -160,10 +162,14 @@ Phases, one JSON line each:
      padded blocks, K1 through the real-edge view) and the adaptive-
      sampling GCN twin (``adaptive_sampling``: full-graph gspmm mean, K1)
      at their CLI defaults, losses finite and falling;
- 27. bf16 rows (``bf16_kernels``, after phase 9): K1 in every mode
-     (forward, dx, edge rows) and weight kind (none, (E,) float32 and
-     bf16, (E, F) float32, and a float32 result) at F = 7 and 1 on phase
-     2's small graph and at bench.py's graph (F = 128), K4/K5 there on
+ 27. bf16 rows (``bf16_kernels``, after phase 9): K1 on its pairs walk in
+     every mode (forward, dx, edge rows) and weight kind (none, (E,)
+     float32 and bf16, (E, F) float32, and a float32 result) at F = 1, 7,
+     8, 64 and 130 on phase 2's small graph (its hub in pieces) and at
+     bench.py's graph (F = 128), with K1's sweep of 8 and 4 values a lane,
+     feature slices and both routes beside the time of the tree before the
+     pairs walk (``_k1_sweep``, ``K1_BF16_PARENT_MS``; also on the masked
+     block and at Reddit), K4/K5 there on
      segment_max.cu's walk and, unweighted, on the packed walk
      (segment_max_packed.cu), also at F = 8, 64 and
      130 on the small graph and over features with NaNs, empty rows, ties
@@ -177,7 +183,9 @@ Phases, one JSON line each:
      message where it refuses), the packed walk beside the walk with its
      sweep of slices and values a lane; ``bf16_reddit``
      (after phase 6): the same at synthetic Reddit's F = 602 padded to 640
-     (64 bf16 columns a line) as GspmmSum and GspmmMax run it, then gspmm
+     (64 bf16 columns a line) as GspmmSum and GspmmMax run it (K1 forward
+     and dx checked at every point of its sweep, slices 64 and 128), then
+     gspmm
      max and min in bf16 (the packed walk) and u_mul_e max (the walk)
      forward and backward through dt.gspmm, K4/K5's main path, launches
      counted and the dispatch log read;
@@ -188,6 +196,9 @@ Phases, one JSON line each:
      sum) * 1e-3, one readback) in float32 and with a bf16 carry: edges/s,
      share of the compulsory-byte bound, windows, dense rows, C's bytes and
      build ms, peak memory; one iteration of each hybrid against K1 alone;
+     the bf16 loops' launches all on K1's pairs walk
+     (``segment_sum_bf16.fwd.pairs``), nothing plain, and the dispatch
+     log's line of each (``K1 ... pairs``, ``dense + K1 ... pairs``);
  29. the hybrid's parts (``hybrid``) at bench.py's shape, forward and
      backward, in float32 and bf16, against K1 alone, with the inputs of
      the port's default breakeven as this run measures them;
@@ -303,8 +314,9 @@ Phases, one JSON line each:
      P = 2 on 20,000 nodes (rows ok, all_to_all bytes equal to
      tools/scaling.py's formula) and tools/partition_torch.py on the cora
      stand-in; ``dispatch``: DGL_TPU_DEBUG_DISPATCH=1 over gspmm sum, max,
-     a hybrid, a masked block, gsddmm and gat_attention on the card, each
-     line once after two calls;
+     a hybrid, bf16 sums alone and through a hybrid (K1's pairs walk), a
+     masked block, gsddmm and gat_attention on the card, each line once
+     after two calls;
  41. ``rank_kernels`` (after ``nccl_one_rank``): the kernels as the ranks
      of ``parallel/`` run them, in one process: K1's forward and dx over
      rank 0's local and remote splits of ``spatial_reddit``'s plan at F =
@@ -407,6 +419,21 @@ F32_GAT_PTXAS = {
     "fwd 4 0 1": (64, 16, 8), "fwd 4 0 2": (96, 0, 0),
     "fwd 4 1 1": (72, 0, 0), "fwd 4 1 2": (98, 0, 0)}
 
+
+# ptxas's (registers, spill store bytes, spill load bytes) of every float32
+# K1 kernel ("rows|packed V W" of segment_sum_kernel<V, W, float, float>
+# and segment_sum_packed_kernel, and its fix-up) as the tree before K1's
+# pairs walk built them (nvcc of CUDA 12.8 for sm_90a, on the H100
+# machine): the float32 kernels must build to the same code.
+F32_K1_PTXAS = {
+    "rows 1 0": (40, 0, 0), "rows 1 1": (48, 0, 0), "rows 1 2": (47, 0, 0),
+    "rows 2 0": (48, 0, 0), "rows 2 1": (48, 0, 0), "rows 2 2": (53, 0, 0),
+    "rows 4 0": (48, 0, 0), "rows 4 1": (64, 0, 0), "rows 4 2": (64, 8, 8),
+    "packed 1 0": (60, 0, 0), "packed 1 1": (63, 0, 0),
+    "packed 1 2": (63, 0, 0), "packed 2 0": (60, 0, 0),
+    "packed 2 1": (64, 8, 8), "packed 2 2": (80, 0, 0),
+    "packed 4 0": (64, 0, 0), "packed 4 1": (80, 0, 0),
+    "packed 4 2": (110, 0, 0), "fixup": (26, 0, 0)}
 
 T_START = time.perf_counter()
 
@@ -615,6 +642,46 @@ def max_ptxas(log):
     return out
 
 
+def k1_ptxas(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} of every
+    K1 kernel in a ptxas log, keyed "rows|packed V W" for float32 rows and
+    output (as ``F32_K1_PTXAS``), with " bf16", " bf16 f32out" after it
+    over bf16 rows (a bf16 or a float32 result; "rows 8 0 bf16" is
+    segment_sum_pairs8_kernel), and "fixup" / "fixup bf16" for the fix-up
+    of a float32 or bf16 result."""
+    import re
+    types = {"ff": "", "13__nv_bfloat16S1_": " bf16",
+             "13__nv_bfloat16f": " bf16 f32out"}
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, key = m.group(1), None
+            if "segment_sum_cu" in name:
+                k = re.search(r"segment_sum(_packed|_pairs8)?_kernelILi(\d+)"
+                              r"ELi(\d+)E(\w+?)EEv", name)
+                f = re.search(r"row_fixupILb0E(f|13__nv_bfloat16)EEv", name)
+                if k and k.group(4) in types:
+                    kind = "packed" if k.group(1) == "_packed" else "rows"
+                    key = (f"{kind} {k.group(2)} {k.group(3)}"
+                           f"{types[k.group(4)]}")
+                elif f:
+                    key = "fixup" if f.group(1) == "f" else "fixup bf16"
+            spill = (0, 0)
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[key] = (int(m.group(1)), *spill)
+            key = None
+    return out
+
+
 def phase_build(build):
     t0 = time.perf_counter()
     build.library()
@@ -628,14 +695,21 @@ def phase_build(build):
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     gat = gat_ptxas(log)
     f32 = {k: v for k, v in gat.items() if k in F32_GAT_PTXAS}
+    k1 = k1_ptxas(log)
+    k1_f32 = {k: v for k, v in k1.items() if k in F32_K1_PTXAS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "card": card, "library": build.BUILD_INFO.get("path"),
           "ptxas": ptxas, "gat_ptxas": gat, "max_ptxas": max_ptxas(log),
-          "f32_gat_ptxas_as_before": f32 == F32_GAT_PTXAS})
+          "k1_ptxas": k1,
+          "f32_gat_ptxas_as_before": f32 == F32_GAT_PTXAS,
+          "f32_k1_ptxas_as_before": k1_f32 == F32_K1_PTXAS})
     if f32 != F32_GAT_PTXAS:
         raise SystemExit("build failed: the float32 K2/K3 variants' ptxas "
                          f"lines changed: {f32} against {F32_GAT_PTXAS}")
+    if k1_f32 != F32_K1_PTXAS:
+        raise SystemExit("build failed: the float32 K1 kernels' ptxas "
+                         f"lines changed: {k1_f32} against {F32_K1_PTXAS}")
     return card
 
 
@@ -3292,34 +3366,42 @@ def _short_timings(sk, name, modes, F, gen, dev, weights=("none", "E")):
     return res
 
 
-def _short_dispatch(dt, graphs, gen, dev):
-    """DGL_TPU_DEBUG_DISPATCH=1 over gspmm copy_u sum on each graph (and
-    copy_e sum, the rows route, on the 0-hop part): the lines printed."""
+def dispatch_lines(calls):
+    """The lines the dispatch log (DGL_TPU_DEBUG_DISPATCH=1) prints over
+    ``calls``, each called once under no_grad with the log's memory of
+    printed lines cleared first, so that each prints its own."""
     import io
     from dgl_hack_tpu_torch.utils import env
     old = os.environ.get("DGL_TPU_DEBUG_DISPATCH")
     os.environ["DGL_TPU_DEBUG_DISPATCH"] = "1"
     buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf), torch.no_grad():
+            for call in calls:
+                env._PRINTED.clear()
+                call()
+        torch.cuda.synchronize()
+    finally:
+        if old is None:
+            del os.environ["DGL_TPU_DEBUG_DISPATCH"]
+        else:
+            os.environ["DGL_TPU_DEBUG_DISPATCH"] = old
+        env._PRINTED.clear()
+    return [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("[dgl-tpu dispatch] ")]
+
+
+def _short_dispatch(dt, graphs, gen, dev):
+    """DGL_TPU_DEBUG_DISPATCH=1 over gspmm copy_u sum on each graph (and
+    copy_e sum, the rows route, on the 0-hop part): the lines printed."""
     lines = {}
-    with torch.no_grad():
-        for name, (g, F) in graphs.items():
-            env._PRINTED.clear()
-            x = torch.randn(g.num_src_nodes, F, generator=gen, device=dev)
-            with contextlib.redirect_stdout(buf):
-                dt.gspmm(g, "copy_lhs", "sum", x)
-                if name == "zero_hop":
-                    dt.gspmm(g, "copy_rhs", "sum", None, torch.randn(
-                        g.num_edges(), F, generator=gen, device=dev))
-            lines[name] = [ln for ln in buf.getvalue().splitlines()
-                           if ln.startswith("[dgl-tpu dispatch] ")]
-            buf.seek(0)
-            buf.truncate()
-    torch.cuda.synchronize()
-    if old is None:
-        del os.environ["DGL_TPU_DEBUG_DISPATCH"]
-    else:
-        os.environ["DGL_TPU_DEBUG_DISPATCH"] = old
-    env._PRINTED.clear()
+    for name, (g, F) in graphs.items():
+        x = torch.randn(g.num_src_nodes, F, generator=gen, device=dev)
+        calls = [lambda: dt.gspmm(g, "copy_lhs", "sum", x)]
+        if name == "zero_hop":
+            e = torch.randn(g.num_edges(), F, generator=gen, device=dev)
+            calls.append(lambda: dt.gspmm(g, "copy_rhs", "sum", None, e))
+        lines[name] = dispatch_lines(calls)
     return lines
 
 
@@ -4517,6 +4599,37 @@ def phase_adaptive_sampling(build, dev):
 # ---------------------------------------------------------------------------
 BF16 = torch.bfloat16
 
+# K1 over bf16 rows as the tree before the pairs walk ran it (the
+# widening walk), ms at points of ``_k1_sweep`` (its keys; "fwd rule" and
+# "dx rule": that tree's own widths and route), from
+# tools/k1_builds_torch.py with that tree's csrc beside this one's, in
+# one call on an H100 80GB HBM3 at 700.00 W: printed beside this run's
+# times, never compared with them.
+K1_BF16_PARENT_MS = {
+    "bench": {"fwd rule": 1.4862, "dx rule": 0.7575,
+              "fwd slice=128 vec=8 rows": 1.6565,
+              "fwd slice=128 vec=8 packed": 1.6159,
+              "fwd slice=128 vec=4 rows": 1.4862,
+              "fwd slice=128 vec=4 packed": 1.6691,
+              "dx slice=128 vec=8 rows": 0.8461,
+              "dx slice=128 vec=8 packed": 1.1473,
+              "dx slice=128 vec=4 rows": 0.7575,
+              "dx slice=128 vec=4 packed": 1.0958},
+    "masked": {"fwd rule": 0.1686, "dx rule": 0.7513,
+               "fwd slice=602 vec=2 rows": 0.1686,
+               "fwd slice=602 vec=2 packed": 0.4989,
+               "dx slice=602 vec=2 rows": 0.7513,
+               "dx slice=602 vec=2 packed": 0.9128},
+    "reddit": {"fwd rule": 4.9527, "dx rule": 5.0049,
+               "fwd slice=64 vec=8 rows": 6.1734,
+               "fwd slice=64 vec=4 rows": 4.9527,
+               "fwd slice=128 vec=8 rows": 6.7601,
+               "fwd slice=128 vec=4 rows": 5.719,
+               "dx slice=64 vec=8 rows": 6.2566,
+               "dx slice=64 vec=4 rows": 5.0049,
+               "dx slice=128 vec=8 rows": 7.1117,
+               "dx slice=128 vec=4 rows": 5.186}}
+
 
 def bf16_ulp(v):
     """One bf16 ulp (8 significant bits) at each |v|, in float64."""
@@ -4772,29 +4885,78 @@ def _int_cotangent(rng, shape, dev):
 
 
 def _bf16_sweeps(sk, sm, g, x, gout, raw, xb, vecs=(), slices=()):
-    """ms of K1 forward and dx, K4 and K5 (on segment_max.cu's walk) over
-    bf16 rows at each load width of ``vecs`` (values a lane loads; at the
-    rule's slice width) and at each slice width of ``slices`` (at the
-    rule's load width): what ``SUM_MAX_VALUES`` and ``SLICE_MIN_REUSE``
-    rest on."""
+    """ms of K4 and K5 on segment_max.cu's walk over bf16 rows at each
+    load width of ``vecs`` (values a lane loads; at the rule's slice
+    width) and at each slice width of ``slices`` (at the rule's load
+    width): what ``SUM_MAX_VALUES`` and ``SLICE_MIN_REUSE`` rest on (K1's
+    own sweep is ``_k1_sweep``)."""
     p_fwd, p_rev = sk.graph_row_plan(g, "csc"), sk.graph_row_plan(g, "csr")
     dst_csr = sk.rev_gidx(g)
     launchers = {
-        "k1": sk.segment_sum_launcher(g.csc_indptr, x, g.src, plan=p_fwd),
-        "k1_dx": sk.segment_sum_launcher(g.csr_indptr, gout, dst_csr,
-                                         g.csr_eids, plan=p_rev),
         "k4": sm.segment_max_launcher(g.csc_indptr, x, g.src, plan=p_fwd),
         "k5": sm.segment_max_bwd_launcher(g.csr_indptr, dst_csr, g.csr_eids,
                                           xb, None, raw, gout, plan=p_rev)}
-    walk = {"route": "walk"}
     res = {}
     for name, launch in launchers.items():
-        kw = walk if name in ("k4", "k5") else {}
-        rec = {f"vec{v}": cuda_ms(lambda: launch(None, v, **kw), reps=5)
+        rec = {f"vec{v}": cuda_ms(lambda: launch(None, v, route="walk"),
+                                  reps=5)
                for v in vecs}
-        rec.update({f"slice{c}": cuda_ms(lambda: launch(c, **kw), reps=5)
+        rec.update({f"slice{c}": cuda_ms(lambda: launch(c, route="walk"),
+                                         reps=5)
                     for c in slices})
         res[name] = rec
+    return res
+
+
+# The widths K1's sweep over bf16 rows tries beside its rule's: 8 and 4
+# values a lane (16- and 8-byte loads).
+K1_SWEEP_VECS = (8, 4)
+
+
+def _k1_sweep(sk, g, x, gout, checks, what, slices=(), parent=None):
+    """K1 over bf16 rows on g, forward (x over the CSC rows) and dx (gout
+    over the CSR rows), at the rule's widths and route, at each load width
+    of ``K1_SWEEP_VECS`` and each feature slice of ``slices`` under F,
+    each on the rows route and, where half the rows or more are short, the
+    packed one (what ``K1_PACK_SHARE`` rests on): each result held to the
+    float64
+    plain version (``bf16_check``) and repeated bitwise, each timed (ms),
+    beside the time of the tree before the pairs walk at the same point
+    where ``parent`` has it (``K1_BF16_PARENT_MS``), and the rule's point
+    beside that tree's time at its own rule."""
+    F = x.shape[1]
+    dirs = {"fwd": (g.csc_indptr, g.src, None, x,
+                    sk.graph_row_plan(g, "csc")),
+            "dx": (g.csr_indptr, sk.rev_gidx(g), g.csr_eids, gout,
+                   sk.graph_row_plan(g, "csr"))}
+    res = {}
+    for d, (indptr, gidx, eid, rows_x, plan) in dirs.items():
+        launch = sk.segment_sum_launcher(indptr, rows_x, gidx, eid,
+                                         plan=plan)
+        ref = sk.segment_sum_plain(indptr, rows_x.double(), gidx, eid)
+        rule = launch.widths()
+        num_rows = indptr.numel() - 1
+        routes = ("rows", "packed") if 2 * plan.short_rows(num_rows) >= \
+            num_rows else ("rows",)
+        vecs = sorted({rule[1], *K1_SWEEP_VECS}, reverse=True)
+        for c in sorted({rule[0], *(c for c in slices if c < F)},
+                        reverse=True):
+            for v in (v for v in vecs if F % v == 0 and c % v == 0):
+                for route in routes:
+                    key = f"{d} slice={min(c, F)} vec={v} {route}"
+                    out, again = launch(c, v, route), launch(c, v, route)
+                    rec = {"ulps": bf16_check(
+                        checks, "segment_sum_bf16", f"{what} sweep {key}",
+                        out, ref, again)}
+                    del out, again
+                    rec["ms"] = cuda_ms(lambda: launch(c, v, route), reps=5)
+                    rec["rule"] = (c, v, route) == rule
+                    if parent and key in parent:
+                        rec["parent_ms"] = parent[key]
+                    if rec["rule"] and parent and f"{d} rule" in parent:
+                        rec["parent_rule_ms"] = parent[f"{d} rule"]
+                    res[key] = rec
+        del ref
     return res
 
 
@@ -4961,8 +5123,9 @@ def _bf16_reaches_kernels(dt, build, g, rng):
 def phase_bf16_kernels(dt, build, sk, sm, g_small, gb, checks, dev,
                        timings):
     """K1, K4 and K5 over bf16 rows (``bf16_kernels``): every K1 mode and
-    weight kind at F = 7 and 1 on the small graph (hub in pieces) and at
-    bench.py's graph (F = 128) with its times; K4/K5 at both, exact; K1's
+    weight kind at F = 1, 7, 8, 64 and 130 on the small graph (hub in
+    pieces) and at bench.py's graph (F = 128) with its times and K1's
+    sweep (``_k1_sweep``); K4/K5 at both, exact; K1's
     edge-row mode at the GIN readout (1,024 graphs of 24 nodes, F = 32);
     and every kernel on the masked layer-0 block through the real-edge
     view (F = 602, as the sampled GraphSAGE runs it); and that bf16 calls
@@ -4979,6 +5142,8 @@ def phase_bf16_kernels(dt, build, sk, sm, g_small, gb, checks, dev,
             _bf16_k4k5_case(sm, sk, g_small, x, w, gout, checks,
                             f"small F={F} w={kind}")
     for F in (8, 64, 130):          # the packed walk at 8, 8 and 2 a load
+        errs[f"small.F{F}"] = _bf16_k1_cases(sk, g_small, F, checks, "small",
+                                             rng)
         x = torch.from_numpy(rng.normal(size=(g_small.num_src_nodes, F))
                              .astype(np.float32)).to(dev, BF16)
         gout = _int_cotangent(rng, (g_small.num_dst_nodes, F), dev)
@@ -4995,6 +5160,8 @@ def phase_bf16_kernels(dt, build, sk, sm, g_small, gb, checks, dev,
     t_bench = _bf16_timings(sk, sm, gb, x, gout, "bench.py graph, F=128")
     t_bench["packed_sweep"] = _packed_sweep(sm, sk, gb, x, gout, x, checks,
                                             "bench F=128")
+    t_bench["k1_sweep"] = _k1_sweep(sk, gb, x, gout, checks, "bench F=128",
+                                    parent=K1_BF16_PARENT_MS["bench"])
     timings["segment_sum_bf16"] = t_bench["k1_fwd"]
     del x, gout
     seg = sk.segments([24] * 1024, dev)
@@ -5031,6 +5198,9 @@ def phase_bf16_kernels(dt, build, sk, sm, g_small, gb, checks, dev,
     t_masked["slice_sweep"] = _bf16_sweeps(
         sk, sm, view, xm, gm, sm.segment_max(view.csc_indptr, xm, view.src),
         xm, slices=(16, 64, 602))
+    t_masked["k1_sweep"] = _k1_sweep(sk, view, xm, gm, checks,
+                                     "masked F=602", slices=(16, 64),
+                                     parent=K1_BF16_PARENT_MS["masked"])
     reached = _bf16_reaches_kernels(dt, build, g_small, rng)
     if reached["plain"] or not all(reached[k] > 0 for k in (
             "gat_fwd_bf16", "gat_bwd_bf16", "sddmm_bf16")):
@@ -5073,6 +5243,10 @@ def phase_bf16_reddit(dt, sk, sm, g, checks, dev, timings):
                      sk.segment_sum(*fwd, plan=plan))
     t = _bf16_timings(sk, sm, g, xp, gp,
                       f"synthetic Reddit, F={F} padded to {Fp}", cols=F)
+    t["k1_sweep"] = _k1_sweep(sk, g, xp, gp, checks,
+                              f"reddit F={F} padded to {Fp}",
+                              slices=(64, 128),
+                              parent=K1_BF16_PARENT_MS["reddit"])
     t["slice_width_rule"] = sk.slice_width(N, F, False, 2)
     t["packed_sweep"] = _packed_sweep(sm, sk, g, xp, gp, x, checks,
                                       f"reddit F={F} padded to {Fp}")
@@ -5256,10 +5430,20 @@ def phase_headline(dt, sk, gb, checks, dev):
           "err_rule": "f32: rel 1e-5; bf16: 1 ulp + K1_TOL*max"})
     checks.raise_if_failed("headline")
     for key, counts in launches.items():
-        name = "segment_sum_bf16" if key.endswith("bf16") else "segment_sum"
-        if counts.get(f"{name}.fwd", 0) < 1 or any(
-                k.startswith("plain.") for k in counts):
+        dtype = BF16 if key.endswith("bf16") else torch.float32
+        name = sk.launch_name("fwd", dtype)
+        if counts.get(name, 0) < 1 or any(
+                k.startswith("plain.") or (k.startswith("segment_sum")
+                                           and k != name) for k in counts):
             raise SystemExit(f"headline {key}: launches {counts}")
+    xb = x32.to(BF16)
+    lines = dispatch_lines([lambda g=g: dt.gspmm(g, "copy_lhs", "sum", xb)
+                            for g in preps.values()])
+    del xb
+    emit({"phase": "headline_dispatch", "bf16_lines": lines})
+    if len(lines) != len(preps) or not all(
+            "pairs, cuda)" in ln for ln in lines):
+        raise SystemExit(f"headline: bf16 dispatch lines {lines}")
     return preps["hybrid"], launches
 
 
@@ -7812,7 +7996,8 @@ def phase_tools(dt, gb, checks, dev):
 def phase_dispatch(dt, build, checks, dev):
     """``DGL_TPU_DEBUG_DISPATCH=1`` on the card (``dispatch``): gspmm sum
     (K1), max (K4/K5), bf16 min (K4/K5's packed walk), a hybrid
-    (dense hub + K1), a masked block (K1 through the real-edge view),
+    (dense hub + K1), bf16 sums alone and through the hybrid (K1's pairs
+    walk), a masked block (K1 through the real-edge view),
     gsddmm (K6's dot4 and vector routes) and gat_attention (K2), each
     called twice: every expected line printed exactly once, no composed
     route, each kernel launched."""
@@ -7844,7 +8029,11 @@ def phase_dispatch(dt, build, checks, dev):
         (lambda: dt.gspmm(g, "copy_lhs", "min", x64.to(BF16)),
          "gspmm: kernel (copy_lhs.min, K4/K5 packed, cuda)"),
         (lambda: dt.gspmm(gh, "copy_lhs", "sum", x),
-         "gspmm: hybrid (copy_lhs.sum, cuda)"),
+         "gspmm: hybrid (copy_lhs.sum, dense + K1 packed, cuda)"),
+        (lambda: dt.gspmm(g, "copy_lhs", "sum", x64.to(BF16)),
+         "gspmm: kernel (copy_lhs.sum, K1 packed pairs, cuda)"),
+        (lambda: dt.gspmm(gh, "copy_lhs", "sum", x64.to(BF16)),
+         "gspmm: hybrid (copy_lhs.sum, dense + K1 packed pairs, cuda)"),
         (lambda: dt.gspmm(gm, "copy_lhs", "sum", xm),
          "gspmm: kernel (copy_lhs.sum, K1, real-edge-view, cuda)"),
         (lambda: dt.gsddmm(g, "dot", x, x),
@@ -7880,7 +8069,8 @@ def phase_dispatch(dt, build, checks, dev):
     if any(c != 1 for c in seen.values()) or any(
             "composed" in ln for ln in lines) or any(
             _launched(counts, k) < 1 for k in (
-                "segment_sum", "segment_max", "sddmm", "gat_fwd")) or any(
+                "segment_sum", "segment_sum_bf16", "segment_max", "sddmm",
+                "gat_fwd")) or any(
             k.startswith("plain.") for k in counts):
         raise SystemExit(f"dispatch failed: {seen}, {lines}, {counts}")
 

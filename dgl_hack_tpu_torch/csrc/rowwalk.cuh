@@ -19,14 +19,19 @@
 //   window of 32 rows, one lane group a row, for graphs whose rows are
 //   mostly that short; work_item and WorkItem are as K4, K5, K2 and K3 use
 //   them.
-// * Loads (load, store).  A lane reads V consecutive values of a row, at
-//   most 16 bytes: V = 4, 2 or 1 of float32, 8, 4, 2 or 1 of bf16, chosen
-//   by the wrapper from F's divisibility and the pointers' alignment
-//   (spmm_kernel.py:vector_width): a 16-byte load needs 16 / size | F and
-//   16-byte aligned tensors; F = 602 is 8-byte aligned per row in float32
-//   and takes float2, 4-byte aligned in bf16 and takes bfloat162.  bf16
-//   rows widen to float on the load; sums, maxima and compares run in
-//   float registers, and a bf16 store rounds to nearest even once.
+// * Loads (load, store, ldg_words).  A lane reads V consecutive values of
+//   a row, at most 16 bytes: V = 4, 2 or 1 of float32, 8, 4, 2 or 1 of
+//   bf16, chosen by the wrapper from F's divisibility and the pointers'
+//   alignment (spmm_kernel.py:vector_width): a 16-byte load needs 16 / size
+//   | F and 16-byte aligned tensors; F = 602 is 8-byte aligned per row in
+//   float32 and takes float2, 4-byte aligned in bf16 and takes bfloat162.
+//   The walks that hold bf16 rows as loaded (K1's pairs walk,
+//   segment_sum.cu; K4/K5's packed walk, segment_max_packed.cu) keep a
+//   16-byte piece in 4 registers (ldg_words) and widen a value, if at all,
+//   only where they use it, since a piece widened on its load holds 8 float
+//   registers an edge in flight; the others (segment_max.cu, K2/K3) widen
+//   bf16 on the load (load).  Sums, maxima and compares of widened values
+//   run in float registers, and a bf16 store rounds to nearest even once.
 // * The edge walk (walk_edges).  Lanes per edge = the slice's width / V
 //   rounded up to a power of two, at most 32; the warp's 32 / lanes groups
 //   take every (32 / lanes)-th edge of the item, kUnroll edges at a time,
@@ -123,6 +128,29 @@ __device__ __forceinline__ void load(const bf16* p, float (&v)[V]) {
     const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
     const unsigned short t = kStream ? __ldcs(q) : __ldg(q);
     v[0] = __uint_as_float((unsigned)t << 16);
+  }
+}
+
+// V bf16 values as loaded: V / 2 bf16x2 words (16, 8 or 4 bytes), or for
+// V = 1 the value in the low half of one word (the layout of unpack2's low
+// half); kStream: read once (ld.global.cs), which L2 evicts first.
+template <int V, bool kStream = false>
+__device__ __forceinline__ void ldg_words(const bf16* p,
+                                          unsigned (&w)[(V + 1) / 2]) {
+  if constexpr (V == 8) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    const uint4 t = kStream ? __ldcs(q) : __ldg(q);
+    w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
+  } else if constexpr (V == 4) {
+    const uint2* q = reinterpret_cast<const uint2*>(p);
+    const uint2 t = kStream ? __ldcs(q) : __ldg(q);
+    w[0] = t.x; w[1] = t.y;
+  } else if constexpr (V == 2) {
+    const unsigned* q = reinterpret_cast<const unsigned*>(p);
+    w[0] = kStream ? __ldcs(q) : __ldg(q);
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    w[0] = kStream ? __ldcs(q) : __ldg(q);
   }
 }
 

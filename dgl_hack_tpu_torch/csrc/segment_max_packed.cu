@@ -99,25 +99,6 @@ __device__ __forceinline__ unsigned eq_mask(unsigned a, unsigned b) {
   return __heq2_mask(as_b2(a), as_b2(b));
 }
 
-// V bf16 values (V / 2 words, 4, 8 or 16 bytes) from device memory;
-// kStream: read once (ld.global.cs), which L2 evicts first
-template <int V, bool kStream>
-__device__ __forceinline__ void ldg_words(const bf16* p,
-                                          unsigned (&w)[V / 2]) {
-  if constexpr (V == 8) {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-    const uint4 t = kStream ? __ldcs(q) : __ldg(q);
-    w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
-  } else if constexpr (V == 4) {
-    const uint2* q = reinterpret_cast<const uint2*>(p);
-    const uint2 t = kStream ? __ldcs(q) : __ldg(q);
-    w[0] = t.x; w[1] = t.y;
-  } else {
-    const unsigned* q = reinterpret_cast<const unsigned*>(p);
-    w[0] = kStream ? __ldcs(q) : __ldg(q);
-  }
-}
-
 // K4.  grid of launch_shape.
 template <int V>
 __global__ void __launch_bounds__(kWarps * 32)

@@ -57,18 +57,30 @@
 // only the rows of more than K1_SHORT and at most T edges (singles), one
 // warp each (spmm_kernel.py:single_rows); long rows keep their pieces.
 // The wrapper takes the route where a warp holds at least two lane groups
-// and at least half the rows are short (spmm_kernel.py:k1_route).
+// and at least three quarters of the rows are short
+// (spmm_kernel.py:k1_route, K1_PACK_SHARE).
 // The grid is then [pieces | windows | singles].
 //
-// bf16 (the JAX package's packed path, spmm_kernel.py:720-735, 916-925):
-// x may be bf16, widened to float on the load and summed in float; the
-// result is stored once, rounded to nearest even, as x's dtype, or as
+// bf16 rows, the pairs walk (the JAX package's packed path,
+// spmm_kernel.py:720-735, 916-925): x may be bf16 and is summed in float;
+// the result is stored once, rounded to nearest even, as x's dtype, or as
 // float32 where the caller asks (the hybrid's dx adds its dense part in
 // float before it rounds).  The weight is float32.  bf16 halves the
-// gathered rows' bytes, which bound K1.  The kernel takes 16-byte loads of
-// 8 bf16 columns, but they hold 70 registers a thread against 48 at 4 and
-// ran slower on the H100, so the wrapper loads at most 4
-// (spmm_kernel.py:SUM_MAX_VALUES).
+// gathered rows' bytes, which bound K1, but a row piece widened to float
+// on its load holds 8 registers an edge at 16-byte loads, 32 for the
+// kUnroll edges a lane group keeps in flight and 64 for the pack's
+// kPackBatch x kPackEdges; so both walks (sum_row, sum_pack) hold each
+// piece as loaded, bf16x2 words (rowwalk.cuh:ldg_words: 4 registers for
+// 16 bytes), and widen a value (an exact shift, widen) only at its add.
+// The sums run in float32 in the same order as over widened values, so
+// the results are the same bits.  The wrapper loads bf16 rows 8 values a
+// lane where F and the alignment allow (spmm_kernel.py:k1_vector_width),
+// 4 beside an (E, F) float32 weight (whose two 16-byte loads a lane at 8
+// values held 92 registers) and on the pack (K1_PACK_VALUES: its rows in
+// flight held 101 at 8 values).  On an H100 80GB HBM3 at 700 W (tools/k1_builds_torch.py,
+// PERF.md) the pairs walk took K1 at synthetic Reddit (640 columns in
+// 64-column slices) from the widening walk's 4.95 ms to 4.33, dx 5.00 to
+// 4.67, and bench.py's dx from 0.758 to 0.661 (float32 0.734).
 //
 // The dense-hub hybrid (spmm_kernel.py:gspmm_hybrid) runs K1 over the
 // graph's sparse remainder.  On the H100 (PERF.md) it beat K1 alone at
@@ -94,6 +106,15 @@ struct PackPlan {
   const int* singles;  // (S,) the rows neither packed nor long
   int num_singles;
 };
+
+// Value k of V bf16 values held as loaded (rowwalk.cuh:ldg_words), as a
+// float: the low half of word k / 2 for even k, the high half for odd.
+template <int V>
+__device__ __forceinline__ float widen(const unsigned (&w)[(V + 1) / 2],
+                                       int k) {
+  const unsigned u = w[k >> 1];
+  return __uint_as_float((k & 1) ? (u & 0xffff0000u) : (u << 16));
+}
 
 template <class T, class TO>
 struct Args {
@@ -162,27 +183,57 @@ __device__ __forceinline__ void sum_pack(const Args<T, TO>& a,
             row[i][u] = !ok ? 0 : a.gidx ? __ldg(a.gidx + p) : p;
             e[i][u] = !ok || W == 0 ? 0 : a.eid ? __ldg(a.eid + p) : p;
           }
-        float xv[kPackBatch][kPackEdges][V], wv[kPackBatch][kPackEdges][V];
+        if constexpr (sizeof(T) == 4) {
+          float xv[kPackBatch][kPackEdges][V], wv[kPackBatch][kPackEdges][V];
 #pragma unroll
-        for (int i = 0; i < kPackBatch; ++i)
+          for (int i = 0; i < kPackBatch; ++i)
 #pragma unroll
-          for (int u = 0; u < kPackEdges; ++u) {
-#pragma unroll
-            for (int v = 0; v < V; ++v) xv[i][u][v] = 0.0f, wv[i][u][v] = 1.0f;
-            if (j + u < deg[i] && active) {
-              load<V>(a.x + row[i][u] * Fl + c, xv[i][u]);
-              load_weight<V, W>(a.w, e[i][u], Fl, c, wv[i][u]);
-            }
-          }
-#pragma unroll
-        for (int i = 0; i < kPackBatch; ++i)
-#pragma unroll
-          for (int u = 0; u < kPackEdges; ++u)
-            if (j + u < deg[i])
+            for (int u = 0; u < kPackEdges; ++u) {
 #pragma unroll
               for (int v = 0; v < V; ++v)
-                acc[i][v] = W ? fmaf(xv[i][u][v], wv[i][u][v], acc[i][v])
-                              : acc[i][v] + xv[i][u][v];
+                xv[i][u][v] = 0.0f, wv[i][u][v] = 1.0f;
+              if (j + u < deg[i] && active) {
+                load<V>(a.x + row[i][u] * Fl + c, xv[i][u]);
+                load_weight<V, W>(a.w, e[i][u], Fl, c, wv[i][u]);
+              }
+            }
+#pragma unroll
+          for (int i = 0; i < kPackBatch; ++i)
+#pragma unroll
+            for (int u = 0; u < kPackEdges; ++u)
+              if (j + u < deg[i])
+#pragma unroll
+                for (int v = 0; v < V; ++v)
+                  acc[i][v] = W ? fmaf(xv[i][u][v], wv[i][u][v], acc[i][v])
+                                : acc[i][v] + xv[i][u][v];
+        } else {                                     // bf16: the pairs walk
+          unsigned xw[kPackBatch][kPackEdges][(V + 1) / 2];
+          float wv[kPackBatch][kPackEdges][V];
+#pragma unroll
+          for (int i = 0; i < kPackBatch; ++i)
+#pragma unroll
+            for (int u = 0; u < kPackEdges; ++u) {
+#pragma unroll
+              for (int k = 0; k < (V + 1) / 2; ++k) xw[i][u][k] = 0u;
+#pragma unroll
+              for (int v = 0; v < V; ++v) wv[i][u][v] = 1.0f;
+              if (j + u < deg[i] && active) {
+                ldg_words<V>(a.x + row[i][u] * Fl + c, xw[i][u]);
+                load_weight<V, W>(a.w, e[i][u], Fl, c, wv[i][u]);
+              }
+            }
+#pragma unroll
+          for (int i = 0; i < kPackBatch; ++i)
+#pragma unroll
+            for (int u = 0; u < kPackEdges; ++u)
+              if (j + u < deg[i])
+#pragma unroll
+                for (int v = 0; v < V; ++v) {
+                  const float x = widen<V>(xw[i][u], v);
+                  acc[i][v] = W ? fmaf(x, wv[i][u][v], acc[i][v])
+                                : acc[i][v] + x;
+                }
+        }
       }
 #pragma unroll
       for (int i = 0; i < kPackBatch; ++i) {
@@ -220,21 +271,44 @@ __device__ __forceinline__ void sum_row(const Args<T, TO>& a,
         it.beg, it.end, a.gidx, a.eid, lanes,
         [&](const int64_t (&row)[kUnroll], const int64_t (&e)[kUnroll],
             const bool (&ok)[kUnroll]) {
-      float xv[kUnroll][V], wv[kUnroll][V];
+      if constexpr (sizeof(T) == 4) {
+        float xv[kUnroll][V], wv[kUnroll][V];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+        for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
-        for (int k = 0; k < V; ++k) xv[u][k] = 0.0f, wv[u][k] = 1.0f;
-        if (ok[u] && active) {
-          load<V>(a.x + row[u] * Fl + c, xv[u]);
-          load_weight<V, W>(a.w, e[u], Fl, c, wv[u]);
+          for (int k = 0; k < V; ++k) xv[u][k] = 0.0f, wv[u][k] = 1.0f;
+          if (ok[u] && active) {
+            load<V>(a.x + row[u] * Fl + c, xv[u]);
+            load_weight<V, W>(a.w, e[u], Fl, c, wv[u]);
+          }
         }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            acc[k] = W ? fmaf(xv[u][k], wv[u][k], acc[k]) : acc[k] + xv[u][k];
+      } else {                                       // bf16: the pairs walk
+        unsigned xw[kUnroll][(V + 1) / 2];
+        float wv[kUnroll][V];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+          for (int k = 0; k < (V + 1) / 2; ++k) xw[u][k] = 0u;
+#pragma unroll
+          for (int k = 0; k < V; ++k) wv[u][k] = 1.0f;
+          if (ok[u] && active) {
+            ldg_words<V>(a.x + row[u] * Fl + c, xw[u]);
+            load_weight<V, W>(a.w, e[u], Fl, c, wv[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const float x = widen<V>(xw[u], k);
+            acc[k] = W ? fmaf(x, wv[u][k], acc[k]) : acc[k] + x;
+          }
       }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-        for (int k = 0; k < V; ++k)
-          acc[k] = W ? fmaf(xv[u][k], wv[u][k], acc[k]) : acc[k] + xv[u][k];
     });
     // fixed-order tree over the groups (lanes of equal sub)
     for (int off = 16; off >= lanes; off >>= 1)
@@ -254,6 +328,24 @@ __device__ __forceinline__ void sum_row(const Args<T, TO>& a,
 template <int V, int W, class T, class TO>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_sum_kernel(Args<T, TO> a, int S, int lanes) {
+  WorkItem it;
+  if (!work_item(a.plan, a.indptr, a.num_rows, it)) return;  // warp-uniform
+  sum_row<V, W>(a, it, S, lanes);
+}
+
+// The rows route of the pairs walk at 8 values a lane without a weight
+// (bench.py's dx, synthetic Reddit's 64-column slices), bounded to the 5
+// blocks of 256 threads an SM that its 48 registers allow: saying so lets
+// ptxas keep the kUnroll edges' row loads in flight together, as for
+// segment_max_packed.cu's K5.  On an H100 80GB HBM3 at 700 W
+// (tools/k1_builds_torch.py, PERF.md) it took K1 at Reddit from 5.48 to
+// 4.32 ms (dx 5.64 to 4.63) with the same registers; at 4 values a lane
+// the same bound cost time (4.85 to 5.66 ms), and an (E, F) weight's 92
+// registers would spill under it, so the other instantiations keep
+// segment_sum_kernel's.
+template <int V, int W, class T, class TO>
+__global__ void __launch_bounds__(kWarps * 32, 5)
+segment_sum_pairs8_kernel(Args<T, TO> a, int S, int lanes) {
   WorkItem it;
   if (!work_item(a.plan, a.indptr, a.num_rows, it)) return;  // warp-uniform
   sum_row<V, W>(a, it, S, lanes);
@@ -297,6 +389,9 @@ struct SumLaunch {
     if (pk.short_limit > 0)
       segment_sum_packed_kernel<V, W><<<s.grid, kWarps * 32, 0, stream>>>(
           a, pk, s.S, s.lanes);
+    else if constexpr (sizeof(T) == 2 && V == 8 && W == 0)
+      segment_sum_pairs8_kernel<V, W><<<s.grid, kWarps * 32, 0, stream>>>(
+          a, s.S, s.lanes);
     else
       segment_sum_kernel<V, W><<<s.grid, kWarps * 32, 0, stream>>>(
           a, s.S, s.lanes);

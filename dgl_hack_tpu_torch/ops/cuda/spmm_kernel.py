@@ -24,12 +24,13 @@ copy of x whose columns are padded to whole 128-byte L2 lines where K1
 will slice them (``run_width``); the copy lives through the forward only.
 
 K1 takes float32 or bf16 rows (``FEATURE_DTYPES``), as the JAX
-package's packed bf16 path does: bf16 loads widen to float, the sums run
-in float32 and round once to x's dtype (or stay float32 where the caller
-asks: ``out_dtype``); weights are float32 (``kernel_weight``).  The line
-and slice rules count the rows' own bytes (``line_cols``: 64 bf16 columns
-to a 128-byte line), and ``segment_sum_plain`` has the same float32
-accumulation.
+package's packed bf16 path does: bf16 rows are held as loaded, bf16x2
+words, and widened where they are added (the pairs walk, ``k1_walk``;
+16-byte loads, ``k1_vector_width``), the sums run in float32 and round
+once to x's dtype (or stay float32 where the caller asks: ``out_dtype``);
+weights are float32 (``kernel_weight``).  The line and slice rules count
+the rows' own bytes (``line_cols``: 64 bf16 columns to a 128-byte line),
+and ``segment_sum_plain`` has the same float32 accumulation.
 
 The dense-hub hybrid (``select_dense_windows`` ... ``gspmm_hybrid``, the
 JAX package's ``spmm_kernel.py:1315-1555``) sums the hub dst windows as a
@@ -206,22 +207,40 @@ PAD_DEVICES = ("cuda",)
 # and at least K1_PACK_SHARE of the rows are short (``k1_route``); the
 # rows of more edges, up to K1_PIECE, are listed in the plan and walked a
 # warp each (``single_rows``).  The R-GCN pair graph (11.2 M rows of 1.07
-# edges), its per-dst sums (6.7 pairs a dst) and Cluster-GCN's 0-hop
-# parts (one edge a row) take it; bench.py's graph at F = 128 (one lane
-# group a warp), synthetic Reddit (101 edges a row), the transformer's
-# graph (64) and the readouts do not.  On an H100 80GB HBM3 at 700 W
-# (chip_smoke.py's k1_short_rows, PERF.md) the windows took K1 over AM's
-# pair graph at F = 10 from 4.6 ms to 0.63; at F = 41, one lane group a
-# warp, they won too (3.34 against 5.57 ms), but the rule keeps that case
-# on the rows route: there it would also take the masked layer-0 block's
-# dx at F = 602, which was not measured.  The windows are implicit: a
-# list of runs of short rows cut into packs (cummax and cummin over the
-# rows) took the message API's per-call row plans over half of bench.py's
-# graph from 1.30-1.42 ms to 12.3-13.7 there.
+# edges), its per-dst sums (6.7 pairs a dst), Cluster-GCN's 0-hop parts
+# (one edge a row) and bench.py's forward over bf16 rows (99% of the rows
+# empty or short; two lane groups at 8 values a lane) take it; bench.py's
+# graph in float32 at F = 128 (one lane group a warp), its dx (below),
+# synthetic Reddit (101 edges a row), the transformer's graph (64) and the
+# readouts do not.  On an H100 80GB HBM3 at 700 W (chip_smoke.py's
+# k1_short_rows, PERF.md) the windows took K1 over AM's pair graph at F =
+# 10 from 4.6 ms to 0.63; at F = 41, one lane group a warp, they won too
+# (3.34 against 5.57 ms), but the rule keeps that case on the rows route:
+# there it would also take the masked layer-0 block's dx at F = 602, where
+# they lost (float32 1.35 against 0.88 ms, bf16 0.99 against 0.68;
+# tools/k1_builds_torch.py).  The windows are implicit: a list of runs of
+# short rows cut into packs (cummax and cummin over the rows) took the
+# message API's per-call row plans over half of bench.py's graph from
+# 1.30-1.42 ms to 12.3-13.7 there.
+# The share: the pack paid where 95-100% of the rows are short (the AM
+# pair graph, the 0-hop parts, k1_short_rows' mixed graph) and lost on
+# bench.py's dx, where 56.6% of the 1M CSR rows are short at 13.2 edges
+# each: over bf16 rows at 8 values a lane (two lane groups) 1.09 ms packed
+# against 0.661 on the rows route (tools/k1_builds_torch.py).  The share
+# lies between those cases, which are all that was measured.
 K1_SHORT = 16
 K1_PACK_ROWS = 32
 K1_PACK_GROUPS = 2
-K1_PACK_SHARE = 0.5
+K1_PACK_SHARE = 0.75
+# The most values a lane of the pack loads (``K1Launch.widths``; the route
+# is chosen at the rows route's width).  Its kPackBatch x kPackEdges rows
+# in flight a lane group held 101 registers a thread over bf16 rows at 8
+# values against 64 at 4, and on an H100 80GB HBM3 at 700 W
+# (tools/k1_builds_torch.py, PERF.md) 4 values won: k1_short_rows' mixed
+# graph at F = 16 forward 0.0380 ms against 0.0535 at 8 (dx 0.0226 against
+# 0.0286), bench.py's forward 1.388 against 1.402.  float32 loads at most
+# 4 values anyway.
+K1_PACK_VALUES = 4
 
 
 class RowPlan(NamedTuple):
@@ -370,15 +389,58 @@ def pack_args(plan: RowPlan, route: str) -> tuple:
     return (short_limit(), ptr(plan.singles), plan.singles.numel())
 
 
-# The most values a lane of K1 and K5 loads at a time.  In bf16 their
-# 16-byte loads (8 values) cost registers (K1 70 a thread against 48 at 4
-# values, K5 93-128 against 64) and took longer on an H100 80GB HBM3 at
-# 700 W (chip_smoke.py's load-width sweeps, PERF.md): at bench.py's shape
-# K1 1.655 ms against 1.486 at 4 values, K1 dx 0.847 against 0.757, K5
-# 2.399 against 1.787; at synthetic Reddit (F = 640) K1 6.176 against
-# 4.954 and K5 30.86 against 17.41.  K4 keeps 16-byte loads (1.596
-# against 1.704 ms, 6.905 against 8.646).
+# The most values a lane of K5 on segment_max.cu's walk loads at a time,
+# and of K1 beside an (E, F) float32 weight.  K5 widens bf16 on the load, so
+# its 16-byte loads (8 values) cost registers (93-128 a thread against 64
+# at 4 values) and took longer on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py's load-width sweeps, PERF.md): at bench.py's shape 2.399
+# ms against 1.787, at synthetic Reddit (F = 640) 30.86 against 17.41.
 SUM_MAX_VALUES = 4
+
+# K1 over bf16 rows holds each row piece as loaded bf16x2 words (the pairs
+# walk, csrc/segment_sum.cu), so a 16-byte load (8 values) costs a lane 4
+# registers an edge in flight: 48 registers a thread at 8 values where the
+# walk that widened bf16 on the load held 70 and kept to 4 values a load.
+# On an H100 80GB HBM3 at 700 W (tools/k1_builds_torch.py, PERF.md) 8
+# values a lane took synthetic Reddit's forward (640 columns in 64-column
+# slices) to 4.32 ms and its dx to 4.63, against 4.85 and 4.97 at 4 values
+# and the widening walk's 4.98 and 5.04; bench.py's dx (F = 128) to 0.661
+# against 0.723 and 0.758.  The short-rows pack loads fewer
+# (``K1_PACK_VALUES``).
+K1_BF16_VALUES = 8
+
+
+def k1_walk(dtype: torch.dtype) -> str:
+    """How K1 holds an edge's gathered row piece: ``"pairs"`` for bf16 rows
+    (the words as loaded, widened at the add), ``"floats"`` for float32."""
+    return "pairs" if dtype == torch.bfloat16 else "floats"
+
+
+def k1_values(dtype: torch.dtype, w_kind: int) -> int:
+    """The most values a lane of K1 loads at a time: ``K1_BF16_VALUES``
+    for bf16 rows without an (E, F) weight, else ``SUM_MAX_VALUES`` (16
+    bytes of float32; beside bf16 rows, an (E, F) float32 weight at 8
+    values would take two 16-byte loads a lane)."""
+    if k1_walk(dtype) == "pairs" and w_kind != 2:
+        return K1_BF16_VALUES
+    return SUM_MAX_VALUES
+
+
+def k1_vector_width(F: int, x: Tensor, w: Optional[Tensor],
+                    w_kind: int) -> int:
+    """K1's load width over x (rows, F) and its weight of kind ``w_kind``
+    (0 none, 1 (E,), 2 (E, F)): ``vector_width`` at most ``k1_values``,
+    counting the weight's alignment where it is (E, F)."""
+    return vector_width(F, x, w if w_kind == 2 else None,
+                        max_values=k1_values(x.dtype, w_kind))
+
+
+def k1_name(route: str, dtype: torch.dtype) -> str:
+    """K1's name for a launch over rows of ``dtype`` on ``route``
+    (``k1_route``) in the dispatch log: "K1", "K1 packed" (short rows
+    packed), and with " pairs" after them over bf16 rows (``k1_walk``)."""
+    name = "K1 packed" if route == "packed" else "K1"
+    return name + " pairs" if k1_walk(dtype) == "pairs" else name
 
 
 def vector_width(F: int, *tensors: Optional[Tensor],
@@ -473,42 +535,58 @@ def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
     if x.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {x.device}")
     launch = segment_sum_launcher(indptr, x, gidx, eid, w, plan, out_dtype)
-    LAUNCHES.add(f"{counted('segment_sum', x.dtype)}.{site}")
+    LAUNCHES.add(launch_name(site, x.dtype))
     return launch(None)
+
+
+def launch_name(site: str, dtype: torch.dtype) -> str:
+    """K1's name in ``LAUNCHES`` at ``site`` over rows of ``dtype``:
+    ``segment_sum.<site>``, and ``segment_sum_bf16.<site>.pairs`` on the
+    pairs walk."""
+    name = f"{counted('segment_sum', dtype)}.{site}"
+    return name + ".pairs" if k1_walk(dtype) == "pairs" else name
 
 
 class K1Launch:
     """K1's launch over checked arguments (``segment_sum_launcher``):
     ``launch(slice_cols, vec, route)`` runs the kernel at that slice width,
-    load width and route, or at ``slice_width``'s, ``vector_width``'s and
-    ``k1_route``'s where None, and returns the result; ``route(...)`` names
-    the route that call takes."""
+    load width and route, or at the rule's where None (``widths``), and
+    returns the result; ``route(...)`` names the route that call takes."""
 
     def __init__(self, indptr, x, gidx, eid, w, w_kind, plan, out_dtype,
                  vec_rule, reuse):
         self.args = (indptr, x, gidx, eid, w, w_kind, plan, out_dtype)
         self.vec_rule, self.reuse = vec_rule, reuse
 
-    def widths(self, slice_cols: Optional[int], vec: Optional[int]):
+    def widths(self, slice_cols: Optional[int] = None,
+               vec: Optional[int] = None, route: Optional[str] = None):
+        """(slice_cols, vec, route) of a launch: those given, the others
+        by the rule: ``slice_width``'s slice; ``k1_route``'s route at that
+        slice and ``k1_vector_width``'s load width (``vec_rule``); that
+        width on the rows route and at most ``K1_PACK_VALUES`` on the
+        pack."""
         indptr, x, gidx = self.args[:3]
         if slice_cols is None:
             slice_cols = slice_width(x.shape[0], x.shape[1], gidx is None,
                                      x.element_size(), self.reuse)
-        return slice_cols, vec or self.vec_rule
+        if route is None:
+            route = plan_route(self.args[6], indptr.numel() - 1,
+                               min(slice_cols, x.shape[1]),
+                               vec or self.vec_rule)
+        if vec is None:
+            vec = self.vec_rule if route == "rows" else min(
+                self.vec_rule, K1_PACK_VALUES)
+        return slice_cols, vec, route
 
     def route(self, slice_cols: Optional[int] = None,
               vec: Optional[int] = None) -> str:
-        slice_cols, vec = self.widths(slice_cols, vec)
-        indptr, x, plan = self.args[0], self.args[1], self.args[6]
-        return plan_route(plan, indptr.numel() - 1,
-                          min(slice_cols, x.shape[1]), vec)
+        return self.widths(slice_cols, vec)[2]
 
     def __call__(self, slice_cols: Optional[int] = None,
                  vec: Optional[int] = None,
                  route: Optional[str] = None) -> Tensor:
         indptr, x, gidx, eid, w, w_kind, plan, out_dtype = self.args
-        route = route or self.route(slice_cols, vec)
-        slice_cols, vec = self.widths(slice_cols, vec)
+        slice_cols, vec, route = self.widths(slice_cols, vec, route)
         num_rows, F, dev = indptr.numel() - 1, x.shape[1], x.device
         out = torch.empty((num_rows, F), dtype=out_dtype, device=dev)
         head = (ptr(indptr), ptr(gidx), ptr(eid), ptr(x), ptr(w), w_kind,
@@ -566,8 +644,7 @@ def segment_sum_launcher(indptr: Tensor, x: Tensor,
     if max(num_rows, E, x.shape[0]) > _I32_MAX:
         raise ValueError("segment_sum: sizes exceed the int32 index range")
     plan = checked_plan(plan, indptr, "segment_sum")
-    vec_rule = vector_width(F, x, w if w_kind == 2 else None,
-                            max_values=SUM_MAX_VALUES)
+    vec_rule = k1_vector_width(F, x, w, w_kind)
     return K1Launch(indptr, x, gidx, eid, w, w_kind, plan, out_dtype,
                     vec_rule, edges_per_row(E, x.shape[0], num_rows))
 
@@ -1086,6 +1163,16 @@ class GspmmHybrid(torch.autograd.Function):
                          out_dtype=acc)[:, :F]
         dx = dx + _dense_matmul_t(hyb.C, dout[hyb.rows, :F])
         return dx.to(dtype), None
+
+
+def gspmm_hybrid_route(g, x: Tensor) -> str:
+    """The route K1 takes over the remainder in ``gspmm_hybrid(g, x)``'s
+    forward (``k1_route``), as ``gspmm_sum_route``."""
+    rem = g.derived["hybrid"].rem
+    x2 = x.reshape(x.shape[0], -1)
+    return segment_sum_launcher(
+        rem.csc_indptr, pad_columns(x2, run_width(x2, None, rem)), rem.src,
+        plan=graph_row_plan(rem, "csc")).route()
 
 
 def gspmm_hybrid(g, x: Tensor) -> Tensor:

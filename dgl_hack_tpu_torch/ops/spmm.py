@@ -53,9 +53,11 @@ reduction does.
 With ``DGL_TPU_DEBUG_DISPATCH=1`` each call names its route once
 (``utils/env.py:dispatch_log``): ``v-rewrite``, ``hybrid``, ``rows``,
 ``kernel`` (K1 or K4/K5; the plain versions on the CPU), and for the rest
-``composed`` on the card, ``plain`` on the CPU.  On the card a K1 line
-names K1's route: ``K1 packed`` where it packs short rows
-(``ops/cuda/spmm_kernel.py:k1_route``), else ``K1``.
+``composed`` on the card, ``plain`` on the CPU.  On the card a K1 line,
+and a hybrid's for the remainder's K1, names K1's route
+(``ops/cuda/spmm_kernel.py:k1_name``): ``K1 packed`` where it packs short
+rows (``k1_route``), else ``K1``, each followed by ``pairs`` over bf16
+rows (``k1_walk``).
 """
 from __future__ import annotations
 
@@ -68,9 +70,10 @@ from . import segment
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
 from .cuda.segment_max_kernel import gspmm_max, gspmm_max_routes
-from .cuda.spmm_kernel import (accumulate_dtype, gspmm_hybrid, gspmm_rows,
+from .cuda.spmm_kernel import (accumulate_dtype, gspmm_hybrid,
+                               gspmm_hybrid_route, gspmm_rows,
                                gspmm_rows_route, gspmm_sum, gspmm_sum_route,
-                               real_in_degrees)
+                               k1_name, real_in_degrees)
 
 Tensor = torch.Tensor
 
@@ -113,10 +116,9 @@ def _on(data: Tensor) -> str:
 
 
 def _k1(data: Tensor, route, *args) -> str:
-    """K1's name in the dispatch log: "K1 packed" where the kernel packs
-    short rows (``route(*args)``, on the card), else "K1"."""
-    return "K1 packed" if data.is_cuda and route(*args) == "packed" \
-        else "K1"
+    """K1's name in the dispatch log over ``data``'s rows: ``k1_name`` of
+    ``route(*args)`` on the card, "K1" on the CPU."""
+    return k1_name(route(*args), data.dtype) if data.is_cuda else "K1"
 
 
 def _k45(data: Tensor, g, x: Tensor, w) -> str:
@@ -226,7 +228,10 @@ def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
             dispatch_log("gspmm", "v-rewrite", combo)
             return out
     if _hybrid_eligible(g, op, reduce_op, lhs_data, lhs_target):
-        dispatch_log("gspmm", "hybrid", f"{combo}, {_on(data)}")
+        dispatch_log("gspmm", "hybrid", lambda: (
+            f"{combo}, "
+            + (f"dense + {_k1(data, gspmm_hybrid_route, g, lhs_data)}, "
+               if data.is_cuda else "") + _on(data)))
         out = gspmm_hybrid(g, lhs_data)
         return _mean(g, out) if reduce_op == "mean" else out
     copied = (lhs_target if op == "copy_lhs" else

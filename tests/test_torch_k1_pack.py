@@ -1,8 +1,9 @@
 """K1's packed route for short rows: the plan's single rows and the route
 rule.
 
-Where at least half the rows of an indptr have at most ``K1_SHORT`` edges
-and a warp holds at least two lane groups, the CUDA kernel sums the short
+Where at least ``K1_PACK_SHARE`` (three quarters) of the rows of an
+indptr have at most ``K1_SHORT`` edges and a warp holds at least two lane
+groups, the CUDA kernel sums the short
 rows of each aligned window of ``K1_PACK_ROWS`` rows in one warp, one lane
 group a row, each row's edges in edge order; rows of more edges, up to
 ``K1_PIECE``, are listed in the plan (``singles``) and walked a warp each,
@@ -130,19 +131,22 @@ def test_plan_with_small_pieces():
     (41, 1, 1), (64, 4, 2), (65, 1, 1), (128, 4, 1), (602, 2, 1)])
 def test_route_rule(F, V, groups):
     """k1_route as a pure function of the degrees, F and V: packed where a
-    warp holds two lane groups or more and half the rows or more are
-    short; lanes as the kernel computes them."""
+    warp holds two lane groups or more and K1_PACK_SHARE (three quarters)
+    of the rows or more are short; lanes as the kernel computes them."""
     assert 32 // sk.edge_lanes(F, V) == groups
+    assert sk.K1_PACK_SHARE == 0.75
     rng = np.random.default_rng(F)
     for deg, short_share in (
             (np.ones(64, np.int64), 1.0),
             (rng.poisson(101, 64), 0.0),                   # Reddit's rows
+            (np.r_[np.ones(48), np.full(16, S + 1)].astype(np.int64), 0.75),
+            (np.r_[np.ones(47), np.full(17, S + 1)].astype(np.int64), 0.73),
             (np.r_[np.ones(32), np.full(32, S + 1)].astype(np.int64), 0.5),
             (np.r_[np.ones(31), np.full(33, S + 1)].astype(np.int64), 0.48),
             (np.zeros(64, np.int64), 1.0)):
         short = int((deg <= S).sum())
         assert short == round(short_share * 64)
-        want = "packed" if groups >= 2 and short * 2 >= 64 else "rows"
+        want = "packed" if groups >= 2 and short * 4 >= 3 * 64 else "rows"
         assert sk.k1_route(64, short, F, V) == want
         plan = sk.row_plan(_indptr(deg))
         assert sk.plan_route(plan, 64, F, V) == want
