@@ -29,6 +29,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span, spanned
+
 Tensor = torch.Tensor
 IdType = torch.int32
 
@@ -299,6 +301,7 @@ class Graph:
 # ---------------------------------------------------------------------------
 # Builders (host-side, numpy)
 # ---------------------------------------------------------------------------
+@spanned("graph.build")
 def _build(src: np.ndarray, dst: np.ndarray, num_src: int, num_dst: int,
            *, is_block: bool, build_csr: bool = True,
            edge_mask: Optional[np.ndarray] = None,
@@ -321,7 +324,8 @@ def _build(src: np.ndarray, dst: np.ndarray, num_src: int, num_dst: int,
     if E and (dst.min(initial=0) < 0 or dst.max(initial=-1) >= num_dst):
         raise ValueError("dst ids out of range")
 
-    perm = np.argsort(dst, kind="stable").astype(np.int32)
+    with span("graph.build.sort"):
+        perm = np.argsort(dst, kind="stable").astype(np.int32)
     already_sorted = (not force_perm) and \
         bool(np.all(perm == np.arange(E, dtype=np.int32)))
     s_src, s_dst = src[perm], dst[perm]
@@ -336,7 +340,9 @@ def _build(src: np.ndarray, dst: np.ndarray, num_src: int, num_dst: int,
         arrays["int2user"] = perm       # internal i -> user id perm[i]
         arrays["user2int"] = inv        # user u -> internal position
     if build_csr:
-        arrays["csr_eids"] = np.argsort(s_src, kind="stable").astype(np.int32)
+        with span("graph.build.sort"):
+            arrays["csr_eids"] = np.argsort(s_src, kind="stable").astype(
+                np.int32)
         csr_indptr = np.zeros(num_src + 1, dtype=np.int32)
         np.cumsum(np.bincount(s_src, minlength=num_src), out=csr_indptr[1:])
         arrays["csr_indptr"] = csr_indptr

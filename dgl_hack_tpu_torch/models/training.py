@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
+
 Tensor = torch.Tensor
 
 
@@ -58,7 +60,9 @@ def node_classifier_step(model: torch.nn.Module, g, feats, labels,
     evaluate)``: ``train_step()`` takes one step of forward, masked
     cross-entropy, backward and update and returns the loss;
     ``evaluate(*masks)`` returns the accuracy on each mask.  Dropout draws
-    come from a ``torch.Generator`` seeded with ``seed``."""
+    come from a ``torch.Generator`` seeded with ``seed``.  A step opens
+    the spans ``trainer.forward``, ``trainer.loss``, ``trainer.backward``
+    and ``trainer.optimizer`` (``utils/profiling.py``)."""
     model_kwargs = model_kwargs or {}
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -88,11 +92,19 @@ def node_classifier_step(model: torch.nn.Module, g, feats, labels,
                             weight_decay=weight_decay, eps=1e-8)
 
     def train_step() -> Tensor:
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        loss = masked_cross_entropy(logits_of(True), labels, train_mask)
-        loss.backward()
-        opt.step()
+        with span("trainer.optimizer"):
+            opt.zero_grad(set_to_none=True)
+        with span("trainer.forward"):
+            model.train()
+            logits = logits_of(True)
+        with span("trainer.loss"):
+            loss = masked_cross_entropy(logits, labels, train_mask)
+        # the (N, C) logits go before the backward, as a temporary would
+        del logits
+        with span("trainer.backward"):
+            loss.backward()
+        with span("trainer.optimizer"):
+            opt.step()
         return loss.detach()
 
     @torch.no_grad()

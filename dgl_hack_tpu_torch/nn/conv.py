@@ -50,6 +50,7 @@ from ..ops.rgcn import (rgcn_aggregate_pairs, rgcn_basis_message,
                         rgcn_reduce_pairs)
 from ..ops.sddmm import gsddmm
 from ..ops.spmm import gspmm
+from ..utils.profiling import span, spanned
 from .init import (Dense, GRUCell, fans, glorot_uniform_, lecun_normal_,
                    orthogonal_blocks_)
 
@@ -62,8 +63,10 @@ def dropout(x: Tensor, p: float, deterministic: bool,
     from ``generator``; the identity when deterministic or p == 0."""
     if deterministic or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    with span("nn.dropout"):
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= p
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def _glorot_normal_(t: Tensor, fan_in: int, fan_out: int) -> Tensor:
@@ -213,6 +216,7 @@ class GATConv(LazyModuleMixin, nn.Module):
             lin.in_features = in_feats
             _glorot_normal_(lin.weight, in_feats, HD)
 
+    @spanned("nn.GATConv")
     def forward(self, g, feat, deterministic: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> Tensor:
         det = _is_deterministic(self, deterministic)
@@ -235,9 +239,10 @@ class GATConv(LazyModuleMixin, nn.Module):
         er = (fdst * self.attn_r).sum(-1)                 # (N_dst, H)
         attn_w = None
         if self.attn_drop > 0.0 and not det:
-            keep = torch.rand((g.num_edges(), H), generator=generator,
-                              device=fsrc.device) < 1.0 - self.attn_drop
-            attn_w = keep.to(fsrc.dtype) / (1.0 - self.attn_drop)
+            with span("nn.GATConv.attn_drop"):
+                keep = torch.rand((g.num_edges(), H), generator=generator,
+                                  device=fsrc.device) < 1.0 - self.attn_drop
+                attn_w = keep.to(fsrc.dtype) / (1.0 - self.attn_drop)
         rst = gat_attention(g, fsrc, el, er, self.negative_slope, attn_w)
         if self.residual:
             if self.res_fc is not None:
@@ -423,6 +428,7 @@ class SAGEConv(LazyModuleMixin, nn.Module):
             _init_linear(self.fc_self, feat_dst.shape[-1], feat_dst)
         _init_linear(self.fc_neigh, in_feats, feat_src)
 
+    @spanned("nn.SAGEConv")
     def forward(self, g, feat, deterministic: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> Tensor:
         det = _is_deterministic(self, deterministic)

@@ -26,11 +26,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Collection, Dict, Optional, Union
 
 import torch
+
+from ...utils.profiling import span
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "dgl_hack_tpu_torch"
@@ -147,6 +148,12 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
+    with span("kernels.load"):
+        _LIB = _build_and_load()
+    return _LIB
+
+
+def _build_and_load() -> ctypes.CDLL:
     srcs = _sources()
     digest = hashlib.sha256()
     for p in srcs:
@@ -154,7 +161,6 @@ def library() -> ctypes.CDLL:
         digest.update(p.read_bytes())
     digest.update(" ".join(ARCH_FLAGS).encode())
     so = BUILD_DIR / f"libdgl_kernels_{digest.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
@@ -194,8 +200,7 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0)
-    _LIB = lib
+    BUILD_INFO["path"] = str(so)
     return lib
 
 

@@ -77,6 +77,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import span, spanned
 from .build import LAUNCHES, counted, library, ptr, require, run
 from .segment_max_kernel import MINMAX_NEG, segment_max
 from .spmm_kernel import (_I32_MAX, FEATURE_DTYPES, RowPlan,
@@ -297,7 +298,8 @@ def _cached_cuts(csr_indptr: Tensor, dst_csr: Tensor, num_dst: int,
         return hit[2]
     for key in [k for k, v in _CUTS.items() if v[0]() is None]:
         del _CUTS[key]
-    cuts = dst_cuts(csr_indptr, dst_csr, num_dst, passes)
+    with span("ops.plans"):
+        cuts = dst_cuts(csr_indptr, dst_csr, num_dst, passes)
     _CUTS[id(dst_csr)] = (weakref.ref(dst_csr), passes, cuts)
     return cuts
 
@@ -381,6 +383,7 @@ def gat_fwd_plain(indptr: Tensor, src: Tensor, wh: Tensor, el: Tensor,
     return rst.reshape(N, H * D), den, shift
 
 
+@spanned("kernel.k2")
 def gat_fwd(indptr: Tensor, src: Tensor, wh: Tensor, el: Tensor, er: Tensor,
             w: Optional[Tensor], shift: Optional[Tensor], slope: float,
             exact: bool, *, plan: Optional[RowPlan] = None
@@ -518,6 +521,7 @@ def gat_bwd_plain(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
     return dwh.reshape(Ns, HD), del_, draw_out, dw
 
 
+@spanned("kernel.k3")
 def gat_bwd(csr_indptr: Tensor, csr_eids: Tensor, dst_csr: Tensor,
             wh: Tensor, el: Tensor, er: Tensor, shift: Tensor, den: Tensor,
             sds: Tensor, dout: Tensor, w: Optional[Tensor], slope: float,
@@ -659,6 +663,7 @@ class GatFused(torch.autograd.Function):
         return rst.view(-1, H, D)
 
     @staticmethod
+    @spanned("ops.gat_attention.bwd")
     def backward(ctx, dout: Tensor):
         wh, el, er, w, rst, den, shift = ctx.saved_tensors
         g = ctx.g

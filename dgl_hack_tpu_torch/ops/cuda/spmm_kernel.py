@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ...core.graph import Graph
+from ...utils.profiling import span, spanned
 from .build import LAUNCHES, counted, library, ptr, require, run
 
 Tensor = torch.Tensor
@@ -342,7 +343,8 @@ def graph_row_plan(g, direction: str) -> RowPlan:
         indptr = {"csc": g.csc_indptr, "csr": g.csr_indptr}[direction]
         if indptr is None:
             raise ValueError("gspmm backward needs the graph's CSR format")
-        plan = row_plan(indptr)
+        with span("ops.plans"):
+            plan = row_plan(indptr)
         g.derived[key] = plan
     return plan
 
@@ -520,6 +522,7 @@ def pad_columns(x2: Tensor, width: int) -> Tensor:
     return x2.contiguous()
 
 
+@spanned("kernel.k1")
 def segment_sum(indptr: Tensor, x: Tensor, gidx: Optional[Tensor] = None,
                 eid: Optional[Tensor] = None, w: Optional[Tensor] = None, *,
                 site: str = "fwd", plan: Optional[RowPlan] = None,
@@ -656,7 +659,8 @@ def rev_gidx(g) -> Tensor:
     if t is None:
         if g.csr_eids is None:
             raise ValueError("gspmm backward needs the graph's CSR format")
-        t = g.dst[g.csr_eids].contiguous()
+        with span("ops.plans"):
+            t = g.dst[g.csr_eids].contiguous()
         g.derived["dst_csr"] = t
     return t
 
@@ -679,6 +683,7 @@ class GspmmSum(torch.autograd.Function):
                            plan=graph_row_plan(g, "csc"))
 
     @staticmethod
+    @spanned("ops.gspmm.bwd")
     def backward(ctx, dout: Tensor):
         x, w = ctx.saved_tensors
         g = ctx.g
@@ -740,29 +745,32 @@ def real_edges(g) -> RealEdges:
     graph's own arrays without the mask."""
     view = g.derived.get("real_edges")
     if view is None:
-        mask = g.edge_mask
-        eid = torch.nonzero(mask).squeeze(1)
-        if eid.numel() == mask.numel():
-            view = RealEdges(Graph(
-                num_src=g.num_src_nodes, num_dst=g.num_dst_nodes, src=g.src,
-                dst=g.dst, csc_indptr=g.csc_indptr, csr_indptr=g.csr_indptr,
-                csr_eids=g.csr_eids, is_block=g.is_block), None)
-            g.derived["real_edges"] = view
-            return view
-        src, dst = g.src[eid].contiguous(), g.dst[eid].contiguous()
-        csc_indptr = _running_count(mask)[g.csc_indptr.long()]
-        csr = {}
-        if g.csr_indptr is not None:
-            before = _running_count(mask[g.csr_eids.long()])
-            csr = {"csr_indptr": before[g.csr_indptr.long()].contiguous(),
-                   "csr_eids": torch.sort(src, stable=True).indices.to(
-                       torch.int32)}
-        view = RealEdges(Graph(
-            num_src=g.num_src_nodes, num_dst=g.num_dst_nodes, src=src,
-            dst=dst, csc_indptr=csc_indptr.contiguous(),
-            is_block=g.is_block, **csr), eid)
+        with span("ops.plans"):
+            view = _real_edge_view(g)
         g.derived["real_edges"] = view
     return view
+
+
+def _real_edge_view(g) -> RealEdges:
+    mask = g.edge_mask
+    eid = torch.nonzero(mask).squeeze(1)
+    if eid.numel() == mask.numel():
+        return RealEdges(Graph(
+            num_src=g.num_src_nodes, num_dst=g.num_dst_nodes, src=g.src,
+            dst=g.dst, csc_indptr=g.csc_indptr, csr_indptr=g.csr_indptr,
+            csr_eids=g.csr_eids, is_block=g.is_block), None)
+    src, dst = g.src[eid].contiguous(), g.dst[eid].contiguous()
+    csc_indptr = _running_count(mask)[g.csc_indptr.long()]
+    csr = {}
+    if g.csr_indptr is not None:
+        before = _running_count(mask[g.csr_eids.long()])
+        csr = {"csr_indptr": before[g.csr_indptr.long()].contiguous(),
+               "csr_eids": torch.sort(src, stable=True).indices.to(
+                   torch.int32)}
+    return RealEdges(Graph(
+        num_src=g.num_src_nodes, num_dst=g.num_dst_nodes, src=src,
+        dst=dst, csc_indptr=csc_indptr.contiguous(),
+        is_block=g.is_block, **csr), eid)
 
 
 def on_real_edges(g, *edge_data: Optional[Tensor]):
@@ -868,7 +876,8 @@ def graph_segments(g, kind: str) -> Segments:
             counts = g.batch_num_edges or (g.num_edges(),)
         else:
             raise ValueError(f"unknown segment kind {kind!r}")
-        seg = segments(counts, g.device)
+        with span("ops.plans"):
+            seg = segments(counts, g.device)
         g.derived[key] = seg
     return seg
 
@@ -1081,6 +1090,7 @@ def _mm_float(a: Tensor, b: Tensor) -> Tensor:
     return torch.mm(a.to(acc), b.to(acc))
 
 
+@spanned("kernel.hybrid_mm")
 def _dense_matmul(C: Tensor, x: Tensor) -> Tensor:
     """C @ x: (R, N) counts @ (N, F) -> (R, F) in float32 (in float64 for
     a float64 x).  A bf16 x takes one bf16 product of C as it is stored;
@@ -1092,6 +1102,7 @@ def _dense_matmul(C: Tensor, x: Tensor) -> Tensor:
                       for r0 in range(0, C.shape[0], DENSE_CHUNK_ROWS)])
 
 
+@spanned("kernel.hybrid_mm")
 def _dense_matmul_t(C: Tensor, g: Tensor) -> Tensor:
     """Cᵀ @ g: (R, N)ᵀ @ (R, F) -> (N, F) in float32 (the backward), with
     ``_dense_matmul``'s precision."""
@@ -1152,6 +1163,7 @@ class GspmmHybrid(torch.autograd.Function):
         return out
 
     @staticmethod
+    @spanned("ops.gspmm.bwd")
     def backward(ctx, dout: Tensor):
         hyb = ctx.hyb
         rem = hyb.rem
@@ -1185,6 +1197,7 @@ def gspmm_hybrid(g, x: Tensor) -> Tensor:
     return out.reshape((out.shape[0],) + tuple(shape[1:]))
 
 
+@spanned("ops.prepare")
 def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
                  wc: Optional[int] = None, *, weighted: bool = True,
                  dense_hub: bool = True, dense_threshold: Optional[int] = None,
@@ -1226,15 +1239,16 @@ def prepare_spmm(g, tr: int = 128, te: int = 1024, bc: Optional[int] = None,
     graph_row_plan(kg, "csr")
     hyb = None
     if dense_hub and g.edge_mask is None:
-        wins = select_dense_windows(
-            g.host("csc_indptr"), g.num_src_nodes, g.num_dst_nodes, tr,
-            threshold=dense_threshold, budget_bytes=dense_budget,
-            flat_width=flat_width)
-        wins = _check_dense_exact(g, wins, tr)
-        if wins.size:
-            C, rows = _build_dense_C(g, wins, tr)
-            hyb = HybridPlan(build_hybrid_plan(g, wins, tr), C, rows,
-                             torch.from_numpy(wins).to(g.device), tr)
+        with span("ops.plans"):
+            wins = select_dense_windows(
+                g.host("csc_indptr"), g.num_src_nodes, g.num_dst_nodes, tr,
+                threshold=dense_threshold, budget_bytes=dense_budget,
+                flat_width=flat_width)
+            wins = _check_dense_exact(g, wins, tr)
+            if wins.size:
+                C, rows = _build_dense_C(g, wins, tr)
+                hyb = HybridPlan(build_hybrid_plan(g, wins, tr), C, rows,
+                                 torch.from_numpy(wins).to(g.device), tr)
     if hyb is None and "hybrid" not in g.derived:
         return g
     out = g.replace()

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from ..utils.env import dispatch_log, get_config
+from ..utils.profiling import spanned
 from .cuda.gat_kernel import gat_attention_fused
 from .cuda.spmm_kernel import widened
 from .edge_softmax import edge_softmax
@@ -64,6 +65,7 @@ class RoundToBf16(torch.autograd.Function):
         return g
 
 
+@spanned("ops.gat_attention")
 def gat_attention(g, fsrc: Tensor, el: Tensor, er: Tensor,
                   negative_slope: float = 0.2,
                   attn_w: Optional[Tensor] = None) -> Tensor:

@@ -66,6 +66,7 @@ from typing import Optional
 import torch
 
 from ..utils.env import dispatch_log
+from ..utils.profiling import spanned
 from . import segment
 from .common import apply_binary, gather_edge_operand
 from .cuda.build import LAUNCHES
@@ -209,6 +210,7 @@ def _v_side_decompose(g, op: str, reduce_op: str, lhs_data, rhs_data,
     return torch.where(_expand_like(deg > 0, out), out, torch.zeros_like(out))
 
 
+@spanned("ops.gspmm")
 def gspmm(g, op: str, reduce_op: str, lhs_data: Optional[Tensor] = None,
           rhs_data: Optional[Tensor] = None, lhs_target: str = "u",
           rhs_target: str = "e") -> Tensor:
